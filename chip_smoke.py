@@ -7,12 +7,20 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from ``diffsdfsim_torch/ops/csrc``
 (one nvcc per source, all started together), holds each kernel against its
-plain PyTorch version on the card, drives the main path (the bench scene's
-100-frame forward bounce rollout, float64) on CUDA, checks that it went
-through both kernels and that its trajectory matches the plain CPU rollout
-and the JAX package's committed golden file, and prints what it measured.
-Every check that fails raises, so any failure exits non-zero. Without a CUDA
-device it exits non-zero before printing any result.
+plain PyTorch version on the card, then drives the two paths of the port
+on CUDA (float64, the bench scene):
+
+- the forward path: the 100-frame bounce rollout through K1 (PDIPM) and K3
+  (Frank-Wolfe search), held against the plain CPU rollout and the JAX
+  package's committed golden trajectory;
+- the gradient path: d loss / d rad of bench.py's 100-frame loss through
+  K1, K3 and K2 (the LCP backward's KKT solve), held against the plain CPU
+  gradient and the JAX package's committed golden gradients.
+
+Each path runs with the kernels' launch counts set to 0 just before it and
+read just after. Every check that fails raises, so any failure exits
+non-zero. Without a CUDA device it exits non-zero before printing any
+result.
 """
 
 import json
@@ -25,6 +33,7 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "bench_rollout_f64.npz")
+GRAD_GOLDEN = os.path.join(ROOT, "tests", "golden", "bench_grad_f64.npz")
 
 # bench.py's forward configuration (float64 tolerance)
 BENCH_CFG = dict(
@@ -45,6 +54,13 @@ N_FRAMES = 100
 # (a bounded tangential drift). The first frame where any component leaves
 # 1e-7 is reported.
 ATOL_Y, ATOL_VY, ATOL_ALL, ATOL_REPORT = 1e-6, 1e-5, 5e-2, 1e-7
+# How the gradient d loss / d rad is held: within 1e-4 relative through the
+# first bounce (20 frames) and through frame 26 (27 frames); over the whole
+# 100 frames within 3e-3 relative, because from the touchdown in frame 26
+# the reference's own contact point is decided by rounding (above), and the
+# CPU and CUDA runs round differently too (on an H100 the CUDA gradient
+# reads 7.2e-4 from the JAX golden value and 1.1e-3 from the CPU port's).
+RTOL_GRAD_SHORT, RTOL_GRAD_100 = 1e-4, 3e-3
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores (the kernels use none)
@@ -125,8 +141,8 @@ def phase_device_and_build():
     ).stdout.strip().splitlines()[0]
     print(f"device: {name}  count: {torch.cuda.device_count()}  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    logs = _build.build_all(["pdipm_fwd", "fw_search"])
-    print(f"build: both kernels in {time.perf_counter() - t0:.1f} s (nvcc in parallel)")
+    logs = _build.build_all(["pdipm_fwd", "fw_search", "kkt_bwd"])
+    print(f"build: three kernels in {time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for kname, log in logs.items():
         lines = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
         regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in lines if "Used " in ln]
@@ -383,6 +399,79 @@ def phase_k3():
     return rows
 
 
+# ---------------------------------------------------------------- phase 3b
+
+
+def k2_flops(nz, neq, nineq, k, fd, B):
+    """FLOPs the backward KKT solve needs per problem: the reduced Schur
+    matrix [A; G]_r Q^-1 [A; G]_r' over its m2 rows with the cone and
+    friction-pair terms, one LU solve of it (2/3 m2^3 + 2 m2^2; the kernel
+    inverts instead, 4 m2^3), and the matrix-vector products around it."""
+    m2 = neq + k + k * fd // 2
+    m = neq + nineq
+    schur = 2 * m2 * nz * nz + 2 * m2 * m2 * nz + 30 * k * fd
+    solve = 2 * m2**3 // 3 + 2 * m2 * m2
+    per = schur + solve + 4 * nz * nz + 4 * m * nz
+    return B * per
+
+
+def phase_k2():
+    """K2 against its plain version on the same inputs: the bench LCPs of
+    phase 2, their plain solution (x, y, z, s) turned into the backward's
+    diagonal d as the replay's backward does, and a seeded rx. float64: 1e-9
+    relative to the largest entry, at 1, 6 and 576 problems (one
+    contacting substep; a seed sweep's batch). float32: both against the plain version
+    run in float64 on the same (float32-rounded) inputs, the kernel within
+    1e-4 relative; the plain float32 path keeps the JAX XLA path's d-clip to
+    [1e-5, 1e5] and ridge, which move its answer at these d (down to 1e-8),
+    so its error is reported, not held."""
+    import torch
+    from diffsdfsim_torch.ops.qp import blockdiag_inv3, kkt_grad_plain, pdipm_solve_raw
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    structure = ("fric", 4, 8)
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        for B in (1, 6, 576):
+            f64 = dtype == torch.float64
+            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype)
+            x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12 if f64 else 1e-6, 3, structure)
+            d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12 if f64 else 1e5)
+            rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=dtype, device="cuda")
+            iq = blockdiag_inv3(Q)
+            ins = (iq, G, A, F, d, rx)
+            out_k = kkt_grad_fric(*ins, structure)
+            out_p = kkt_grad_plain(*ins, structure)
+            out_ref = out_p if f64 else kkt_grad_plain(*(t.double() for t in ins), structure)
+            torch.cuda.synchronize()
+            rel = lambda a, r: float((a.double() - r.double()).abs().max()) / float(r.abs().max())  # noqa: E731
+            err = max(rel(a, r) for a, r in zip(out_k, out_ref))
+            abs_err = max(float((a.double() - r.double()).abs().max()) for a, r in zip(out_k, out_ref))
+            err_plain = max(rel(a, r) for a, r in zip(out_p, out_ref))
+            prep = kkt_grad_fric.prepare(*ins, structure)
+            ms, how = device_ms(lambda: kkt_grad_fric.launch(prep), "kkt_bwd_kernel")
+            wrapper_ms = cuda_ms(lambda: kkt_grad_fric(*ins, structure))
+            plain_ms = cuda_ms(lambda: kkt_grad_plain(*ins, structure), n=5, warm=1)
+            # the bytes the function needs: F only through its k cone
+            # coefficients mu (the kernel reads those and base_red, which
+            # is derived from invQ, G and A)
+            mu = prep["ins"][4]
+            nbytes = sum(t.numel() * t.element_size() for t in (iq, G, A, mu, d, rx) + tuple(out_k))
+            flops = k2_flops(12, 6, 40, 4, 8, B)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+            tol = 1e-9 if f64 else 1e-4
+            tag = f"K2 {str(dtype).split('.')[1]} B={B}"
+            print(f"{tag}: max abs err {abs_err:.3e}, max rel err {err:.3e} vs the plain version{'' if f64 else ' in float64'} (tol {tol:g})"
+                  f"{'' if f64 else f'; the plain float32 path is off by {err_plain:.3e}'}; kernel {ms:.4f} ms ({how}) "
+                  f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+                  f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
+            check(err <= tol, f"{tag}: kernel differs from the plain version by {err} (relative)")
+            rows[(dtype, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                    bytes_ms=bytes_ms, ops_ms=ops_ms)
+    return rows
+
+
 # ---------------------------------------------------------------- phase 4
 
 
@@ -442,6 +531,7 @@ def phase_main_path():
     launches = {"pdipm_fwd": pdipm_fric.launches, "fw_search": fw_search_pair.launches}
     check(launches["pdipm_fwd"] > 0 and launches["fw_search"] > 0,
           f"the main path did not run through both kernels: {launches}")
+    check(traj.pos.grad_fn is None, "the forward path recorded a tape with nothing requiring grad")
 
     tr = {k: v.cpu().numpy() for k, v in traj._asdict().items()}
     valid = tr["valid"]
@@ -503,6 +593,114 @@ def phase_main_path():
     return launches, wall, n_sub
 
 
+# ---------------------------------------------------------------- phase 5
+
+
+def bench_loss(device, n_frames):
+    """bench.py's loss over the bench world built from a radius that
+    requires grad: (loss, rad, spec), the rollout taped."""
+    import torch
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.physics import (BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body,
+                                          make_world, rollout)
+
+    rad = torch.tensor(0.5, dtype=torch.float64, device=device, requires_grad=True)
+    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25, device=device)
+    sphere = make_body(SphereShape(rad), subdiv=2, fric_coeff=0.25, device=device)
+    poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]]
+    spec, state = make_world([floor, sphere], poses, np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
+                             forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**BENCH_CFG), device=device)
+    _, traj = rollout(spec, state, n_frames)
+    return torch.sum(traj.pos[:, :, 1, :] ** 2 * traj.valid[:, :, None]), rad, spec
+
+
+def phase_gradient():
+    """The gradient path: value_and_grad of the 100-frame bench loss on
+    CUDA through K1, K3 and K2, held against the plain CPU gradient and the
+    JAX golden values."""
+    import warnings
+
+    import torch
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
+
+    golden = {k: float(v) for k, v in np.load(GRAD_GOLDEN).items()}
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+
+    # warm-up, and the 20- and 27-frame gradients against the golden values
+    for n in (20, 27):
+        loss, rad, _ = bench_loss("cuda", n)
+        loss.backward()
+        e = rel(float(rad.grad), golden[f"toc_{n}_grad"])
+        print(f"gradient path, {n} frames: d loss / d rad {float(rad.grad)!r} vs JAX golden "
+              f"{golden[f'toc_{n}_grad']!r}: rel {e:.2e} (tol {RTOL_GRAD_SHORT:g})")
+        check(e <= RTOL_GRAD_SHORT, f"{n}-frame gradient differs from the golden value by {e} (relative)")
+    torch.cuda.synchronize()
+
+    pdipm_fric.launches = fw_search_pair.launches = kkt_grad_fric.launches = 0
+    t0 = time.perf_counter()
+    loss, rad, spec = bench_loss("cuda", N_FRAMES)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    syncs_fwd = spec.host_syncs
+    # count the backward's reads of the device: a synchronizing op warns
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            loss.backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bwd_syncs = sum("synchroniz" in str(w.message) for w in caught)
+    launches = {"pdipm_fwd": pdipm_fric.launches, "fw_search": fw_search_pair.launches,
+                "kkt_bwd": kkt_grad_fric.launches}
+    grad = float(rad.grad)
+    wall = t2 - t0
+    print(f"gradient path: {N_FRAMES} frames fwd+bwd in {wall:.3f} s wall = {N_FRAMES / wall:.2f} fwd+bwd steps/s "
+          f"(forward {t1 - t0:.3f} s, backward {t2 - t1:.3f} s, backward share {(t2 - t1) / wall:.3f}); "
+          f"host syncs forward {syncs_fwd}, backward {bwd_syncs}; launches {launches}")
+    check(all(v > 0 for v in launches.values()), f"the gradient path did not run through all three kernels: {launches}")
+    check(bool(np.isfinite(grad)), f"the gradient is not finite: {grad}")
+
+    e_gold = rel(grad, golden["toc_100_grad"])
+    loss_c, rad_c, _ = bench_loss("cpu", N_FRAMES)
+    t0 = time.perf_counter()
+    loss_c.backward()
+    cpu_bwd = time.perf_counter() - t0
+    e_cpu = rel(grad, float(rad_c.grad))
+    print(f"gradient path: d loss / d rad {grad!r}; plain CPU {float(rad_c.grad)!r} (rel {e_cpu:.2e}, its backward "
+          f"{cpu_bwd:.2f} s on the host); JAX golden {golden['toc_100_grad']!r} (rel {e_gold:.2e}); "
+          f"loss {float(loss.detach())!r} vs golden {golden['toc_100_loss']!r} (tol {RTOL_GRAD_100:g})")
+    check(e_gold <= RTOL_GRAD_100, f"100-frame gradient differs from the golden value by {e_gold} (relative)")
+    check(e_cpu <= RTOL_GRAD_100, f"100-frame gradient differs from the plain CPU gradient by {e_cpu} (relative)")
+
+    # device busy share of a profiled 20-frame fwd+bwd (the first bounce)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        loss, rad, _ = bench_loss("cuda", 20)
+        loss.backward()
+        torch.cuda.synchronize()
+        pwall = time.perf_counter() - t0
+    kern = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            kern[ev.key] = dev / 1e3
+    busy = sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+    print(f"gradient path, 20 profiled frames fwd+bwd: wall {pwall * 1e3:.1f} ms, device busy {busy:.1f} ms "
+          f"({100 * busy / (pwall * 1e3):.1f}%, idle {100 - 100 * busy / (pwall * 1e3):.1f}%); top kernels (ms): "
+          + "; ".join(f"{k[:48]} {v:.2f}" for k, v in top) + f"; {len(kern)} distinct kernels")
+    return launches
+
+
 def main():
     import torch
 
@@ -516,11 +714,14 @@ def main():
     name, smi = phase_device_and_build()
     k1 = phase_k1()
     k3 = phase_k3()
-    launches, wall, n_sub = phase_main_path()
+    k2 = phase_k2()
+    launches, wall, n_sub = phase_main_path()  # in grad mode, as a forward-only caller runs it
+    grad_launches = phase_gradient()
 
     f64 = torch.float64
     k1r = k1[(f64, 3)]
     k3r = k3[(f64, "sphere->floor touch R=3")]  # the pair that finds the contacts
+    k2r = k2[(f64, 1)]  # one problem per contacting substep on the main path
     kernels = [
         dict(name="pdipm_fwd", route="cuda", source="diffsdfsim_torch/ops/csrc/pdipm_fwd.cu",
              replaces="diffsdfsim_tpu/ops/qp_pallas.py:247", launches=launches["pdipm_fwd"],
@@ -532,6 +733,11 @@ def main():
              max_abs_err=max(r["err"] for (dt, _), r in k3.items() if dt == f64), ms=k3r["ms"], plain_ms=k3r["plain_ms"],
              bound_ms=max(k3r["bytes_ms"], k3r["ops_ms"]),
              bound_by="bytes" if k3r["bytes_ms"] > k3r["ops_ms"] else "operations", library_ms=None),
+        dict(name="kkt_bwd", route="cuda", source="diffsdfsim_torch/ops/csrc/kkt_bwd.cu",
+             replaces="diffsdfsim_tpu/ops/qp_pallas.py:712", launches=grad_launches["kkt_bwd"],
+             max_abs_err=max(r["err"] for (dt, _), r in k2.items() if dt == f64), ms=k2r["ms"],
+             plain_ms=k2r["plain_ms"], bound_ms=max(k2r["bytes_ms"], k2r["ops_ms"]),
+             bound_by="bytes" if k2r["bytes_ms"] > k2r["ops_ms"] else "operations", library_ms=None),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

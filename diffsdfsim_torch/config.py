@@ -76,11 +76,11 @@ class SimConfig:
     ``remat_replay``, ``remat_policy``, ``substep_unroll`` and
     ``frame_unroll``.
 
-    Backends: ``solver_backend`` and ``fw_backend`` accept only ``"auto"``.
-    Dispatch follows the tensors' device alone: CUDA tensors launch the
-    hand-written kernels (``ops/qp_cuda.py``, ``ops/fw_cuda.py``), CPU
-    tensors take their plain PyTorch versions. ``solver_bwd`` belongs to the
-    gradient path, which this package does not have yet.
+    Backends: ``solver_backend``, ``solver_bwd`` and ``fw_backend`` accept
+    only ``"auto"``. Dispatch follows the tensors' device alone: CUDA tensors
+    launch the hand-written kernels (the PDIPM forward and the LCP
+    backward's KKT solve in ``ops/qp_cuda.py``, the contact search in
+    ``ops/fw_cuda.py``), CPU tensors take their plain PyTorch versions.
     """
 
     dt: float = Defaults.DT
@@ -130,7 +130,7 @@ class SimConfig:
     mesh_project_iters: int = 12
 
     def __post_init__(self):
-        for name in ("solver_backend", "fw_backend"):
+        for name in ("solver_backend", "solver_bwd", "fw_backend"):
             if getattr(self, name) != "auto":
                 raise ValueError(
                     f"{name}={getattr(self, name)!r}: only 'auto' is supported; "

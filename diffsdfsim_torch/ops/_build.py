@@ -3,8 +3,9 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface and loaded with ``ctypes``. A library is built at
 first use into ``diffsdfsim_torch/_build/`` (git-ignored), under a name
-keyed by a hash of its source and flags, so a changed source rebuilds and an
-unchanged one is reused. Nothing here runs at import time.
+keyed by a hash of its source, of every header in ``csrc/`` (``*.cuh``, which
+any source may include) and of the flags, so a changed source or header
+rebuilds and an unchanged one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -35,9 +36,11 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def start_build(name: str):

@@ -14,7 +14,9 @@
 // the k cone rows are eliminated, the +/- friction-direction pairs are
 // folded into sum/difference variables (a per-contact Sherman-Morrison), and
 // the remaining m2 = neq + k + k*fd/2 rows (26 on the bench) are inverted by
-// pivot-free Gauss-Jordan with the same tiny-pivot guard (safe_pv).
+// pivot-free Gauss-Jordan with the same tiny-pivot guard (safe_pv). That
+// reduced solve is shared with the backward kernel K2 (kkt_bwd.cu) through
+// fric_schur.cuh.
 //
 // What bounds it on an H100: neither bytes nor FLOPs. At the main path's
 // shapes (B = 3 or 6 problems) one launch reads ~50-100 KB and does
@@ -41,29 +43,25 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "fric_schur.cuh"
+
 namespace {
 
-constexpr int WARP = 32;
+using fric::WARP;
+using fric::carve;
+using fric::copy;
+using fric::dot;
+using fric::mtv;
+using fric::mv;
+using fric::warp_any;
+using fric::warp_min;
+using fric::warp_sum;
 
 template <typename T>
-struct Sizes {
-  int nz, neq, neq_real, nineq, k, fd, max_iter, nil;
+struct Sizes : fric::Dims {
+  int max_iter, nil;
   T eps;
 };
-
-template <typename T>
-__device__ __forceinline__ T warp_sum(T v) {
-  for (int o = WARP / 2; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <typename T>
-__device__ __forceinline__ T warp_min(T v) {
-  for (int o = WARP / 2; o > 0; o >>= 1) v = fmin(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ int warp_any(int v) { return __any_sync(0xffffffffu, v); }
 
 template <typename T>
 __device__ __forceinline__ T big_value();
@@ -71,33 +69,6 @@ template <>
 __device__ __forceinline__ float big_value<float>() { return 3.402823466e38f; }
 template <>
 __device__ __forceinline__ double big_value<double>() { return 1.7976931348623157e308; }
-
-// out[i] = sum_j M[i, j] v[j]
-template <typename T>
-__device__ void mv(T* out, const T* M, const T* v, int rows, int cols, int lane) {
-  for (int i = lane; i < rows; i += WARP) {
-    T acc = 0;
-    for (int j = 0; j < cols; ++j) acc += M[i * cols + j] * v[j];
-    out[i] = acc;
-  }
-}
-
-// out[j] = sum_i M[i, j] v[i]
-template <typename T>
-__device__ void mtv(T* out, const T* M, const T* v, int rows, int cols, int lane) {
-  for (int j = lane; j < cols; j += WARP) {
-    T acc = 0;
-    for (int i = 0; i < rows; ++i) acc += M[i * cols + j] * v[i];
-    out[j] = acc;
-  }
-}
-
-template <typename T>
-__device__ T dot(const T* a, const T* b, int n, int lane) {
-  T acc = 0;
-  for (int i = lane; i < n; i += WARP) acc += a[i] * b[i];
-  return warp_sum(acc);
-}
 
 // max step in [0, inf) keeping v + a dv > 0 (reference get_step)
 template <typename T>
@@ -110,162 +81,17 @@ __device__ T get_step(const T* v, const T* dv, int n, int lane) {
 
 template <typename T>
 struct Work {
-  // problem data
-  T *Q, *invQ, *G, *A, *F, *base_red, *mu, *p, *h, *b;
+  // problem data (base_red and mu live in the reduced-solve work f)
+  T *Q, *invQ, *G, *A, *F, *p, *h, *b;
   // iterates and best iterates
   T *x, *s, *z, *y, *bx, *bs, *bz, *by;
   // residuals and directions
   T *rx, *rz, *ry, *dxa, *dsa, *dza, *dya, *dxc, *dsc, *dzc, *dyc, *rs, *d, *dinv;
-  // factorization
-  T *aug, *sig_inv, *cj_r, *delta, *dsig, *dc, *cj, *sj;
   // scratch
-  T *t_nz, *t_nz2, *hvec, *wvec, *t2a, *t2b, *t2c, *t2d, *tk, *tk2, *rhs2, *w2, *zero;
+  T *t_nz, *t_nz2, *hvec, *wvec, *zero;
+  // the reduced Schur solve (fric_schur.cuh)
+  fric::Work<T> f;
 };
-
-template <typename T>
-__device__ T* carve(T*& p, int n) {
-  T* out = p;
-  p += n;
-  return out;
-}
-
-// reduced factorization of the Schur complement for dinv = 1 / d
-// (JAX _make_fric_ops.factor); the inverse of K lands in aug[:, m2:]
-template <typename T>
-__device__ void factor(const Sizes<T>& S, Work<T>& w, const T* dinv, int lane) {
-  const int k = S.k, fd = S.fd, fd2 = fd / 2, nf = k * fd, nf2 = k * fd2;
-  const int neq = S.neq, m2 = neq + k + nf2, vstart = neq + k;
-  for (int c = lane; c < k; c += WARP) w.dc[c] = (T)1 / dinv[k + nf + c];
-  for (int r = lane; r < nf2; r += WARP) {
-    const int c = r / fd2, j = r % fd2, src = c * fd + j;
-    const T dpi = dinv[k + src], dmi = dinv[k + src + fd2];
-    const T sigma = (T)0.5 * (dpi + dmi);
-    const T delta = (T)0.5 * (dpi - dmi);
-    const T si = (T)1 / sigma;
-    w.sig_inv[r] = si;
-    w.delta[r] = delta;
-    w.dsig[r] = delta * si;
-    w.t2a[r] = (T)0.5 * sigma - (T)0.5 * delta * (delta * si);  // diag add on v rows
-  }
-  __syncwarp();
-  for (int c = lane; c < k; c += WARP) {
-    T acc = 0;
-    for (int j = 0; j < fd2; ++j) acc += w.sig_inv[c * fd2 + j];
-    w.sj[c] = acc;
-    w.cj[c] = (T)2 * w.dc[c] / ((T)1 + (T)2 * w.dc[c] * acc);
-  }
-  __syncwarp();
-  for (int r = lane; r < nf2; r += WARP) w.cj_r[r] = w.cj[r / fd2];
-  __syncwarp();
-  const int ld = 2 * m2;
-  for (int e = lane; e < m2 * m2; e += WARP) {
-    const int i = e / m2, j = e % m2;
-    T diag = 0;
-    if (i == j) {
-      if (j >= S.neq_real && j < neq) diag = 1;  // pad_reg: pins a padded y to 0
-      else if (j >= neq && j < vstart) diag = dinv[j - neq];
-      else if (j >= vstart) diag = w.t2a[j - vstart];
-    }
-    T v = w.base_red[e] + diag;
-    if (i >= vstart && j >= vstart) {
-      const int ri = i - vstart, rj = j - vstart;
-      if (ri / fd2 == rj / fd2) v += (T)0.5 * w.cj_r[ri] * w.dsig[ri] * w.dsig[rj];
-    }
-    if (i >= vstart && j >= neq && j < vstart) {
-      const int ri = i - vstart, c = j - neq;
-      if (ri / fd2 == c) v += w.dsig[ri] * (w.dc[c] * w.mu[c] * ((T)1 - w.cj[c] * w.sj[c]));
-    }
-    w.aug[i * ld + j] = v;
-    w.aug[i * ld + m2 + j] = (i == j) ? (T)1 : (T)0;
-  }
-  __syncwarp();
-  // pivot-free Gauss-Jordan on [K | I] with the tiny-pivot guard
-  const T tiny = (T)1e-30;
-  for (int kk = 0; kk < m2; ++kk) {
-    T pv = w.aug[kk * ld + kk];
-    if (fabs(pv) < tiny) pv = tiny;
-    for (int j = lane; j < ld; j += WARP) w.rhs2[j] = w.aug[kk * ld + j] / pv;  // pivot row
-    for (int i = lane; i < m2; i += WARP) w.w2[i] = w.aug[i * ld + kk];  // pivot column
-    __syncwarp();
-    for (int e = lane; e < m2 * ld; e += WARP) {
-      const int i = e / ld, j = e % ld;
-      w.aug[e] = (i == kk) ? w.rhs2[j] : w.aug[e] - w.w2[i] * w.rhs2[j];
-    }
-    __syncwarp();
-  }
-}
-
-// per-contact Sherman-Morrison (sigma + 2C)^-1 x, in place from x to out
-template <typename T>
-__device__ void sm_apply(const Sizes<T>& S, Work<T>& w, const T* x, T* out, int lane) {
-  const int fd2 = S.fd / 2, nf2 = S.k * fd2;
-  for (int r = lane; r < nf2; r += WARP) out[r] = w.sig_inv[r] * x[r];
-  __syncwarp();
-  for (int c = lane; c < S.k; c += WARP) {
-    T acc = 0;
-    for (int j = 0; j < fd2; ++j) acc += out[c * fd2 + j];
-    w.tk2[c] = acc;
-  }
-  __syncwarp();
-  for (int r = lane; r < nf2; r += WARP) out[r] = out[r] - w.cj_r[r] * w.sig_inv[r] * w.tk2[r / fd2];
-  __syncwarp();
-}
-
-// w = S^-1 hvec (JAX _make_fric_ops.solve_S_fac); hvec and out have m rows
-template <typename T>
-__device__ void solve_S(const Sizes<T>& S, Work<T>& w, const T* hvec, T* out, int lane) {
-  const int k = S.k, fd = S.fd, fd2 = fd / 2, nf = k * fd, nf2 = k * fd2;
-  const int neq = S.neq, m2 = neq + k + nf2, vstart = neq + k, m = neq + S.nineq;
-  const T* hf = hvec + neq + k;
-  const T* hc = hvec + m - k;
-  // t2a = rp, t2b = rm, t2c = q
-  for (int r = lane; r < nf2; r += WARP) {
-    const int c = r / fd2, src = c * fd + r % fd2;
-    const T rp = hf[src], rm = hf[src + fd2];
-    w.t2a[r] = rp;
-    w.t2b[r] = rm;
-    w.t2c[r] = rp + rm - (T)2 * (w.dc[c] * hc[c]);
-  }
-  __syncwarp();
-  sm_apply(S, w, w.t2c, w.t2d, lane);  // t2d = SM(q)
-  for (int i = lane; i < m2; i += WARP) {
-    T v;
-    if (i < neq + k) v = hvec[i];
-    else {
-      const int r = i - vstart;
-      v = (T)0.5 * (w.t2a[r] - w.t2b[r] - w.delta[r] * w.t2d[r]);
-    }
-    w.t_nz2[i] = v;  // rhs (m2 <= scratch size)
-  }
-  __syncwarp();
-  const int ld = 2 * m2;
-  for (int i = lane; i < m2; i += WARP) {
-    T acc = 0;
-    for (int j = 0; j < m2; ++j) acc += w.aug[i * ld + m2 + j] * w.t_nz2[j];
-    w.w2[i] = acc;
-  }
-  __syncwarp();
-  const T* wn = w.w2 + neq;
-  const T* v = w.w2 + vstart;
-  for (int r = lane; r < nf2; r += WARP) {
-    const int c = r / fd2;
-    w.t2d[r] = w.t2c[r] + (T)2 * (w.dc[c] * w.mu[c] * wn[c]) - w.delta[r] * v[r];
-  }
-  __syncwarp();
-  sm_apply(S, w, w.t2d, w.t2a, lane);  // t2a = u
-  for (int i = lane; i < neq + k; i += WARP) out[i] = w.w2[i];
-  for (int r = lane; r < nf2; r += WARP) {
-    const int c = r / fd2, src = c * fd + r % fd2;
-    out[neq + k + src] = (T)0.5 * (w.t2a[r] + v[r]);
-    out[neq + k + src + fd2] = (T)0.5 * (w.t2a[r] - v[r]);
-  }
-  for (int c = lane; c < k; c += WARP) {
-    T acc = 0;
-    for (int j = 0; j < fd2; ++j) acc += w.t2a[c * fd2 + j];
-    out[m - k + c] = w.dc[c] * (hc[c] - w.mu[c] * wn[c] + acc);
-  }
-  __syncwarp();
-}
 
 // one KKT solve with the factored Schur complement (JAX kernel solve_kkt)
 template <typename T>
@@ -280,7 +106,7 @@ __device__ void solve_kkt(const Sizes<T>& S, Work<T>& w, const T* d, const T* rx
   for (int i = lane; i < neq; i += WARP) w.hvec[i] = w.hvec[i] - ry[i];
   for (int i = lane; i < nineq; i += WARP) w.hvec[neq + i] = w.hvec[neq + i] + rs[i] / d[i] - rz[i];
   __syncwarp();
-  solve_S(S, w, w.hvec, w.wvec, lane);
+  fric::solve_S(S, w.f, w.hvec, w.wvec, lane);
   for (int i = lane; i < neq + nineq; i += WARP) w.wvec[i] = -w.wvec[i];
   __syncwarp();
   const T* w_eq = w.wvec;
@@ -331,11 +157,6 @@ __device__ void residuals(const Sizes<T>& S, Work<T>& w, const T* x, const T* s,
 }
 
 template <typename T>
-__device__ void copy(T* dst, const T* src, int n, int lane) {
-  for (int i = lane; i < n; i += WARP) dst[i] = src[i];
-}
-
-template <typename T>
 __global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* __restrict__ ginvQ,
                                  const T* __restrict__ gG, const T* __restrict__ gA,
                                  const T* __restrict__ gF, const T* __restrict__ gbase_red,
@@ -356,8 +177,6 @@ __global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* 
   w.G = carve(p, nineq * nz);
   w.A = carve(p, neq * nz);
   w.F = carve(p, nineq * nineq);
-  w.base_red = carve(p, m2 * m2);
-  w.mu = carve(p, k);
   w.p = carve(p, nz);
   w.h = carve(p, nineq);
   w.b = carve(p, neq);
@@ -369,25 +188,19 @@ __global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* 
   w.rs = carve(p, nineq);
   w.d = carve(p, nineq);
   w.dinv = carve(p, nineq);
-  w.aug = carve(p, m2 * 2 * m2);
-  w.sig_inv = carve(p, nf2); w.cj_r = carve(p, nf2); w.delta = carve(p, nf2); w.dsig = carve(p, nf2);
-  w.dc = carve(p, k); w.cj = carve(p, k); w.sj = carve(p, k);
   w.t_nz = carve(p, nz);
-  w.t_nz2 = carve(p, m2 > nz ? m2 : nz);
+  w.t_nz2 = carve(p, nz);
   w.hvec = carve(p, m); w.wvec = carve(p, m);
-  w.t2a = carve(p, nf2); w.t2b = carve(p, nf2); w.t2c = carve(p, nf2); w.t2d = carve(p, nf2);
-  w.tk = carve(p, k); w.tk2 = carve(p, k);
-  w.rhs2 = carve(p, 2 * m2);
-  w.w2 = carve(p, m2);
   w.zero = carve(p, nineq > nz ? nineq : nz);
+  w.f = fric::carve_work(p, S);
 
   copy(w.Q, gQ + (size_t)prob * nz * nz, nz * nz, lane);
   copy(w.invQ, ginvQ + (size_t)prob * nz * nz, nz * nz, lane);
   copy(w.G, gG + (size_t)prob * nineq * nz, nineq * nz, lane);
   copy(w.A, gA + (size_t)prob * neq * nz, neq * nz, lane);
   copy(w.F, gF + (size_t)prob * nineq * nineq, nineq * nineq, lane);
-  copy(w.base_red, gbase_red + (size_t)prob * m2 * m2, m2 * m2, lane);
-  copy(w.mu, gmu + (size_t)prob * k, k, lane);
+  copy(w.f.base_red, gbase_red + (size_t)prob * m2 * m2, m2 * m2, lane);
+  copy(w.f.mu, gmu + (size_t)prob * k, k, lane);
   copy(w.p, gp + (size_t)prob * nz, nz, lane);
   copy(w.h, gh + (size_t)prob * nineq, nineq, lane);
   copy(w.b, gb + (size_t)prob * neq, neq, lane);
@@ -404,7 +217,7 @@ __global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* 
   }
   for (int i = lane; i < neq; i += WARP) w.ry[i] = -w.b[i];
   __syncwarp();
-  factor(S, w, dinv, lane);
+  fric::factor(S, w.f, dinv, lane);
   solve_kkt(S, w, d, w.p, w.zero, w.rs, w.ry, w.x, w.s, w.z, w.y, lane);
   // shift slacks and duals to >= 1 (batch.py:100-110)
   {
@@ -452,7 +265,7 @@ __global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* 
       dinv[i] = (T)1 / d[i];
     }
     __syncwarp();
-    factor(S, w, dinv, lane);
+    fric::factor(S, w.f, dinv, lane);
     solve_kkt(S, w, d, w.rx, w.z, w.rz, w.ry, w.dxa, w.dsa, w.dza, w.dya, lane);
 
     // centering-corrector (batch.py:184-211)
@@ -519,16 +332,14 @@ __global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* 
 
 template <typename T>
 size_t smem_elems(const Sizes<T>& S) {
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq, k = S.k, fd2 = S.fd / 2;
-  const int nf2 = k * fd2, m2 = neq + k + nf2, m = neq + nineq;
+  const int nz = S.nz, neq = S.neq, nineq = S.nineq, m = neq + nineq;
   size_t n = 0;
-  n += 2 * nz * nz + nineq * nz + neq * nz + nineq * nineq + m2 * m2 + k + nz + nineq + neq;
+  n += 2 * nz * nz + nineq * nz + neq * nz + nineq * nineq + nz + nineq + neq;  // problem data
   n += 2 * (nz + 2 * nineq + neq);               // iterates, best
   n += nz + nineq + neq;                         // residuals
   n += 2 * (nz + 2 * nineq + neq) + 3 * nineq;   // directions, rs, d, dinv
-  n += 2 * m2 * m2 + 4 * nf2 + 3 * k;            // factorization
-  n += nz + (m2 > nz ? m2 : nz) + 2 * m + 4 * nf2 + 2 * k + 2 * m2 + m2 + (nineq > nz ? nineq : nz);
-  return n;
+  n += 2 * nz + 2 * m + (nineq > nz ? nineq : nz);  // scratch
+  return n + fric::work_elems(S);
 }
 
 template <typename T>
@@ -537,7 +348,7 @@ int launch(int B, int nz, int neq, int neq_real, int nineq, int k, int fd, int m
            const void* F, const void* base_red, const void* mu, const void* p, const void* h,
            const void* b, void* out_best, void* out_cur, void* done_it, void* cur_improves,
            void* stream) {
-  Sizes<T> S{nz, neq, neq_real, nineq, k, fd, max_iter, nil, (T)eps};
+  Sizes<T> S{{nz, neq, neq_real, nineq, k, fd}, max_iter, nil, (T)eps};
   const size_t bytes = smem_elems(S) * sizeof(T);
   cudaError_t err = cudaFuncSetAttribute(pdipm_fwd_kernel<T>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -571,10 +382,10 @@ int pdipm_fwd(int dtype, int B, int nz, int neq, int neq_real, int nineq, int k,
 // shared-memory bytes one problem needs (the wrapper refuses what the card cannot hold)
 long long pdipm_fwd_smem_bytes(int dtype, int nz, int neq, int nineq, int k, int fd) {
   if (dtype == 1) {
-    Sizes<double> S{nz, neq, neq, nineq, k, fd, 0, 0, 0.0};
+    Sizes<double> S{{nz, neq, neq, nineq, k, fd}, 0, 0, 0.0};
     return (long long)(smem_elems(S) * sizeof(double));
   }
-  Sizes<float> S{nz, neq, neq, nineq, k, fd, 0, 0, 0.0f};
+  Sizes<float> S{{nz, neq, neq, nineq, k, fd}, 0, 0, 0.0f};
   return (long long)(smem_elems(S) * sizeof(float));
 }
 

@@ -1,13 +1,16 @@
-"""Batched mixed-LCP / QP solver (primal-dual interior point), forward half.
+"""Batched differentiable mixed-LCP / QP solver (primal-dual interior point).
 
-PyTorch counterpart of the forward of ``diffsdfsim_tpu/ops/qp.py``
-(reference ``lcp_physics/lcp/solvers/batch.py:70-231``): a Mehrotra
+PyTorch counterpart of ``diffsdfsim_tpu/ops/qp.py`` (reference
+``lcp_physics/lcp/lcp.py`` + ``lcp/solvers/batch.py:70-231``): a Mehrotra
 predictor-corrector interior-point method solving, per batch element,
 
-    min_z  1/2 z'Qz + p'z   s.t.  Gz <= h + Fz,  Az = b.
+    min_z  1/2 z'Qz + p'z   s.t.  Gz <= h + Fz,  Az = b,
 
-``pdipm_solve_raw`` is the plain version of the hand-written CUDA kernel in
-``ops/qp_cuda.py`` (K1). It keeps the JAX XLA path's arithmetic: Q inverted
+with gradients by implicit differentiation of the KKT conditions
+(``lcp.py:155-213``).
+
+``pdipm_solve_raw`` is the plain version of the hand-written CUDA kernel K1
+(``ops/qp_cuda.py``). It keeps the JAX XLA path's arithmetic: Q inverted
 once by Cholesky, the Schur complement factored per iteration by Cholesky
 (``("plain",)``), Cholesky + rank-k Woodbury (``("fric", k, fd)``), or LU
 (``None``), best-iterate tracking, a NaN freeze, per-lane not-improved /
@@ -15,8 +18,12 @@ eps stopping, and a loop that exits once every lane is done. Like the JAX
 ``while_loop``, a lane that finished early still gets its last step's
 iterate checked for improvement while other lanes keep iterating.
 
-The gradient (KKT implicit differentiation) comes with the gradient slice;
-``lcp_solve_from_solution`` here is its forward, which returns the cached x.
+The backward (``_lcp_bwd``) is one KKT solve with right-hand side
+(dL/dz, 0, 0, 0) and the outer-product gradients of Q, p, G, h, A, b, F.
+``kkt_grad_plain`` is that solve given Q^-1, the plain version of the CUDA
+kernel K2; ``LcpSolveFromSolution`` (re-emission of a cached solution, the
+replay's solve) and ``LcpSolve`` (a full solve, post-stabilization's) are
+the ``torch.autograd.Function``s around it.
 """
 
 from __future__ import annotations
@@ -24,6 +31,11 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+
+def _bouter(a, b):
+    """Batched outer product a b': (nb,n),(nb,m) -> (nb,n,m)."""
+    return a[..., :, None] * b[..., None, :]
 
 
 def _bmv(M, v):
@@ -319,11 +331,97 @@ def pdipm_solve_raw(Q, p, G, h, A, b, F, max_iter=10, eps=1e-12, not_improved_li
     return _pdipm_forward(Q, p, G, h, A, b, F, max_iter, eps, not_improved_lim, structure)
 
 
-def lcp_solve_from_solution(Q, p, G, h, A, b, F, sol, structure=None):
-    """Re-emit a precomputed LCP solution. Forward only in this slice: it
-    returns the cached x; the KKT implicit-diff backward comes with the
-    gradient slice."""
-    return sol[0]
+def kkt_grad_plain(invQ, G, A, F, d, rx, structure=None):
+    """The backward KKT solve given Q^-1 (reference lcp.py:184-198: rhs
+    (rx, 0, 0, 0) at diagonal d), returning (dx, dlam, dnu). The plain
+    version of the CUDA kernel K2 (``ops/qp_cuda.kkt_grad_fric``); the
+    Schur strategy follows ``structure`` as in the forward."""
+    nb, nineq, _ = G.shape
+    neq = A.shape[-2]
+    AG = torch.cat([A, G], dim=-2) if neq > 0 else G
+    cache = _KKTCache(invQ, AG @ invQ @ AG.transpose(-1, -2), G, A, F, structure)
+    zi = torch.zeros((nb, nineq), dtype=d.dtype, device=d.device)
+    ze = torch.zeros((nb, neq), dtype=d.dtype, device=d.device)
+    dx, _, dlam, dnu = _solve_kkt(cache, d, rx, zi, zi, ze)
+    return dx, dlam, dnu
+
+
+def _lcp_bwd(Q, G, A, F, zhat, nu, lam, slack, dl_dzhat, structure, kkt_solve=None):
+    """Gradients (dQ, dp, dG, dh, dA, db, dF) of the LCP solution's x
+    (JAX ops/qp.py:485-533). ``kkt_solve(Q, G, A, F, d, rx, structure)``,
+    where given, takes the place of the plain KKT solve and returns (dx,
+    dlam, dnu): the engine passes the one that runs kernel K2, as the JAX
+    package's "fric_pallas" branch does."""
+    nb, nineq, nz = G.shape
+    neq = A.shape[-2]
+    # clamp to avoid blow-up on tiny slacks (lcp.py:174-176); in f32 also
+    # cap d, a no-op in f64 (JAX ops/qp.py:491-497)
+    cap = 1e5 if Q.dtype == torch.float32 else 1e12
+    d = torch.clamp(torch.clamp(lam, min=1e-8) / torch.clamp(slack, min=1e-8), max=cap)
+    if kkt_solve is not None:
+        dx, dlam, dnu = kkt_solve(Q, G, A, F, d, dl_dzhat, structure)
+    else:
+        cache = _pre_factor(Q, G, A, F, structure)
+        zi = torch.zeros((nb, nineq), dtype=Q.dtype, device=Q.device)
+        ze = torch.zeros((nb, neq), dtype=Q.dtype, device=Q.device)
+        dx, _, dlam, dnu = _solve_kkt(cache, d, dl_dzhat, zi, zi, ze)
+
+    dF = _bouter(dlam, lam)
+    dG = _bouter(dlam, zhat) + _bouter(lam, dx)
+    if neq > 0:
+        dA = _bouter(dnu, zhat) + _bouter(nu, dx)
+    else:
+        dA = torch.zeros_like(A)
+    dQ = 0.5 * (_bouter(dx, zhat) + _bouter(zhat, dx))
+    return dQ, dx, dG, -dlam, dA, -dnu, dF
+
+
+class LcpSolveFromSolution(torch.autograd.Function):
+    """Re-emission of a precomputed solution (x, y, z, s) with the exact
+    KKT implicit-diff backward (JAX ops/qp.py:550-580). The solution gets no
+    gradient; it must come from a solve of the identical problem."""
+
+    @staticmethod
+    def forward(ctx, Q, p, G, h, A, b, F, x, y, z, s, structure, kkt_solve):
+        ctx.save_for_backward(Q, G, A, F, x, y, z, s)
+        ctx.structure, ctx.kkt_solve = structure, kkt_solve
+        return x.clone()
+
+    @staticmethod
+    def backward(ctx, dl_dx):
+        Q, G, A, F, x, y, z, s = ctx.saved_tensors
+        grads = _lcp_bwd(Q, G, A, F, x, y, z, s, dl_dx, ctx.structure, ctx.kkt_solve)
+        return grads + (None,) * 6
+
+
+def lcp_solve_from_solution(Q, p, G, h, A, b, F, sol, structure=None, kkt_solve=None):
+    """x of the cached solution ``sol`` = (x, y, z, s), differentiable in
+    (Q, p, G, h, A, b, F) through the KKT backward (``kkt_solve``: see
+    ``_lcp_bwd``)."""
+    x, y, z, s = (t.detach() for t in sol)
+    return LcpSolveFromSolution.apply(Q, p, G, h, A, b, F, x, y, z, s, structure, kkt_solve)
+
+
+class LcpSolve(torch.autograd.Function):
+    """Full forward solve with the KKT implicit-diff backward (JAX
+    ``lcp_solve``, ops/qp.py:457-536)."""
+
+    @staticmethod
+    def forward(ctx, Q, p, G, h, A, b, F, max_iter, eps, not_improved_lim, structure):
+        x, y, z, s = _pdipm_forward(Q, p, G, h, A, b, F, max_iter, eps, not_improved_lim, structure)
+        ctx.save_for_backward(Q, G, A, F, x, y, z, s)
+        ctx.structure = structure
+        return x
+
+    @staticmethod
+    def backward(ctx, dl_dx):
+        Q, G, A, F, x, y, z, s = ctx.saved_tensors
+        return _lcp_bwd(Q, G, A, F, x, y, z, s, dl_dx, ctx.structure) + (None,) * 4
+
+
+def lcp_solve(Q, p, G, h, A, b, F, max_iter=10, eps=1e-12, not_improved_lim=3, structure=None):
+    """Solve the batched mixed LCP; returns x (nb, nz), differentiable."""
+    return LcpSolve.apply(Q, p, G, h, A, b, F, max_iter, eps, not_improved_lim, structure)
 
 
 def lcp_residuals(Q, p, G, h, A, b, F, sol):

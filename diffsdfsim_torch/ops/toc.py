@@ -1,11 +1,22 @@
-"""Time-of-contact (TOC) differential, forward.
+"""Time-of-contact (TOC) differential.
 
 PyTorch counterpart of ``diffsdfsim_tpu/ops/toc.py`` (reference
 ``lcp_physics/physics/world.py:141-237``, class ``World.H``). After a step
 that creates new contacts, dt is re-emitted through ``toc_dt``, an identity
 whose backward applies the implicit function theorem to the contact gap
-function D(h, .). This slice is forward only: ``toc_dt`` returns dt, and its
-``torch.autograd.Function`` comes with the gradient slice.
+function
+
+    D(h, .) = n2' (c2 - R2h' (R1h c1 + x1h - x2h))
+
+with x_ih = x_i + h v_i + 1/2 a_i h^2 and R_ih = exp(h w_i) R_i:
+
+    dL/dtheta = -dL/dh * sum_k w_k dD_k/dtheta,   w = dD/dh / sum_k (dD_k/dh)^2,
+
+with dD_k/dh < TOL/h zeroed ("only motion into collision", world.py:204),
+padded slots masked, and w = 0 when sum (dD/dh)^2 <= 1e-5
+(world.py:206-210). The backward is one forward-mode derivative for dD/dh
+and one vector-Jacobian product with cotangent -w dL/dh for all eleven
+inputs at once, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,7 +57,34 @@ def gap_function(h, a: TocArgs):
     return torch.sum(a.ns2 * (a.cs2 - cih_j), dim=-1)
 
 
+class TocDt(torch.autograd.Function):
+    """Identity on h whose backward routes dL/dh into the contact state by
+    the implicit function theorem on the gap function (JAX ops/toc.py:73-106)."""
+
+    @staticmethod
+    def forward(ctx, h, mask, *args):
+        ctx.save_for_backward(h, mask, *args)
+        return h.clone()
+
+    @staticmethod
+    def backward(ctx, dL_dh):
+        h, mask, *flat = ctx.saved_tensors
+        a = TocArgs(*flat)
+        # dD/dh by one forward-mode derivative
+        _, dD_dh = torch.func.jvp(lambda hh: gap_function(hh, a), (h,), (torch.ones_like(h),))
+        zero = torch.zeros_like(dD_dh)
+        dD_dh = torch.where(dD_dh < TOC_TOL / h, zero, dD_dh)  # only motion into collision
+        dD_dh = torch.where(mask, dD_dh, zero)
+        denom = torch.sum(dD_dh**2)
+        ok = denom > 1e-5
+        w = torch.where(ok, dD_dh / torch.where(ok, denom, torch.ones_like(denom)), zero)
+        # every other gradient by one vjp with cotangent -w dL/dh
+        _, vjp_fn = torch.func.vjp(lambda *aa: gap_function(h, TocArgs(*aa)), *a)
+        d_args = vjp_fn(-w * dL_dh)
+        return (dL_dh, None) + tuple(d_args)
+
+
 def toc_dt(h, args: TocArgs, mask):
-    """Identity on h (forward). ``mask`` (K,) marks valid TOC contacts; the
-    backward that uses ``args`` and ``mask`` comes with the gradient slice."""
-    return h
+    """Identity on h; its backward applies the TOC differential. ``mask``
+    (K,) bool marks the contacts new in this step."""
+    return TocDt.apply(h, mask, *args)

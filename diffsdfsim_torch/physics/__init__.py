@@ -16,4 +16,4 @@ from .joints import (
     ZConstraint3D,
 )
 from .forces import ExternalForce3D, Gravity3D
-from .world import Trajectory, WorldSpec, WorldState, make_world, rollout, step_frame
+from .world import Trajectory, WorldSpec, WorldState, make_world, rollout, run_world, step_frame

@@ -1,4 +1,4 @@
-"""Contact generation: per-pair Frank-Wolfe search + contact recompute.
+"""Contact generation: per-pair Frank-Wolfe search + differentiable recompute.
 
 PyTorch counterpart of ``diffsdfsim_tpu/physics/contacts.py`` (reference
 ``FWContactHandler``, ``sdf_physics/physics3d/contacts.py:161-273``):
@@ -7,8 +7,10 @@ PyTorch counterpart of ``diffsdfsim_tpu/physics/contacts.py`` (reference
   gradient-free search: the Frank-Wolfe kernel K3 (``ops/fw_cuda.py``) on
   CUDA tensors, its plain version ``search_pair_raw_plain`` on CPU tensors;
 - filtering of the accepted rung's candidates to K representatives;
-- the contact recompute at the selected candidates, with the 6-point
-  Laplacian stability test choosing which body's normal to report;
+- the contact recompute at the selected candidates, differentiable in the
+  poses and the bodies (the search itself is gradient-free, as in the
+  reference, contacts.py:255-264), with the 6-point Laplacian stability
+  test choosing which body's normal to report;
 - SDF-SDF pairs run both directions, the second gated on the first finding
   no penetration; both gated by the ``_overlap`` AABB test;
 - compaction of all pairs into one fixed-K contact buffer, valid slots first.
@@ -72,13 +74,16 @@ def _overlap(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2):
 
 
 def _compute_contacts(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, abc, face_idx, valid,
-                      eps: float, with_stability: bool = True, anchor_b1=None):
-    """Contact recompute (reference _compute_contacts, contacts.py:161-214)
-    for a masked set of candidates. Poses broadcast against the per-candidate
-    arrays (..., N, 3). With ``anchor_b1`` (body-1-frame points from the
-    polish), the anchor replaces the barycentric face point."""
+                      eps: float, detach_contact_b2: bool = False, with_stability: bool = True,
+                      anchor_b1=None):
+    """Differentiable contact recompute (reference _compute_contacts,
+    contacts.py:161-214) for a masked set of candidates. Poses broadcast
+    against the per-candidate arrays (..., N, 3). With ``anchor_b1``
+    (body-1-frame points from the polish, gradient-free), the detached
+    anchor replaces the barycentric face point; gradients then flow through
+    the surface projection below as they would for the face point."""
     if anchor_b1 is not None:
-        cp_b1 = anchor_b1
+        cp_b1 = anchor_b1.detach()
     else:
         tri = bd1.verts[bd1.faces_t[face_idx]]  # (..., N,3,3)
         cp_b1 = torch.sum(tri * abc[..., None], dim=-2)
@@ -90,6 +95,8 @@ def _compute_contacts(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, abc, face_
 
     contact_pts = quat_apply(q1, cp_b1) + pos1
     cp_b2 = quat_apply(quat_invert(q2), contact_pts - pos2)
+    if detach_contact_b2:
+        cp_b2 = cp_b2.detach()
     d2, n2 = bd2.query_sdfs(cp_b2)
 
     if bd1.is_sdf and with_stability:
@@ -203,7 +210,7 @@ def search_pair_raw_plain(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: S
         cmask = fw.cand & (s2p <= cfg.eps)
     face_idx = torch.arange(F, device=device).expand(R, F)
     n_ng, p1_ng, _, pen = _compute_contacts(
-        bd1, q1b, p1b, bd2, q2b, p2b, fwf.abc, face_idx, cmask, cfg.eps,
+        bd1, q1b, p1b, bd2, q2b, p2b, fwf.abc, face_idx, cmask, cfg.eps, cfg.detach_contact_b2,
         with_stability=False, anchor_b1=x1 if polishes else None,
     )
     max_pen = torch.amax(torch.where(cmask, pen, torch.full_like(pen, float("-inf"))), dim=-1)
@@ -314,11 +321,12 @@ def search_contacts(bodies, quat, pos, directed_pairs, cfg: SimConfig) -> Contac
 
 
 def find_contacts_pair(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimConfig, cache: PairCache):
-    """One directed pair at one pose: contact recompute at the cached
-    candidates. Returns per-slot (normal, p1, p2, pen, valid, max_pen)."""
+    """One directed pair at one pose: the differentiable contact recompute
+    at the cached candidates. Returns per-slot (normal, p1, p2, pen, valid,
+    max_pen)."""
     normals, p1c, p2c, pens = _compute_contacts(
         bd1, q1, pos1, bd2, q2, pos2, cache.abc_sel, cache.sel_idx, cache.sel_valid,
-        cfg.eps, with_stability=True,
+        cfg.eps, cfg.detach_contact_b2, with_stability=True,
         anchor_b1=cache.x1_sel if pair_polishes(bd1, cfg) else None,
     )
     return normals, p1c, p2c, pens, cache.sel_valid, cache.max_pen
@@ -327,11 +335,13 @@ def find_contacts_pair(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimC
 def find_contacts(bodies: Sequence[BodyDef], quat, pos, directed_pairs: Sequence[DirectedPair],
                   n_unordered: int, cfg: SimConfig, cache: ContactCache | None = None) -> Contacts:
     """All pairs -> global compacted contact buffer (max_contacts_total
-    slots). With ``cache`` (from search_contacts at the same pose) only the
-    recompute runs."""
+    slots), differentiable in the poses and bodies. With ``cache`` (from
+    search_contacts at the same pose) only the recompute runs; without it
+    the search runs first, gradient-free."""
     dtype, device = quat.dtype, quat.device
     if cache is None:
-        cache = search_contacts(bodies, quat, pos, directed_pairs, cfg)
+        with torch.no_grad():
+            cache = search_contacts(bodies, quat, pos, directed_pairs, cfg)
     kt = cfg.max_contacts_total
     if not directed_pairs:
         zero3 = torch.zeros((kt, 3), dtype=dtype, device=device)

@@ -1,4 +1,4 @@
-"""Dynamics assembly and the PDIPM engine (forward).
+"""Dynamics assembly and the PDIPM engine.
 
 PyTorch counterpart of ``diffsdfsim_tpu/physics/engine.py`` (reference
 ``PdipmEngine``, ``lcp_physics/physics/engines.py:16-121``, and the matrix
@@ -12,9 +12,13 @@ assembly of ``World``/``World3D``):
   and inert in the LCP.
 
 ``probe_dynamics_batch`` solves one LCP per candidate dt of the probe ladder
-in a single batched call: the CUDA kernel K1 (``ops/qp_cuda.py``) on CUDA
-tensors, its plain version on CPU tensors. Without a valid contact it takes
-the exact equality-constrained solve instead.
+in a single batched call, without gradients: the CUDA kernel K1
+(``ops/qp_cuda.py``) on CUDA tensors, its plain version on CPU tensors.
+Without a valid contact it takes the exact equality-constrained solve
+instead. ``solve_dynamics(lcp_sol=...)`` is the differentiable replay of the
+accepted rung: it re-emits the probe's solution through
+``lcp_solve_from_solution``, whose backward is the KKT solve (kernel K2 on
+CUDA tensors).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from ..config import SimConfig
 from ..ops import qp_cuda
-from ..ops.qp import _small_solve, inv3, lcp_solve_from_solution, pdipm_solve_raw
+from ..ops.qp import _small_solve, blockdiag_inv3, inv3, lcp_solve, lcp_solve_from_solution, pdipm_solve_raw
 from ..utils.quaternion import quat_to_matrix
 from ..utils.spherical import normalize, orthogonal
 from .contacts import Contacts
@@ -72,9 +76,13 @@ def _one_hot(idx, nb, like):
     return torch.nn.functional.one_hot(idx, nb).to(like.dtype)
 
 
-def contact_jacobian(contacts: Contacts, nb: int):
+def _maybe_detach(x, flag: bool):
+    return x.detach() if flag else x
+
+
+def contact_jacobian(contacts: Contacts, nb: int, stop_grad: bool = False):
     """(K, 6B) normal contact Jacobian (world3d.py:56-70)."""
-    n, p1, p2 = contacts.normal, contacts.p1, contacts.p2
+    n, p1, p2 = (_maybe_detach(t, stop_grad) for t in (contacts.normal, contacts.p1, contacts.p2))
     vm = contacts.valid[:, None].to(n.dtype)
     J1 = torch.cat([torch.linalg.cross(p1, n, dim=-1), n], dim=-1) * vm
     J2 = -torch.cat([torch.linalg.cross(p2, n, dim=-1), n], dim=-1) * vm
@@ -96,9 +104,9 @@ def friction_dirs(n, fric_dirs: int):
     return torch.cat([base, -base], dim=1)
 
 
-def friction_jacobian(contacts: Contacts, nb: int, fric_dirs: int):
+def friction_jacobian(contacts: Contacts, nb: int, fric_dirs: int, stop_grad: bool = False):
     """(K*fd, 6B) friction Jacobian (world3d.py:72-101)."""
-    n, p1, p2 = contacts.normal, contacts.p1, contacts.p2
+    n, p1, p2 = (_maybe_detach(t, stop_grad) for t in (contacts.normal, contacts.p1, contacts.p2))
     k = n.shape[0]
     vm = contacts.valid[:, None, None].to(n.dtype)
     dirs = friction_dirs(n, fric_dirs) * vm
@@ -147,17 +155,22 @@ def _eq_constrained_solve(Minv, Je, u, b_eq=None):
     return x[0] if squeeze else x
 
 
-def assemble_contact_lcp(bodies, contacts: Contacts, v, cfg: SimConfig):
+def assemble_contact_lcp(bodies, contacts: Contacts, v, cfg: SimConfig, stop_grads: bool | None = None):
     """Contact-LCP constraint data: G = [Jc; Jf; 0], the friction coupling F
     (reference world.py:493-501) and h = [restitution * Jc v; 0; 0] with
-    strictly feasible inert rows for padded slots. Returns (G, F, h, k, fd, nineq)."""
+    strictly feasible inert rows for padded slots. The contact geometry is
+    detached from Jc / Jf under ``cfg.stop_contact_grad`` /
+    ``cfg.stop_friction_grad``, or from both when ``stop_grads`` says so.
+    Returns (G, F, h, k, fd, nineq)."""
     nb = v.shape[0] // 6
     dtype, device = v.dtype, v.device
     k = contacts.valid.shape[0]
     fd = cfg.fric_dirs
     nineq = k * (2 + fd)
-    Jc = contact_jacobian(contacts, nb)
-    Jf = friction_jacobian(contacts, nb, fd)
+    sg_c = cfg.stop_contact_grad if stop_grads is None else stop_grads
+    sg_f = cfg.stop_friction_grad if stop_grads is None else stop_grads
+    Jc = contact_jacobian(contacts, nb, sg_c)
+    Jf = friction_jacobian(contacts, nb, fd, sg_f)
     mu, restitution = contact_coeffs(contacts, bodies)
 
     E = torch.repeat_interleave(torch.eye(k, dtype=dtype, device=device), fd, dim=0)  # (k*fd, k)
@@ -196,11 +209,13 @@ def dump_contact_lcp(bodies, joints, forces, state, contacts: Contacts, dt, cfg:
 
 
 def solve_dynamics(bodies, joints, forces, state, contacts: Contacts, dt, cfg: SimConfig,
-                   lcp_sol=None, return_sol: bool = False):
+                   lcp_sol=None, return_sol: bool = False, any_contact: bool | None = None):
     """New generalized velocities after the impulse solve (engines.py:31-83).
 
     ``return_sol=True`` also returns the primal-dual solution (x, y, z, s);
-    ``lcp_sol`` re-emits a cached solution instead of solving."""
+    ``lcp_sol`` re-emits a cached solution instead of solving, with the
+    KKT implicit-diff backward. ``any_contact`` may pass the host's
+    knowledge of whether a contact is valid (saving a device sync)."""
     nb = len(bodies)
     dtype, device = state.v.dtype, state.v.device
     v = state.v.reshape(-1)
@@ -215,7 +230,9 @@ def solve_dynamics(bodies, joints, forces, state, contacts: Contacts, dt, cfg: S
         z = lambda n: torch.zeros((1, n), dtype=dtype, device=device)
         return z(6 * nb), z(neq), z(nineq), z(nineq)
 
-    if not bool(torch.any(contacts.valid)):
+    if any_contact is None:
+        any_contact = bool(torch.any(contacts.valid))
+    if not any_contact:
         x = _eq_constrained_solve(mass_matrix_inv(bodies, state.quat), Je, u)
         _, zy, zz, zs = zero_sol()
         sol = (-x[None], zy, zz, zs)
@@ -226,13 +243,20 @@ def solve_dynamics(bodies, joints, forces, state, contacts: Contacts, dt, cfg: S
             torch.zeros((1, neq), dtype=dtype, device=device), F[None])
     structure = ("fric", k, fd)
     if lcp_sol is not None:
-        x = lcp_solve_from_solution(*args, lcp_sol, structure)
+        x = lcp_solve_from_solution(*args, lcp_sol, structure, kkt_solve=_replay_kkt_solve)
         sol = lcp_sol
     else:
         sol = pdipm_solve_raw(*args, cfg.solver_max_iter, _solver_eps(cfg, dtype), 3, structure)
         x = sol[0]
     new_v = -x[0, : 6 * nb]
     return (new_v, sol) if return_sol else new_v
+
+
+def _replay_kkt_solve(Q, G, A, F, d, rx, structure):
+    """The replay backward's KKT solve (JAX "fric_pallas"): Q is the
+    block-diagonal mass matrix, so its inverse is analytic, and the solve is
+    kernel K2 on CUDA tensors, its plain version on CPU tensors."""
+    return qp_cuda.kkt_grad_fric(blockdiag_inv3(Q), G, A, F, d, rx, structure)
 
 
 def probe_dynamics_batch(bodies, joints, forces, state, contacts: Contacts, dts, cfg: SimConfig,
@@ -263,7 +287,7 @@ def probe_dynamics_batch(bodies, joints, forces, state, contacts: Contacts, dts,
         z = lambda m: torch.zeros((D, m), dtype=dtype, device=device)
         return x, (-x, z(neq), z(nineq), z(nineq))
 
-    G, F, hvec, _, _, _ = assemble_contact_lcp(bodies, contacts, v, cfg)
+    G, F, hvec, _, _, _ = assemble_contact_lcp(bodies, contacts, v, cfg, stop_grads=True)
     bc = lambda a: a.expand((D,) + a.shape)
     sol = qp_cuda.pdipm_fric(
         bc(M), u, bc(G), bc(hvec), bc(Je), torch.zeros((D, neq), dtype=dtype, device=device), bc(F),
@@ -286,13 +310,13 @@ def post_stabilization(bodies, joints, state, contacts: Contacts, cfg: SimConfig
         )
         return -x
     M = mass_matrix(bodies, state.quat)
-    Jc = contact_jacobian(contacts, nb)
+    Jc = contact_jacobian(contacts, nb, cfg.stop_contact_grad)
     _, restitution = contact_coeffs(contacts, bodies)
     gc = (Jc @ v) + (Jc @ v) * -restitution + (~contacts.valid).to(dtype)
     k = Jc.shape[0]
-    sol = pdipm_solve_raw(
+    x = lcp_solve(
         M[None], torch.zeros((1, 6 * nb), dtype=dtype, device=device), Jc[None], gc[None],
         Je[None], ge[None], torch.zeros((1, k, k), dtype=dtype, device=device),
         cfg.solver_max_iter, cfg.solver_eps, 3, ("plain",),
     )
-    return -sol[0][0, : 6 * nb]
+    return -x[0, : 6 * nb]

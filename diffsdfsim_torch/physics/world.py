@@ -1,4 +1,4 @@
-"""World: state, substep machinery, frames and the rollout (forward).
+"""World: state, substep machinery, frames, the rollout and its gradient.
 
 PyTorch counterpart of the single-rollout path of
 ``diffsdfsim_tpu/physics/world.py`` (reference
@@ -7,28 +7,35 @@ PyTorch counterpart of the single-rollout path of
 - ``WorldState`` holds pose, velocity, the padded contact buffer and the
   TOC pairing carry (``last_dt``, ``had_toc``);
 - a substep (``step_dt``) probes a staged dt-bisection ladder without
-  gradients: rungs 0..ladder_stage1 first (one batched PDIPM solve, one FW
-  search per directed pair), the deep rungs only when none of those pass,
-  then accepts the smallest passing rung (reference world.py:344-356);
-- ``finish_step`` re-emits the accepted rung's values: the step velocity
-  from the cached solution, the pose by one integrate, the contacts by the
-  recompute at the cached candidates;
+  gradients, on the detached state: rungs 0..ladder_stage1 first (one
+  batched PDIPM solve, one FW search per directed pair), the deep rungs
+  only when none of those pass, then accepts the smallest passing rung
+  (reference world.py:344-356). A speculative step is never differentiated
+  (its backward at deeply penetrating trial states would produce inf/NaN);
+- ``finish_step`` replays the accepted rung differentiably: the solve
+  re-emits the probe's cached solution (its backward is the KKT solve), one
+  integrate, the contact recompute at the cached candidates, then the TOC
+  re-emission when a contact is new. The replay and the TOC block run
+  only when there is a tape to record: grad mode is on and a parameter
+  of the world or the state requires grad. Otherwise the replay only
+  re-emits the cached values;
 - a fixed-dt frame runs substeps until it covers dt (at most
   ``max_substeps``); a rollout runs frames.
 
 Control flow on data (the JAX package's ``lax.cond`` predicates) reads the
-device here; ``WorldSpec.host_syncs`` counts those reads. This slice has no
-gradients: ``rollout`` runs under ``torch.no_grad()``.
+device here; ``WorldSpec.host_syncs`` counts those reads.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Sequence
 
 import torch
 
 from ..config import SimConfig, resolve_device
-from ..utils.quaternion import integrate_quat
+from ..ops.toc import TocArgs, toc_dt
+from ..utils.quaternion import integrate_quat, quat_to_matrix, so3_exp_map
 from .bodies import BodyDef
 from .contacts import (
     Contacts,
@@ -37,7 +44,7 @@ from .contacts import (
     finish_contacts,
     search_contacts_raw,
 )
-from .engine import post_stabilization, probe_dynamics_batch
+from .engine import apply_forces, post_stabilization, probe_dynamics_batch, solve_dynamics
 
 
 class WorldState(NamedTuple):
@@ -64,6 +71,11 @@ class WorldSpec:
         self.cfg = cfg
         # reads of device values that steer control flow (see module docstring)
         self.host_syncs = 0
+        # whether a parameter is on the tape: a body's tensors, or a tensor
+        # attribute of a joint or force
+        self.params_require_grad = any(_requires_grad(_body_tensors(bd)) for bd in self.bodies) or any(
+            _requires_grad(vars(o).values()) for o in (*self.joints, *(f for fs in self.forces for f in fs))
+        )
 
         nc = {tuple(sorted(p)) for p in no_contact}
         pairs, directed = [], []
@@ -101,6 +113,24 @@ class WorldSpec:
         return bool(x)
 
 
+def _body_tensors(bd: BodyDef):
+    shape = [getattr(bd.shape, f.name) for f in dataclasses.fields(bd.shape)]
+    return [bd.verts, bd.mass, bd.ang_inertia, bd.restitution, bd.fric_coeff, *shape]
+
+
+def _requires_grad(tensors) -> bool:
+    return any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
+def _taping(spec: WorldSpec, state: WorldState) -> bool:
+    """Whether a substep records its tape: grad mode is on and a parameter
+    (``WorldSpec.params_require_grad``) or the state requires grad (no
+    device read)."""
+    return torch.is_grad_enabled() and (
+        spec.params_require_grad or _requires_grad((state.quat, state.pos, state.v, state.last_dt))
+    )
+
+
 def make_world(bodies: Sequence[BodyDef], poses, vels, joints: Sequence = (), forces: Sequence[Sequence] = (),
                no_contact: Sequence[tuple] = (), cfg: SimConfig = SimConfig(), device=None):
     """Build (spec, initial state). ``poses`` (B,7) [quat wxyz | pos] or
@@ -125,8 +155,7 @@ def make_world(bodies: Sequence[BodyDef], poses, vels, joints: Sequence = (), fo
     if vels.shape[-1] == 3:
         vels = torch.cat([torch.zeros_like(vels), vels], dim=-1)
 
-    with torch.no_grad():
-        contacts = find_contacts(spec.bodies, quat, pos, spec.directed_pairs, spec.n_unordered, cfg)
+    contacts = find_contacts(spec.bodies, quat, pos, spec.directed_pairs, spec.n_unordered, cfg)
     if cfg.strict_no_penetration and bool(contacts.max_pen_all > cfg.tol):
         # construction-time interpenetration check (reference world.py:98-100)
         raise ValueError(
@@ -182,11 +211,14 @@ def _probe_rungs(spec: WorldSpec, state: WorldState, dt_frame, thresh, lo: int, 
     return found, lo + idx, raw.at(idx), sol_k
 
 
+@torch.no_grad()
 def _probe_ladder(spec: WorldSpec, state: WorldState, dt_frame, thresh):
     """Staged bisection probe (JAX ``_probe_ladder_full``): rungs
     0..ladder_stage1 first, the deep rungs only when the shallow stage
     fails. Selected-rung semantics: the smallest passing rung, or the floor
-    (max_bisect) when none pass. Returns (k, found, ContactCache, sol_k)."""
+    (max_bisect) when none pass. Gradient-free. Returns (k, found,
+    ContactCache, sol_k, any_contact), the last the host's knowledge of
+    whether the step starts with a valid contact."""
     cfg = spec.cfg
     mb = cfg.max_bisect
     s1 = min(cfg.ladder_stage1, mb) if cfg.ladder_stage1 >= 0 else mb
@@ -194,7 +226,7 @@ def _probe_ladder(spec: WorldSpec, state: WorldState, dt_frame, thresh):
     found, k, raw, sol_k = _probe_rungs(spec, state, dt_frame, thresh, 0, s1, any_contact)
     if s1 < mb and not spec.host_bool(found):
         found, k, raw, sol_k = _probe_rungs(spec, state, dt_frame, thresh, s1 + 1, mb, any_contact)
-    return k, found, finish_contacts(raw, cfg), sol_k
+    return k, found, finish_contacts(raw, cfg), sol_k, any_contact
 
 
 def _empty_contacts_value(spec: WorldSpec, dtype, max_pen_all) -> Contacts:
@@ -210,15 +242,81 @@ def _empty_contacts_value(spec: WorldSpec, dtype, max_pen_all) -> Contacts:
     )
 
 
-def _contacts_value(spec: WorldSpec, q2, p2, cc) -> Contacts:
-    """Contacts at the accepted pose: the recompute at the cached candidates
-    when any directed pair selected a contact (JAX world.py:320-340)."""
+def _contacts_value(spec: WorldSpec, q2, p2, cc) -> tuple[Contacts, bool]:
+    """Contacts at the accepted pose: the (differentiable) recompute at the
+    cached candidates when any directed pair selected a contact (JAX
+    world.py:320-340). Also returns whether it did."""
     any_valid = torch.zeros((), dtype=torch.bool, device=q2.device)
     for pc, gate in zip(cc.caches, cc.gates):
         any_valid = any_valid | (gate & torch.any(pc.sel_valid))
     if spec.host_bool(any_valid):
-        return find_contacts(spec.bodies, q2, p2, spec.directed_pairs, spec.n_unordered, spec.cfg, cache=cc)
-    return _empty_contacts_value(spec, q2.dtype, cc.max_pen_all)
+        cts = find_contacts(spec.bodies, q2, p2, spec.directed_pairs, spec.n_unordered, spec.cfg, cache=cc)
+        return cts, True
+    return _empty_contacts_value(spec, q2.dtype, cc.max_pen_all), False
+
+
+class _Emit(torch.autograd.Function):
+    """The value of ``value`` with the gradient of ``inline``: re-emits a
+    value the probe computed while the tape records its differentiable
+    recomputation (the JAX package's emission replay, world.py:434-513),
+    whose last bits may differ."""
+
+    @staticmethod
+    def forward(ctx, inline, value):
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+def _replay(spec: WorldSpec, state: WorldState, dt_, cache, any_contact: bool, tape: bool):
+    """Differentiable step at dt_ reusing the probe's cache (JAX _replay,
+    world.py:251-275): the solve re-emits the cached solution, one
+    integrate, the contact recompute at the cached candidates. Values are
+    the probe's: the step velocity is -x of the cached solution on both
+    solve branches; without ``tape`` it is taken as it is."""
+    cc, sol = cache
+    nb = state.pos.shape[0]
+    v_val = -sol[0][0, : 6 * nb].reshape(nb, 6)
+    if tape:
+        new_v = solve_dynamics(
+            spec.bodies, spec.joints, spec.forces, state, state.contacts, dt_, spec.cfg,
+            lcp_sol=sol, any_contact=any_contact,
+        ).reshape(nb, 6)
+        if not any_contact:
+            # the exact solve recomputed here may round differently from the
+            # probe's batched one
+            new_v = _Emit.apply(new_v, v_val)
+    else:
+        new_v = v_val
+    q2, p2 = _integrate(state.quat, state.pos, new_v, dt_)
+    contacts, any_valid = _contacts_value(spec, q2, p2, cc)
+    return new_v, q2, p2, contacts, any_valid
+
+
+def _toc_recompute(spec: WorldSpec, state: WorldState, new_v, q2, p2, contacts: Contacts, dt_, toc_mask):
+    """TOC re-emission (reference world.py:272-341; JAX world.py:808-838):
+    reconstruct the step-start contact geometry, re-emit dt through
+    ``toc_dt`` and replay the move with the gradient-carrying dt. Numerically
+    an identity; only the tape changes."""
+    af = apply_forces(spec.bodies, spec.forces, state.t).reshape(-1, 6)
+    masses = torch.stack([b.mass for b in spec.bodies])
+    accel = af / masses[:, None]
+    i1, i2 = contacts.i1, contacts.i2
+    vs1, vs2 = new_v[i1], new_v[i2]
+    rots1 = so3_exp_map(-dt_ * vs1[:, :3]) @ quat_to_matrix(q2[i1])
+    rots2 = so3_exp_map(-dt_ * vs2[:, :3]) @ quat_to_matrix(q2[i2])
+    rt1, rt2 = rots1.transpose(-1, -2), rots2.transpose(-1, -2)
+    args = TocArgs(
+        cs1=(rt1 @ contacts.p1[..., None])[..., 0], cs2=(rt2 @ contacts.p2[..., None])[..., 0],
+        vs1=vs1, vs2=vs2, poss1=p2[i1] - dt_ * vs1[:, 3:], poss2=p2[i2] - dt_ * vs2[:, 3:],
+        rots1=rots1, rots2=rots2, ns2=(rt2 @ contacts.normal[..., None])[..., 0],
+        as1=accel[i1], as2=accel[i2],
+    )
+    dt_toc = toc_dt(dt_, args, toc_mask)
+    q2t, p2t = _integrate(state.quat, state.pos, new_v, dt_toc)
+    return q2t, p2t, dt_toc
 
 
 class StepRecord(NamedTuple):
@@ -231,33 +329,34 @@ class StepRecord(NamedTuple):
     n_halvings: torch.Tensor  # dt halvings of the accepted rung
 
 
-def finish_step(spec: WorldSpec, state: WorldState, dt_frame, k, ok_final, cache):
-    """Tail of a substep once the probe selected rung ``k``: re-emit the
-    accepted rung's values (JAX ``finish_step`` in emission mode)."""
+def finish_step(spec: WorldSpec, state: WorldState, dt_frame, k, ok_final, cache, any_contact: bool):
+    """Differentiable tail of a substep once the probe selected rung ``k``
+    (JAX ``finish_step``, world.py:841-960): replay, TOC re-emission,
+    post-stabilization."""
     cfg = spec.cfg
     dtype = state.pos.dtype
-    cc, sol = cache
-    nb = state.pos.shape[0]
     dt_k = dt_frame * torch.pow(0.5, k.to(dtype))
     # TOC pairing with the previous step (world.py:253-257): numerically an
-    # identity; keep the arithmetic exactly as written, its last bits decide
-    # the acceptance of later steps
+    # identity whose gradient cancels the previous step's re-emitted dt; keep
+    # the arithmetic exactly as written, its last bits decide the acceptance
+    # of later steps
     use_pair = state.had_toc if cfg.time_of_contact_diff else torch.zeros_like(state.had_toc)
     ld = state.last_dt
-    dt_ = torch.where(use_pair, -ld + (ld + dt_k), dt_k)
+    dt_ = torch.where(use_pair, -ld + (ld.detach() + dt_k), dt_k)
 
-    # the step velocity is -x of the cached solution on both solve branches
-    new_v = -sol[0][0, : 6 * nb].reshape(nb, 6)
-    q2, p2 = _integrate(state.quat, state.pos, new_v, dt_)
-    contacts = _contacts_value(spec, q2, p2, cc)
+    tape = _taping(spec, state)
+    new_v, q2, p2, contacts, any_valid = _replay(spec, state, dt_, cache, any_contact, tape)
 
     if cfg.time_of_contact_diff:
         # contacts new in this step: the pair had no valid contact at step
-        # start (world.py:272-274). toc_dt re-emits dt as an identity, so
-        # its value only moves into the pairing carry.
+        # start (world.py:272-274). The re-emission only changes the tape,
+        # so it runs when taping and only when the host sees a new contact
         toc_mask = contacts.valid & ~state.contacts.pair_active[contacts.pair_id]
         had_toc = torch.any(toc_mask)
-        last_dt = torch.where(had_toc, dt_, state.last_dt)
+        if tape and any_valid and spec.host_bool(had_toc):
+            q2, p2, last_dt = _toc_recompute(spec, state, new_v, q2, p2, contacts, dt_, toc_mask)
+        else:
+            last_dt = torch.where(had_toc, dt_, state.last_dt)
     else:
         last_dt = state.last_dt
         had_toc = torch.zeros_like(state.had_toc)
@@ -269,7 +368,8 @@ def finish_step(spec: WorldSpec, state: WorldState, dt_frame, k, ok_final, cache
         contacts = find_contacts(spec.bodies, q2, p2, spec.directed_pairs, spec.n_unordered, cfg)
 
     new_state = WorldState(
-        quat=q2, pos=p2, v=new_v, t=state.t + dt_k, contacts=contacts, last_dt=last_dt, had_toc=had_toc
+        quat=q2, pos=p2, v=new_v, t=state.t + dt_k.detach(), contacts=contacts, last_dt=last_dt,
+        had_toc=had_toc,
     )
     rec = StepRecord(
         t=state.t, quat=q2, pos=p2, v=new_v, valid=torch.ones_like(ok_final),
@@ -279,11 +379,11 @@ def finish_step(spec: WorldSpec, state: WorldState, dt_frame, k, ok_final, cache
 
 
 def step_dt(spec: WorldSpec, state: WorldState, dt_frame):
-    """One substep (reference step_dt, world.py:241-379): probe ladder, then
-    re-emission of the accepted rung."""
+    """One substep (reference step_dt, world.py:241-379): gradient-free
+    probe ladder, then the differentiable replay of the accepted rung."""
     thresh = _accept_thresh(spec, state)
-    k, ok_final, cc, sol_k = _probe_ladder(spec, state, dt_frame, thresh)
-    return finish_step(spec, state, dt_frame, k, ok_final, (cc, sol_k))
+    k, ok_final, cc, sol_k, any_contact = _probe_ladder(spec, state, dt_frame, thresh)
+    return finish_step(spec, state, dt_frame, k, ok_final, (cc, sol_k), any_contact)
 
 
 def step_frame(spec: WorldSpec, state: WorldState):
@@ -328,20 +428,81 @@ class Trajectory(NamedTuple):
     n_halvings: torch.Tensor  # (T, S) dt halvings per substep
 
 
-def rollout(spec: WorldSpec, state: WorldState, n_frames: int) -> tuple[WorldState, Trajectory]:
-    """Run ``n_frames`` fixed-dt frames (reference run_world_fixed_dt).
+def _detached(state: WorldState) -> WorldState:
+    """The state cut off the autograd tape (pose, velocity, contacts, TOC carry)."""
+    c = state.contacts
+    return WorldState(
+        quat=state.quat.detach(), pos=state.pos.detach(), v=state.v.detach(), t=state.t,
+        contacts=Contacts(**{f: getattr(c, f).detach() for f in c.__dataclass_fields__}),
+        last_dt=state.last_dt.detach(), had_toc=state.had_toc,
+    )
 
-    Forward only: runs under ``torch.no_grad()``; gradients through the
-    rollout come with the gradient slice."""
-    frames, truncs = [], []
-    with torch.no_grad():
-        for _ in range(n_frames):
-            state, _, recs, truncated = step_frame(spec, state)
-            frames.append(StepRecord(*(torch.stack(f) for f in zip(*recs))))
-            truncs.append(truncated)
+
+def _stack_frames(frames, truncs) -> Trajectory:
     stacked = StepRecord(*(torch.stack(f) for f in zip(*frames)))
-    traj = Trajectory(
+    return Trajectory(
         t=stacked.t, quat=stacked.quat, pos=stacked.pos, v=stacked.v, valid=stacked.valid,
         bisect_failed=stacked.bisect_failed, truncated=torch.stack(truncs), n_halvings=stacked.n_halvings,
     )
-    return state, traj
+
+
+def rollout(spec: WorldSpec, state: WorldState, n_frames: int,
+            detach_2nd_bounce: bool = False) -> tuple[WorldState, Trajectory]:
+    """Run ``n_frames`` fixed-dt frames (reference run_world_fixed_dt,
+    optim_sphere.py:163-177). It records its tape when grad mode is on and
+    a body parameter, a tensor attribute of a joint or force, or ``state``
+    requires grad; otherwise it runs the forward only, as under
+    ``torch.no_grad()`` (a tensor that only a force's ``force_func`` closes
+    over is not seen: give it to the force as an attribute).
+
+    ``detach_2nd_bounce`` truncates the gradient as the reference does: at
+    the second contacting frame since the last truncation, the frame is run
+    again from its detached start state (numerically the same frame; only
+    the tape is cut) and the count restarts at 1 (JAX world.py:1058-1098)."""
+    frames, truncs = [], []
+    n_contact = 0
+    for _ in range(n_frames):
+        pre = state
+        state, had_contacts, recs, truncated = step_frame(spec, state)
+        if detach_2nd_bounce:
+            n_contact += spec.host_bool(had_contacts)
+            if n_contact > 1:
+                state, _, recs, truncated = step_frame(spec, _detached(pre))
+                n_contact = 1
+        frames.append(StepRecord(*(torch.stack(f) for f in zip(*recs))))
+        truncs.append(truncated)
+    return state, _stack_frames(frames, truncs)
+
+
+def run_world(spec: WorldSpec, state: WorldState, run_time: float = 10.0, fixed_dt: bool = True,
+              recorder=None, print_time: bool = False):
+    """Host-loop runner (reference run_world, sdf_physics/physics3d/world.py:
+    113-205; JAX world.py:1114-1160): step fixed-dt frames until ``state.t``
+    reaches ``run_time``. Raises in strict mode when the dt-bisection hit its
+    floor with penetration; warns on a frame that ran out of substeps.
+    Returns (final state, Trajectory of the frames run, or None)."""
+    import time
+
+    if recorder is not None:
+        raise NotImplementedError("the rendering recorder is not ported yet; pass recorder=None")
+    frames, truncs = [], []
+    t_start = time.time()
+    while float(state.t) < run_time:
+        state, _, recs, truncated = step_frame(spec, state)
+        rec = StepRecord(*(torch.stack(f) for f in zip(*recs)))
+        if spec.cfg.strict_no_penetration and bool(torch.any(rec.bisect_failed)):
+            raise AssertionError(
+                "strict_no_penetration: dt-bisection hit the floor "
+                f"(dt/2^{spec.cfg.max_bisect}) with penetration at "
+                f"t={float(state.t):.4f} (reference world.py:344-356 raises here)"
+            )
+        if bool(truncated):
+            print(f"warning: frame at t={float(state.t):.4f} exhausted "
+                  f"max_substeps={spec.cfg.max_substeps} before covering dt")
+        frames.append(rec)
+        truncs.append(truncated)
+        if print_time:
+            print(f"\r {float(state.t):.3f} / {time.time() - t_start:.2f}s", end="")
+    if print_time:
+        print()
+    return state, (_stack_frames(frames, truncs) if frames else None)

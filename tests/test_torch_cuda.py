@@ -9,10 +9,12 @@ where JAX is not installed (tests/conftest.py imports it, hence
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes are the main path's: the bench scene's LCPs (nz 12, neq 6, k 4,
-fd 8) at D = 3 and 6 rungs, and both bench directed pairs (768-face floor,
-320-face sphere) at three rung poses, float64. Tolerances: PDIPM x within
-1e-8 (Gauss-Jordan vs Cholesky rounding), KKT residuals no worse than 10x
-the plain version's; FW search outputs within 1e-9 and masks equal.
+fd 8) at D = 3 and 6 rungs (K1) and 1 and 6 problems (K2), and both bench
+directed pairs (768-face floor, 320-face sphere) at three rung poses,
+float64. Tolerances: PDIPM x within 1e-8 (Gauss-Jordan vs Cholesky
+rounding), KKT residuals no worse than 10x the plain version's; FW search
+outputs within 1e-9 and masks equal; the backward KKT solve within 1e-9
+relative.
 """
 
 import pytest
@@ -85,3 +87,45 @@ def test_fw_kernel_matches_plain(cuda, direction):
     assert torch.equal(torch.isfinite(out_k.max_pen), fin)
     if bool(fin.any()):
         assert float((out_k.max_pen - out_p.max_pen)[fin].abs().max()) <= 1e-9
+
+
+@pytest.mark.parametrize("B", [1, 6])
+def test_kkt_grad_kernel_matches_plain(cuda, B):
+    """K2 against the plain backward KKT solve on the same (Q^-1, G, A, F,
+    d, rx): 1e-9 relative to the largest entry."""
+    import numpy as np
+
+    from diffsdfsim_torch.ops.qp import blockdiag_inv3, kkt_grad_plain, pdipm_solve_raw
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    Q, p, G, h, A, b, F, _ = _lcps(B, cuda)
+    x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12, 3, ("fric", 4, 8))
+    d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12)
+    rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=torch.float64, device=cuda)
+    ins = (blockdiag_inv3(Q), G, A, F, d, rx)
+    before = kkt_grad_fric.launches
+    out_k = kkt_grad_fric(*ins, ("fric", 4, 8))
+    torch.cuda.synchronize()
+    assert kkt_grad_fric.launches == before + 1
+    for a, r in zip(out_k, kkt_grad_plain(*ins, ("fric", 4, 8))):
+        assert float((a - r).abs().max()) <= 1e-9 * float(r.abs().max())
+
+
+def test_bench_gradient_runs_through_k2(cuda):
+    """d loss / d rad of the 20-frame bench rollout on CUDA launches K2 and
+    matches the plain CPU gradient within 1e-8 relative."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    before = kkt_grad_fric.launches
+    grads = []
+    for device in ("cuda", "cpu"):
+        loss, rad, _ = chip_smoke.bench_loss(device, 20)
+        loss.backward()
+        grads.append(float(rad.grad))
+    assert kkt_grad_fric.launches > before
+    assert abs(grads[0] - grads[1]) <= 1e-8 * abs(grads[1])

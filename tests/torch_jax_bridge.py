@@ -69,21 +69,24 @@ def jax_state_from_torch(state):
                       **{k: jnp.asarray(v) for k, v in d.items()})
 
 
-def torch_bench_world(drop=1.2, rad=0.5, cfg_kw=None, v_sphere=None):
-    """The port's bench world (CPU, float64)."""
+def torch_bench_world(drop=1.2, rad=0.5, cfg_kw=None, v_sphere=None, bodies=None):
+    """The port's bench world (CPU, float64); ``bodies`` replaces the
+    (floor, sphere) pair."""
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.physics import (
         BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body, make_world,
     )
 
-    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25, device="cpu")
-    sphere = make_body(SphereShape(torch.tensor(rad, dtype=torch.float64)), subdiv=2, fric_coeff=0.25,
-                       device="cpu")
+    if bodies is None:
+        floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25, device="cpu")
+        sphere = make_body(SphereShape(torch.tensor(rad, dtype=torch.float64)), subdiv=2, fric_coeff=0.25,
+                           device="cpu")
+        bodies = [floor, sphere]
     poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, drop, 0.0]]
     vels = np.zeros((2, 6))
     if v_sphere is not None:
         vels[1] = v_sphere
-    return make_world([floor, sphere], poses, vels, joints=(TotalConstraint3D(body1=0),),
+    return make_world(bodies, poses, vels, joints=(TotalConstraint3D(body1=0),),
                       forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**(cfg_kw or BENCH_CFG)), device="cpu")
 
 
