@@ -7,15 +7,21 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from ``diffsdfsim_torch/ops/csrc``
 (one nvcc per source, all started together), holds each kernel against its
-plain PyTorch version on the card, then drives the two paths of the port
-on CUDA (float64, the bench scene):
+plain PyTorch version on the card, then drives four paths of the port on
+CUDA (float64):
 
-- the forward path: the 100-frame bounce rollout through K1 (PDIPM) and K3
-  (Frank-Wolfe search), held against the plain CPU rollout and the JAX
-  package's committed golden trajectory;
+- the forward path: the bench scene's 100-frame bounce rollout through K1
+  (PDIPM) and K3 (Frank-Wolfe search), held against the plain CPU rollout
+  and the JAX package's committed golden trajectory;
 - the gradient path: d loss / d rad of bench.py's 100-frame loss through
   K1, K3 and K2 (the LCP backward's KKT solve), held against the plain CPU
-  gradient and the JAX package's committed golden gradients.
+  gradient and the JAX package's committed golden gradients;
+- the grid path: a voxelized sphere on a 64^3 grid dropped for 16 frames
+  through K5 (trilinear grid sampling) and K1, against its JAX golden;
+- the latent path: optim_shapespace's 36-frame drop of a shape-space body
+  (the reference's IGR decoder at full width) through K4 (the fused
+  decoder) and K1, then two Adam steps of the latent fit through K4, K1 and
+  K2, against the JAX golden drop, gradients and latents.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every check that fails raises, so any failure exits
@@ -34,6 +40,8 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(ROOT, "tests", "golden", "bench_rollout_f64.npz")
 GRAD_GOLDEN = os.path.join(ROOT, "tests", "golden", "bench_grad_f64.npz")
+LATENT_GOLDEN = os.path.join(ROOT, "tests", "golden", "latent128_f64.npz")
+GRID_GOLDEN = os.path.join(ROOT, "tests", "golden", "grid64_f64.npz")
 
 # bench.py's forward configuration (float64 tolerance)
 BENCH_CFG = dict(
@@ -61,11 +69,23 @@ ATOL_Y, ATOL_VY, ATOL_ALL, ATOL_REPORT = 1e-6, 1e-5, 5e-2, 1e-7
 # CPU and CUDA runs round differently too (on an H100 the CUDA gradient
 # reads 7.2e-4 from the JAX golden value and 1.1e-3 from the CPU port's).
 RTOL_GRAD_SHORT, RTOL_GRAD_100 = 1e-4, 3e-3
+# How the grid and latent paths are held against their JAX goldens:
+# identical discrete decisions and every pose and velocity within
+# ATOL_SHAPE_PATH (K1's Gauss-Jordan rounds each solve differently from the
+# plain Cholesky, ~1e-13 in x, and the drop integrates it: on an H100 the
+# grid drop read 1.1e-9, the latent drop 1.8e-14); each fit step's loss and
+# d loss / d latent within RTOL_LATENT_GRAD relative (read 3.4e-8: the
+# polished contact anchors the gradient flows through round differently);
+# the latent after two Adam steps within ATOL_LATENT_Z.
+ATOL_SHAPE_PATH, RTOL_LATENT_GRAD, ATOL_LATENT_Z = 1e-7, 1e-6, 1e-9
 
 # H100 SXM peaks (NVIDIA data sheet): 3.35 TB/s HBM3; 67 TFLOP/s float32 and
 # 34 TFLOP/s float64 outside the tensor cores (the kernels use none)
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# a chain of matrix products could run on the float64 tensor cores (67
+# TFLOP/s); float32 stays at 67 (TF32 would round the inputs)
+PEAK_MATMUL_FLOPS = {"float32": 67e12, "float64": 67e12}
 
 
 class Failure(RuntimeError):
@@ -141,8 +161,8 @@ def phase_device_and_build():
     ).stdout.strip().splitlines()[0]
     print(f"device: {name}  count: {torch.cuda.device_count()}  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    logs = _build.build_all(["pdipm_fwd", "fw_search", "kkt_bwd"])
-    print(f"build: three kernels in {time.perf_counter() - t0:.1f} s (nvcc in parallel)")
+    logs = _build.build_all(["pdipm_fwd", "fw_search", "kkt_bwd", "igr_mlp", "grid_interp"])
+    print(f"build: five kernels in {time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for kname, log in logs.items():
         lines = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
         regs = [int(ln.split("Used ")[1].split(" registers")[0]) for ln in lines if "Used " in ln]
@@ -158,9 +178,10 @@ def phase_device_and_build():
 # ---------------------------------------------------------------- phase 2
 
 
-def physics_lcps(B, seed, device, dtype):
-    """B mixed LCPs of the bench scene at contact (floor -> sphere, four
-    contact slots, some invalid), assembled by the port's engine."""
+def physics_lcps(B, seed, device, dtype, k=4):
+    """B mixed LCPs of the bench scene at contact (floor -> sphere, k
+    contact slots, some invalid), assembled by the port's engine: k = 4 is
+    the bench's contact buffer, k = 8 the shape-space scene's."""
     import torch
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.physics import Gravity3D, TotalConstraint3D
@@ -169,13 +190,12 @@ def physics_lcps(B, seed, device, dtype):
     from diffsdfsim_torch.physics.world import WorldState
     from diffsdfsim_torch.utils.spherical import normalize
 
-    cfg = SimConfig(**BENCH_CFG)
+    cfg = SimConfig(**dict(BENCH_CFG, max_contacts_total=k))
     floor, sphere = bench_bodies("cpu", torch.float64)
     f64 = lambda x: torch.tensor(np.asarray(x, dtype=np.float64))
     rng = np.random.default_rng(seed)
     out = [[] for _ in range(8)]
     for _ in range(B):
-        k = 4
         valid = rng.random(k) < 0.7
         valid[0] = True
         n = normalize(f64(np.array([0.0, 1.0, 0.0]) + 0.05 * rng.normal(size=(k, 3))))
@@ -220,15 +240,17 @@ def phase_k1():
     from diffsdfsim_torch.ops.qp import lcp_residuals, pdipm_solve_raw
     from diffsdfsim_torch.ops.qp_cuda import pdipm_fric
 
-    structure = ("fric", 4, 8)
     rows = {}
     # float32: the plain version keeps the JAX XLA path's f32 rules (d
     # clipped to [1e-5, 1e5], a 1e-6 ridge), the kernel the Pallas kernel's
     # (none), so their x agree only to ~1e-3 of |x| ~ 3; both are also held
-    # to their KKT residuals below
+    # to their KKT residuals below. k = 8 contacts (nineq 80): the
+    # shape-space scene's buffer, at its probe batches of 3 and 4 rungs
+    cases = [(4, B) for B in (3, 6, 576)] + [(8, B) for B in (3, 4)]
     for dtype, eps, tol_x in ((torch.float64, 1e-12, 1e-8), (torch.float32, 1e-6, 1e-2)):
-        for B in (3, 6, 576):
-            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype)
+        for k, B in cases:
+            structure = ("fric", k, 8)
+            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype, k=k)
             args = (Q, p, G, h, A, b, F)
             sol_k = pdipm_fric(*args, invQ, 10, eps, 3, structure)
             done_it = pdipm_fric.last_done_it.clone()
@@ -239,7 +261,7 @@ def phase_k1():
             # x is compared on the lanes the plain version solved (KKT
             # residual <= 1e-3); in float32 some lanes it leaves at ~1e-1
             solved = res_p <= 1e-3
-            err = float((sol_k[0] - sol_p[0]).abs()[solved].max())
+            err = float((sol_k[0] - sol_p[0]).abs()[solved].max()) if bool(solved.any()) else 0.0
             floor_res = 1e-6 if dtype == torch.float64 else 1e-2
             bad_res = int((res_k > torch.clamp(10 * res_p, min=floor_res)).sum())
             prep = pdipm_fric.prepare(*args, invQ, 10, eps, 3, structure)
@@ -249,10 +271,10 @@ def phase_k1():
             nbytes = sum(t.numel() * t.element_size() for t in (*args, invQ)) + sum(
                 t.numel() * t.element_size() for t in sol_k
             )
-            flops = k1_flops(done_it, 10, 12, 6, 40, 4, 8)
+            flops = k1_flops(done_it, 10, 12, 6, k * 10, k, 8)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
-            tag = f"K1 {str(dtype).split('.')[1]} B={B}"
+            tag = f"K1 {str(dtype).split('.')[1]} k={k} B={B}"
             print(f"{tag}: max|dx| {err:.3e} (tol {tol_x:g}, {int(solved.sum())}/{B} lanes), resid kernel max {float(res_k.max()):.3e} "
                   f"plain max {float(res_p.max()):.3e}, worse lanes {bad_res}; kernel {ms:.4f} ms ({how}) "
                   f"(wrapper with its tensor glue {wrapper_ms:.4f} ms), "
@@ -260,8 +282,8 @@ def phase_k1():
                   f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
             check(err <= tol_x, f"{tag}: kernel x differs from the plain version by {err}")
             check(bad_res == 0, f"{tag}: {bad_res} lanes with a worse KKT residual than the plain version")
-            rows[(dtype, B)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                                    bytes_ms=bytes_ms, ops_ms=ops_ms)
+            rows[(dtype, k, B)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                       bytes_ms=bytes_ms, ops_ms=ops_ms)
     return rows
 
 
@@ -429,12 +451,12 @@ def phase_k2():
     from diffsdfsim_torch.ops.qp import blockdiag_inv3, kkt_grad_plain, pdipm_solve_raw
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
 
-    structure = ("fric", 4, 8)
     rows = {}
     for dtype in (torch.float64, torch.float32):
-        for B in (1, 6, 576):
+        for k, B in ((4, 1), (4, 6), (4, 576), (8, 1)):
+            structure = ("fric", k, 8)
             f64 = dtype == torch.float64
-            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype)
+            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype, k=k)
             x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12 if f64 else 1e-6, 3, structure)
             d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12 if f64 else 1e5)
             rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=dtype, device="cuda")
@@ -457,18 +479,159 @@ def phase_k2():
             # is derived from invQ, G and A)
             mu = prep["ins"][4]
             nbytes = sum(t.numel() * t.element_size() for t in (iq, G, A, mu, d, rx) + tuple(out_k))
-            flops = k2_flops(12, 6, 40, 4, 8, B)
+            flops = k2_flops(12, 6, k * 10, k, 8, B)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
             tol = 1e-9 if f64 else 1e-4
-            tag = f"K2 {str(dtype).split('.')[1]} B={B}"
+            tag = f"K2 {str(dtype).split('.')[1]} k={k} B={B}"
             print(f"{tag}: max abs err {abs_err:.3e}, max rel err {err:.3e} vs the plain version{'' if f64 else ' in float64'} (tol {tol:g})"
                   f"{'' if f64 else f'; the plain float32 path is off by {err_plain:.3e}'}; kernel {ms:.4f} ms ({how}) "
                   f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
                   f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
             check(err <= tol, f"{tag}: kernel differs from the plain version by {err} (relative)")
-            rows[(dtype, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+            rows[(dtype, k, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                       bytes_ms=bytes_ms, ops_ms=ops_ms)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 3c
+
+
+def igr_net(dtype, dims=(128,) * 8, skip_in=(4,), seed=1234):
+    """The shape-space decoder at the reference's width (latent size 2,
+    geometric init toward radius 0.55, weights from a numpy seed as the
+    golden file's)."""
+    from diffsdfsim_torch.models.igr import init_implicit_net
+
+    return init_implicit_net(5, dims, skip_in, radius_init=0.55, generator=np.random.default_rng(seed),
+                             dtype=dtype).to("cuda")
+
+
+def igr_flops(params, n):
+    """FLOPs of the decoder on n points: two per multiply-add of every
+    layer, four per softplus (scale, compare, exp, log1p and divide counted
+    as one each but the compare)."""
+    macs = sum(w.shape[0] * w.shape[1] for w in params.weights)
+    acts = sum(w.shape[0] for w in params.weights[:-1])
+    return n * (2 * macs + 4 * acts)
+
+
+def phase_k4():
+    """K4 against implicit_net_apply at N = 100 (template projection),
+    2304 (a 3-rung Frank-Wolfe step over the 768-face floor) and 65536, at
+    the reference's width. Tolerance: 1e-12 (float64) and 1e-5 (float32)
+    relative to the largest value (the kernel sums each dot product in
+    input order, the plain version in cuBLAS's order)."""
+    import torch
+    from diffsdfsim_torch.models.igr import implicit_net_apply
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    rows = {}
+    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+        params = igr_net(dtype).params()
+        for n in (100, 2304, 65536):
+            rng = np.random.default_rng(n)
+            x = np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1.0, 1.0, (n, 3))], axis=1)
+            x = torch.tensor(x, dtype=dtype, device="cuda")
+            out = igr_mlp.run(params, x)
+            ref = implicit_net_apply(params, x)
+            torch.cuda.synchronize()
+            err = float((out - ref).abs().max())
+            rel = err / float(ref.abs().max())
+            ms, how = device_ms(lambda: igr_mlp.run(params, x), "igr_mlp_kernel")
+            wrapper_ms = cuda_ms(lambda: igr_mlp(params, x))
+            plain_ms = cuda_ms(lambda: implicit_net_apply(params, x))
+            esize = x.element_size()
+            nbytes = (x.numel() + n + sum(t.numel() for t in params.weights + params.biases)) * esize
+            flops = igr_flops(params, n)
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = flops / PEAK_MATMUL_FLOPS[str(dtype).split(".")[1]] * 1e3
+            tag = f"K4 {str(dtype).split('.')[1]} N={n}"
+            print(f"{tag}: max abs err {err:.3e}, rel {rel:.3e} (tol {rtol:g}); kernel {ms:.4f} ms ({how}) "
+                  f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+                  f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP); library: none")
+            check(rel <= rtol, f"{tag}: kernel differs from the plain version by {rel} (relative)")
+            rows[(dtype, n)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                     bytes_ms=bytes_ms, ops_ms=ops_ms)
+    return rows
+
+
+# ---------------------------------------------------------------- phase 3d
+
+
+def sphere_grid(res):
+    """A res^3 grid of the sphere SDF of radius 0.5 / 0.75 over [-1, 1]^3
+    (numpy; tests/golden/gen_torch_shape_golden.py's voxelized sphere)."""
+    lin = np.linspace(-1.0, 1.0, res)
+    pts = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), axis=-1)
+    return np.sqrt(np.maximum(np.sum(pts * pts, axis=-1), 1e-24)) - 0.5 / 0.75
+
+
+def grid_sample_fn(grid, inds):
+    """torch's grid_sample computing what K5 computes at in-bounds points:
+    trilinear ("bilinear" on a 5-D input), align_corners=True, its last
+    coordinate axis ordered (z, y, x). Returns (C, N)."""
+    import torch
+
+    g4 = grid if grid.dim() == 4 else grid[None]
+    size = torch.tensor(g4.shape[1:], dtype=inds.dtype, device=inds.device)
+    coords = (inds / (size - 1.0) * 2.0 - 1.0).flip(-1).reshape(1, 1, 1, -1, 3)
+
+    def run():
+        return torch.nn.functional.grid_sample(g4[None], coords, mode="bilinear", padding_mode="border",
+                                               align_corners=True).reshape(g4.shape[0], -1)
+
+    return run
+
+
+def phase_k5():
+    """K5 against sdf.grid_interp on 33^3, 64^3 and 128^3 grids, C = 1 (the
+    SDF value) and 3 (the gradient volume), N = 10^3 and 10^5 fractional
+    voxel coordinates, ~4 % of them outside the grid (extrapolated by the
+    clamped base corner) and some exactly on the upper faces. Tolerance 0:
+    the kernel repeats the plain version's products in the same order. The
+    library column times grid_sample on the same inputs (it agrees at the
+    in-bounds points; outside it clamps)."""
+    import torch
+    from diffsdfsim_torch.ops import sdf
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+
+    rows = {}
+    for dtype in (torch.float64, torch.float32):
+        for res in (33, 64, 128) if dtype == torch.float64 else (64,):
+            for C in (1, 3):
+                for n in (1000, 100000):
+                    rng = np.random.default_rng(res * 10 + C)
+                    grid = torch.tensor(rng.normal(size=(C, res, res, res) if C > 1 else (res, res, res)),
+                                        dtype=dtype, device="cuda")
+                    inds = rng.uniform(-0.02, 1.02, (n, 3)) * (res - 1)
+                    inds[:: 50, rng.integers(0, 3)] = res - 1  # on an upper face
+                    inds = torch.tensor(inds, dtype=dtype, device="cuda")
+                    out = grid_interp(grid, inds)
+                    ref = sdf.grid_interp(grid, inds)
+                    torch.cuda.synchronize()
+                    err = float((out - ref).abs().max())
+                    inside = torch.all((inds >= 0) & (inds <= res - 1), dim=-1)
+                    lib = grid_sample_fn(grid, inds)
+                    lib_err = float((lib().reshape(out.shape) - out).abs()[..., inside].max())
+                    ms, how = device_ms(lambda: grid_interp.run(grid, inds), "grid_interp_kernel")
+                    wrapper_ms = cuda_ms(lambda: grid_interp(grid, inds))
+                    plain_ms = cuda_ms(lambda: sdf.grid_interp(grid, inds))
+                    library_ms = cuda_ms(lib)
+                    esize = grid.element_size()
+                    # the gather touches at most 8 corners per point and channel
+                    nbytes = (min(8 * n * C, grid.numel()) + inds.numel() + out.numel()) * esize
+                    flops = 30 * n * C
+                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                    ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+                    tag = f"K5 {str(dtype).split('.')[1]} {res}^3 C={C} N={n}"
+                    print(f"{tag}: max abs err {err:.3e} (tol 0), grid_sample at in-bounds points {lib_err:.1e}; "
+                          f"kernel {ms:.4f} ms ({how}) (wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+                          f"grid_sample {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+                          f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
+                    check(err == 0.0, f"{tag}: kernel differs from the plain version by {err}")
+                    rows[(dtype, res, C, n)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                                    library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
     return rows
 
 
@@ -701,6 +864,184 @@ def phase_gradient():
     return launches
 
 
+# ---------------------------------------------------------------- phase 6
+
+
+def reset_counts():
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
+
+    for k in (pdipm_fric, fw_search_pair, kkt_grad_fric, igr_mlp, grid_interp):
+        k.launches = 0
+
+
+def read_counts():
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
+
+    return {"pdipm_fwd": pdipm_fric.launches, "fw_search": fw_search_pair.launches,
+            "kkt_bwd": kkt_grad_fric.launches, "igr_mlp": igr_mlp.launches, "grid_interp": grid_interp.launches}
+
+
+def synced(fn):
+    """(fn(), seconds, device reads): fn run to a device synchronization,
+    its synchronizing operations counted by torch's sync debug mode."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, wall, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def busy_share(fn):
+    """(wall ms, device busy ms, distinct kernels) of fn() under torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = {}
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev = getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
+        if dev > 0:
+            kern[ev.key] = dev / 1e3
+    return wall * 1e3, sum(kern.values()), kern
+
+
+def compare_shape_traj(traj, ref, label, atol):
+    """Identical discrete decisions, every pose and velocity within atol."""
+    tr = {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
+    for key in ("valid", "n_halvings", "bisect_failed", "truncated"):
+        check(np.array_equal(tr[key], ref[f"traj_{key}"]), f"{label}: {key} differs")
+    errs = {key: float(np.abs(tr[key] - ref[f"traj_{key}"]).max()) for key in ("pos", "quat", "v")}
+    check(max(errs.values()) <= atol, f"{label}: differs from the JAX golden by {errs} (atol {atol})")
+    return tr, errs
+
+
+def phase_grid_path():
+    """The voxel-grid body on CUDA: the 16-frame drop of a voxelized sphere
+    on a 64^3 float64 grid (tests/test_world_extra.py:53-67 at a voxel-SDF
+    user's size) through K5 (every SDF value and gradient of the grid body)
+    and K1, against the JAX golden file; K3 is never launched (no pair of
+    this scene is one of its analytic kinds)."""
+    import torch
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.physics import (BoxShape, Gravity3D, GridShape, TotalConstraint3D, make_body,
+                                          make_world, rollout)
+
+    golden = dict(np.load(GRID_GOLDEN))
+    cfg = SimConfig(fric_dirs=4, max_contacts_per_pair=4, max_contacts_total=8, mesh_subdiv=2, max_substeps=4,
+                    max_bisect=6)
+    grid = torch.tensor(sphere_grid(int(golden["res"])), device="cuda")
+
+    def run(n_frames):
+        floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), fric_coeff=0.25, subdiv=3, device="cuda")
+        ball = make_body(GridShape(grid=grid, scale_=torch.tensor(0.75)), fric_coeff=0.25, template="ico",
+                         subdiv=2, project_iters=16, device="cuda")
+        spec, state = make_world([floor, ball], [[1.0, 0, 0, 0, 0, -0.5, 0], [1.0, 0, 0, 0, 0, 1.0, 0]],
+                                 np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
+                                 forces=((), (Gravity3D(10.0),)), cfg=cfg, device="cuda")
+        return ball, rollout(spec, state, n_frames)[1]
+
+    run(2)  # warm-up
+    reset_counts()
+    (ball, traj), wall, syncs = synced(lambda: run(int(golden["frames"])))
+    launches = read_counts()
+    check(launches["grid_interp"] > 0 and launches["fw_search"] == 0,
+          f"the grid path must launch K5 and not K3: {launches}")
+    check(float((ball.verts.cpu() - torch.tensor(golden["verts"])).abs().max()) <= 1e-12, "grid body verts differ")
+    _, errs = compare_shape_traj(traj, golden, "grid path vs JAX golden", ATOL_SHAPE_PATH)
+    n_sub = int(traj.valid.sum())
+    pwall, busy, kern = busy_share(lambda: run(int(golden["frames"])))
+    print(f"grid path: {int(golden['frames'])} frames on a {int(golden['res'])}^3 grid in {wall:.3f} s wall "
+          f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads; launches {launches}; "
+          f"vs JAX golden " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; profiled: wall {pwall:.1f} ms, device busy {busy:.1f} ms (idle {100 - 100 * busy / pwall:.1f}%)")
+    return launches
+
+
+# ---------------------------------------------------------------- phase 7
+
+
+def phase_latent_path():
+    """The shape-space body on CUDA at the reference's full width, through
+    K4 (every decoder value), K1 and, in the gradient, K2; K3 is never
+    launched. optim_shapespace's 36-frame drop at the target latent against
+    the JAX golden file, then two Adam steps of the fit from the start
+    latent (each a taped rollout and its backward), whose losses, gradients
+    and latents are held against JAX's."""
+    import torch
+    from diffsdfsim_torch.experiments import optim_shapespace as oss
+
+    golden = dict(np.load(LATENT_GOLDEN))
+    net = igr_net(torch.float64, tuple(golden["dims"].tolist()), tuple(golden["skip_in"].tolist()),
+                  int(golden["weight_seed"]))
+    c = dict(oss.DEFAULTS, run_time=int(golden["frames"]) / 30.0)
+    cfg = oss.build_cfg(c)
+    target, start, quat0 = (torch.tensor(golden[k], device="cuda") for k in ("target_latent", "start_latent", "quat0"))
+
+    oss.simulate(target, quat0, net, dict(c, run_time=2 / 30.0), cfg, device="cuda")  # warm-up
+    reset_counts()
+    (_, traj), wall, syncs = synced(lambda: oss.simulate(target, quat0, net, c, cfg, device="cuda"))
+    launches = read_counts()
+    check(launches["igr_mlp"] > 0 and launches["pdipm_fwd"] > 0 and launches["fw_search"] == 0,
+          f"the latent forward must launch K4 and K1 and not K3: {launches}")
+    check(traj.pos.grad_fn is None, "the latent forward recorded a tape with nothing requiring grad")
+    _, errs = compare_shape_traj(traj, golden, "latent path vs JAX golden", ATOL_SHAPE_PATH)
+    n_frames, n_sub = int(golden["frames"]), int(traj.valid.sum())
+    print(f"latent path, forward: {n_frames} frames in {wall:.3f} s wall = {n_frames / wall:.2f} forward steps/s "
+          f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads "
+          f"({syncs / n_sub:.1f} per substep); launches {launches}; vs JAX golden "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    reset_counts()
+    out, fit_wall, fit_syncs = synced(lambda: oss.fit(net, target, start, quat0, c, cfg, device="cuda", max_iter=2))
+    fit_launches = read_counts()
+    check(fit_launches["igr_mlp"] > 0 and fit_launches["pdipm_fwd"] > 0 and fit_launches["kkt_bwd"] > 0
+          and fit_launches["fw_search"] == 0, f"the fit must launch K4, K1 and K2 and not K3: {fit_launches}")
+    rel = lambda a, b: float(np.abs(a - b).max() / np.abs(b).max())  # noqa: E731
+    e_loss = max(rel(out["loss_hist"][i].cpu().numpy(), golden[f"loss_{i}"]) for i in range(2))
+    e_grad = max(rel(out["grad_hist"][i].cpu().numpy(), golden[f"grad_{i}"]) for i in range(2))
+    e_lat = float(np.abs(out["final_latent"].cpu().numpy() - golden["latent_2"]).max())
+    print(f"latent path, fit: 2 Adam steps (target rollout, then 2 taped rollouts with their backward) in "
+          f"{fit_wall:.3f} s wall, {fit_syncs} device reads; launches {fit_launches}; d loss / d latent "
+          f"{[g.cpu().numpy().tolist() for g in out['grad_hist']]} vs JAX {[golden[f'grad_{i}'].tolist() for i in range(2)]}: "
+          f"rel {e_grad:.2e} (tol {RTOL_LATENT_GRAD:g}); losses rel {e_loss:.2e} (tol {RTOL_LATENT_GRAD:g}); "
+          f"latent after 2 steps {out['final_latent'].cpu().numpy().tolist()} vs JAX {golden['latent_2'].tolist()}: "
+          f"{e_lat:.2e} (tol {ATOL_LATENT_Z:g})")
+    check(e_grad <= RTOL_LATENT_GRAD and e_loss <= RTOL_LATENT_GRAD, "latent fit: loss or gradient differs from JAX")
+    check(e_lat <= ATOL_LATENT_Z, f"latent fit: latent differs from JAX by {e_lat}")
+
+    short = dict(c, run_time=20 / 30.0)
+    pwall, busy, kern = busy_share(lambda: oss.simulate(target, quat0, net, short, cfg, device="cuda"))
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    print(f"latent path, 20 profiled frames forward: wall {pwall:.1f} ms, device busy {busy:.1f} ms "
+          f"(idle {100 - 100 * busy / pwall:.1f}%); top kernels (ms): "
+          + "; ".join(f"{k[:40]} {v:.2f}" for k, v in top) + f"; {len(kern)} distinct kernels")
+    return launches, fit_launches
+
+
 def main():
     import torch
 
@@ -715,17 +1056,23 @@ def main():
     k1 = phase_k1()
     k3 = phase_k3()
     k2 = phase_k2()
+    k4 = phase_k4()
+    k5 = phase_k5()
     launches, wall, n_sub = phase_main_path()  # in grad mode, as a forward-only caller runs it
     grad_launches = phase_gradient()
+    grid_launches = phase_grid_path()
+    latent_launches, _ = phase_latent_path()
 
     f64 = torch.float64
-    k1r = k1[(f64, 3)]
+    k1r = k1[(f64, 4, 3)]
     k3r = k3[(f64, "sphere->floor touch R=3")]  # the pair that finds the contacts
-    k2r = k2[(f64, 1)]  # one problem per contacting substep on the main path
+    k2r = k2[(f64, 4, 1)]  # one problem per contacting substep on the main path
+    k4r = k4[(f64, 2304)]  # a 3-rung Frank-Wolfe step over the floor's 768 faces
+    k5r = k5[(f64, 64, 1, 1000)]  # the grid path's grid, ~10^3 SDF queries per call
     kernels = [
         dict(name="pdipm_fwd", route="cuda", source="diffsdfsim_torch/ops/csrc/pdipm_fwd.cu",
              replaces="diffsdfsim_tpu/ops/qp_pallas.py:247", launches=launches["pdipm_fwd"],
-             max_abs_err=max(r["err"] for (dt, _), r in k1.items() if dt == f64), ms=k1r["ms"], plain_ms=k1r["plain_ms"],
+             max_abs_err=max(r["err"] for (dt, _, _), r in k1.items() if dt == f64), ms=k1r["ms"], plain_ms=k1r["plain_ms"],
              bound_ms=max(k1r["bytes_ms"], k1r["ops_ms"]),
              bound_by="bytes" if k1r["bytes_ms"] > k1r["ops_ms"] else "operations", library_ms=None),
         dict(name="fw_search", route="cuda", source="diffsdfsim_torch/ops/csrc/fw_search.cu",
@@ -735,9 +1082,19 @@ def main():
              bound_by="bytes" if k3r["bytes_ms"] > k3r["ops_ms"] else "operations", library_ms=None),
         dict(name="kkt_bwd", route="cuda", source="diffsdfsim_torch/ops/csrc/kkt_bwd.cu",
              replaces="diffsdfsim_tpu/ops/qp_pallas.py:712", launches=grad_launches["kkt_bwd"],
-             max_abs_err=max(r["err"] for (dt, _), r in k2.items() if dt == f64), ms=k2r["ms"],
+             max_abs_err=max(r["err"] for (dt, _, _), r in k2.items() if dt == f64), ms=k2r["ms"],
              plain_ms=k2r["plain_ms"], bound_ms=max(k2r["bytes_ms"], k2r["ops_ms"]),
              bound_by="bytes" if k2r["bytes_ms"] > k2r["ops_ms"] else "operations", library_ms=None),
+        dict(name="igr_mlp", route="cuda", source="diffsdfsim_torch/ops/csrc/igr_mlp.cu",
+             replaces="diffsdfsim_tpu/ops/pallas_kernels.py:40", launches=latent_launches["igr_mlp"],
+             max_abs_err=max(r["err"] for (dt, _), r in k4.items() if dt == f64), ms=k4r["ms"],
+             plain_ms=k4r["plain_ms"], bound_ms=max(k4r["bytes_ms"], k4r["ops_ms"]),
+             bound_by="bytes" if k4r["bytes_ms"] > k4r["ops_ms"] else "operations", library_ms=None),
+        dict(name="grid_interp", route="cuda", source="diffsdfsim_torch/ops/csrc/grid_interp.cu",
+             replaces="diffsdfsim_tpu/ops/pallas_kernels.py:106", launches=grid_launches["grid_interp"],
+             max_abs_err=max(r["err"] for (dt, *_), r in k5.items() if dt == f64), ms=k5r["ms"],
+             plain_ms=k5r["plain_ms"], bound_ms=max(k5r["bytes_ms"], k5r["ops_ms"]),
+             bound_by="bytes" if k5r["bytes_ms"] > k5r["ops_ms"] else "operations", library_ms=k5r["library_ms"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,0 +1,174 @@
+"""Shape-space trajectory fitting: recover an IGR latent code from a bounce.
+
+PyTorch counterpart of ``diffsdfsim_tpu/experiments/optim_shapespace.py``
+(re-creation of the reference's ``experiments/trajectory_fitting/
+optim_shapespace.py``): a body whose shape is decoded from a latent space
+(the IGR MLP, ``models/igr.py``; its values are kernel K4 on the card) is
+dropped with a random initial rotation onto a fixed floor; Adam on the
+nearest-time trajectory MSE plus ``latent_reg * |z|^2`` recovers the latent.
+The target latent is one of the codes and the start N(mean, 0.1 std)
+(reference :241-248).
+
+``--model_path .../ModelParameters/x.pth --latent_path .../LatentCodes/x.pth``
+loads real IGR weights (``models/igr.load_torch_checkpoint``); otherwise a
+geometrically initialized net (an approximate sphere of radius 0.55) keeps
+the pipeline runnable. The in-repo trained space (``trained_space``) waits
+for the port of ``models/igr_train.py``, and ``n_par > 1`` (the seed-batched
+sweep) for ``physics/batched.py``.
+
+The port's own draws (the default net, the codes, the target, the start and
+the initial rotation) come from ``torch.Generator``s seeded from the config;
+they differ from the JAX package's ``jax.random`` draws. ``fit`` takes the
+target latent, the start latent and the initial rotation explicitly, so a
+caller can hand it the JAX package's draws.
+
+Run: python -m diffsdfsim_torch.experiments.optim_shapespace with seed=0
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..config import SimConfig, default_dtype, resolve_device
+from ..models.igr import init_implicit_net, load_torch_checkpoint
+from ..physics import BoxShape, Gravity3D, LatentShape, TotalConstraint3D, make_body, make_world, rollout
+from ..utils.quaternion import random_quaternions
+from .common import Run, parse_cli
+from .losses import trajectory_loss
+
+DEFAULTS = dict(
+    seed=0,
+    run_time=1.2,
+    max_iter=60,
+    lr=1e-2,
+    latent_reg=1e-3,
+    latent_size=2,
+    scale=1.0,
+    mesh_subdiv=2,
+    model_path="",
+    latent_path="",
+    trained_space=False,
+    space_cache="outputs/igr_space4.pkl",
+    n_par=1,
+    base_dir="outputs",
+)
+
+
+def build_cfg(c, dtype=None) -> SimConfig:
+    f32 = (dtype or default_dtype()) == torch.float32
+    return SimConfig(
+        fric_dirs=8,
+        max_contacts_per_pair=4,
+        max_contacts_total=8,
+        mesh_subdiv=c["mesh_subdiv"],
+        max_substeps=4,
+        max_bisect=6,
+        tol=1e-5 if f32 else 1e-8,
+        time_of_contact_diff=True,
+    )
+
+
+def load_decoder(c, device=None, dtype=None):
+    """(ImplicitNet, codes (n, latent_size)) on ``device``: the checkpoint at
+    ``model_path`` / ``latent_path``, or a geometric-init net and 16 codes
+    drawn N(0, 0.3^2)."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype()
+    if c["model_path"]:
+        return load_torch_checkpoint(c["model_path"], c["latent_path"], dtype=dtype, device=device)
+    if c.get("trained_space"):
+        raise NotImplementedError("trained_space needs models/igr_train.py, which is not ported yet")
+    net = init_implicit_net(3 + c["latent_size"], radius_init=0.55, generator=torch.Generator().manual_seed(1234),
+                            dtype=dtype)
+    codes = torch.randn((16, c["latent_size"]), generator=torch.Generator().manual_seed(4321), dtype=dtype) * 0.3
+    return net.to(device), codes.to(device)
+
+
+def simulate(latent, quat0, decoder, c, cfg, device=None):
+    """The scene of ``optim_shapespace.simulate``: a fixed 20x1x20 floor and
+    the latent body dropped from y = 2 with vx = 1 and rotation ``quat0``.
+    Returns (final state, Trajectory)."""
+    device = resolve_device(device)
+    dtype = latent.dtype
+    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, device=device, dtype=dtype)
+    shape = LatentShape(latent=latent, scale_=torch.tensor(c["scale"]), decoder=decoder)
+    body = make_body(shape, subdiv=c["mesh_subdiv"], project_iters=16, device=device, dtype=dtype)
+    quat0 = torch.as_tensor(quat0, dtype=dtype, device=device)
+    poses = torch.stack([
+        torch.tensor([1.0, 0, 0, 0, 0.0, -0.5, 0.0], dtype=dtype, device=device),
+        torch.cat([quat0, torch.tensor([0.0, 2.0, 0.0], dtype=dtype, device=device)]),
+    ])
+    vels = torch.zeros((2, 6), dtype=dtype, device=device)
+    vels[1, 3] = 1.0
+    spec, state = make_world(
+        [floor, body], poses, vels, joints=(TotalConstraint3D(body1=0),), forces=((), (Gravity3D(10.0),)),
+        cfg=cfg, device=device,
+    )
+    return rollout(spec, state, n_frames=int(round(c["run_time"] / cfg.dt)))
+
+
+def draw_problem(codes, generator: torch.Generator):
+    """(target latent, start latent, initial rotation) as ``run_one`` draws
+    them, from a ``torch.Generator`` on the CPU."""
+    idx = int(torch.randint(0, codes.shape[0], (), generator=generator))
+    target = codes[idx]
+    mean = torch.mean(codes, dim=0)
+    std = torch.std(codes, dim=0, unbiased=False)
+    noise = torch.randn(mean.shape, generator=generator, dtype=codes.dtype).to(codes.device)
+    quat0 = random_quaternions(1, generator, dtype=codes.dtype)[0].to(codes.device)
+    return target, mean + 0.1 * std * noise, quat0
+
+
+def fit(decoder, target_latent, start_latent, quat0, c, cfg, device=None, max_iter=None):
+    """Adam (torch.optim.Adam: optax's update rule, eps = 1e-8) on
+    ``trajectory_loss(body=1) + latent_reg * |z|^2`` from ``start_latent``
+    toward the trajectory of ``target_latent``. Returns the histories of
+    ``run_one``, plus each step's gradient."""
+    max_iter = c["max_iter"] if max_iter is None else max_iter
+    with torch.no_grad():
+        _, tgt = simulate(target_latent, quat0, decoder, c, cfg, device)
+    z = start_latent.detach().clone().requires_grad_(True)
+    opt = torch.optim.Adam([z], lr=c["lr"])
+    losses, errs, grads = [], [], []
+    for _ in range(max_iter):
+        opt.zero_grad()
+        _, traj = simulate(z, quat0, decoder, c, cfg, device)
+        loss = trajectory_loss(traj, tgt, body=1) + c["latent_reg"] * torch.sum(z**2)
+        loss.backward()
+        losses.append(loss.detach())
+        errs.append(torch.linalg.norm(z.detach() - target_latent))
+        grads.append(z.grad.detach().clone())
+        opt.step()
+    stack = lambda xs: torch.stack(xs) if xs else torch.zeros((0,))
+    return dict(
+        start_latent=start_latent, final_latent=z.detach(), target_latent=target_latent,
+        loss_hist=stack(losses), latent_err_hist=stack(errs), grad_hist=stack(grads),
+    )
+
+
+def run_one(seed: int, decoder, codes, c, cfg, device=None):
+    """One fit with the problem drawn from ``seed`` (see ``draw_problem``)."""
+    target, start, quat0 = draw_problem(codes, torch.Generator().manual_seed(seed))
+    return fit(decoder, target, start, quat0, c, cfg, device)
+
+
+def main(argv=None, device=None):
+    c = parse_cli(DEFAULTS, argv)
+    if c["n_par"] > 1:
+        raise NotImplementedError("n_par > 1 needs physics/batched.py, which is not ported yet")
+    cfg = build_cfg(c)
+    run = Run("trajectory_fitting_shapespace", c, base_dir=c["base_dir"])
+    decoder, codes = load_decoder(c, device)
+    out = run_one(c["seed"], decoder, codes, c, cfg, device)
+    out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    for i, v in enumerate(out["loss_hist"]):
+        run.log_scalar("loss", float(v), i)
+    run.save_output(out)
+    run.finish()
+    print("latent err start->final:", float(((out["start_latent"] - out["target_latent"]) ** 2).sum() ** 0.5),
+          float(((out["final_latent"] - out["target_latent"]) ** 2).sum() ** 0.5))
+    return out
+
+
+if __name__ == "__main__":
+    main()

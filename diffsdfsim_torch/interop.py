@@ -8,7 +8,10 @@ numpy only: the caller converts the JAX side with ``np.asarray``.
 Layouts:
 
 - body: ``shape`` (shape class name), the shape's parameters under their
-  field names (``rad``, ``dims``, ``r``, ``height``), ``verts`` (V,3),
+  field names (``rad``, ``dims``, ``r``, ``height``; ``grid``, ``scale_``
+  for a grid body; ``latent``, ``scale_`` for a latent body, whose decoder
+  is carried as ``weights`` and ``biases`` (lists of (out, in) and (out,)
+  arrays) and ``skip_in``), ``verts`` (V,3),
   ``faces`` (F,3), ``mass``, ``ang_inertia`` (3,3), ``restitution``,
   ``fric_coeff``, ``is_sdf``;
 - contacts: ``normal``, ``p1``, ``p2`` (K,3), ``pen``, ``valid``, ``i1``,
@@ -24,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .models.igr import ImplicitNet
 from .physics import shapes as shapes_mod
 from .physics.bodies import BodyDef
 from .physics.contacts import Contacts
@@ -33,7 +37,7 @@ _SHAPES = {
     cls.__name__: cls
     for cls in (
         shapes_mod.SphereShape, shapes_mod.BoxShape, shapes_mod.RoundedBoxShape,
-        shapes_mod.CylinderShape, shapes_mod.BrickShape,
+        shapes_mod.CylinderShape, shapes_mod.BrickShape, shapes_mod.GridShape, shapes_mod.LatentShape,
     )
 }
 _CONTACT_INT = ("i1", "i2", "pair_id")
@@ -46,9 +50,12 @@ def _t(x, device, dtype):
 
 def body_from_numpy(d: dict, device="cpu", dtype=torch.float64) -> BodyDef:
     cls = _SHAPES[d["shape"]]
-    shape = cls(**{f.name: _t(d[f.name], device, dtype) for f in dataclasses.fields(cls)})
+    kw = {f.name: _t(d[f.name], device, dtype) for f in dataclasses.fields(cls) if f.name != "decoder"}
+    if cls is shapes_mod.LatentShape:
+        kw["decoder"] = ImplicitNet.from_arrays(d["weights"], d["biases"], tuple(int(i) for i in d["skip_in"]),
+                                                dtype=dtype, device=device)
     return BodyDef(
-        shape=shape,
+        shape=cls(**kw),
         verts=_t(d["verts"], device, dtype),
         faces=np.asarray(d["faces"], dtype=np.int64),
         mass=_t(d["mass"], device, dtype),
@@ -62,7 +69,13 @@ def body_from_numpy(d: dict, device="cpu", dtype=torch.float64) -> BodyDef:
 def body_to_numpy(bd: BodyDef) -> dict:
     out = {"shape": type(bd.shape).__name__, "faces": np.asarray(bd.faces), "is_sdf": bd.is_sdf}
     for f in dataclasses.fields(bd.shape):
-        out[f.name] = getattr(bd.shape, f.name).detach().cpu().numpy()
+        value = getattr(bd.shape, f.name)
+        if isinstance(value, ImplicitNet):
+            p = value.params()
+            out.update(weights=[w.detach().cpu().numpy() for w in p.weights],
+                       biases=[b.detach().cpu().numpy() for b in p.biases], skip_in=list(p.skip_in))
+        else:
+            out[f.name] = value.detach().cpu().numpy()
     for name in ("verts", "mass", "ang_inertia", "restitution", "fric_coeff"):
         out[name] = getattr(bd, name).detach().cpu().numpy()
     return out

@@ -10,7 +10,9 @@ quantities and max_pen. The source is ``ops/csrc/fw_search.cu``.
 
 ``fw_search_pair`` dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version,
-``physics/contacts.search_pair_raw_plain``.
+``physics/contacts.search_pair_raw_plain``. The kernel knows the analytic
+shapes only; ``supported_pair`` says, by shape kind, which directed pairs it
+takes (the JAX package's ``fw_pallas.supported_pair``).
 """
 
 from __future__ import annotations
@@ -60,12 +62,24 @@ def pack_inputs(bd1, q1, pos1, bd2, q2, pos2):
     return pqr, consts
 
 
+def shape_kind(shape):
+    """The kernel's kind tag of a shape, or None where the kernel has none."""
+    return shape.kind if shape.kind in SUPPORTED_KINDS else None
+
+
+def supported_pair(bd1, bd2) -> bool:
+    """Can this directed pair (body 1's mesh against body 2's SDF) run
+    through the kernel? Body 2 must be an analytic SDF, and body 1 an
+    analytic SDF or a plain mesh."""
+    if not bd2.is_sdf or shape_kind(bd2.shape) is None:
+        return False
+    return not bd1.is_sdf or shape_kind(bd1.shape) is not None
+
+
 def check_pair(bd1, bd2, F: int, dtype):
     """Raise on a pair the kernel does not take."""
-    if not bd2.is_sdf or bd2.kind not in SUPPORTED_KINDS:
-        raise ValueError(f"FW kernel: body 2 must be an analytic SDF, got {type(bd2.shape).__name__}")
-    if bd1.kind not in SUPPORTED_KINDS + (-1,):
-        raise ValueError(f"FW kernel: unsupported body-1 shape {type(bd1.shape).__name__}")
+    if not supported_pair(bd1, bd2):
+        raise ValueError(f"FW kernel: unsupported pair {type(bd1.shape).__name__} -> {type(bd2.shape).__name__}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"FW kernel takes float32 or float64, not {dtype}")
     if not 0 < F <= MAX_FACES:

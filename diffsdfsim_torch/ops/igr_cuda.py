@@ -1,0 +1,134 @@
+"""K4 wrapper: the fused IGR decoder as a hand-written CUDA kernel.
+
+Replaces the Pallas kernel ``diffsdfsim_tpu/ops/pallas_kernels.py``
+``igr_mlp_pallas``; the source is ``ops/csrc/igr_mlp.cu``. ``igr_mlp(params,
+x)`` dispatches on the tensor's device alone: a CUDA tensor launches the
+kernel (or raises), a CPU tensor takes the plain version,
+``models/igr.implicit_net_apply``.
+
+On CUDA the launch sits in an autograd Function: its forward is the kernel,
+its backward the vector-Jacobian product of the plain version with respect
+to x, recomputed from the saved input (the JAX package has no backward
+kernel either). The weights take no gradient: the decoder is frozen.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+from torch.autograd.function import once_differentiable
+
+from ..models.igr import ImplicitNetParams, implicit_net_apply
+
+MAX_LAYERS = 32
+
+
+def pack_params(params: ImplicitNetParams):
+    """The kernel's weight buffer: per layer W' (in, out) then b (out),
+    flattened; the per-layer (in, out, skip) dims and (w, b) offsets; and
+    the widest layer."""
+    parts, dims, offs = [], [], []
+    off = 0
+    for i, (w, b) in enumerate(zip(params.weights, params.biases)):
+        n_out, n_in = w.shape
+        dims += [n_in, n_out, int(i in params.skip_in)]
+        offs += [off, off + n_in * n_out]
+        parts += [w.detach().T.reshape(-1), b.detach().reshape(-1)]
+        off += n_in * n_out + n_out
+    max_w = max(max(w.shape) for w in params.weights)
+    return torch.cat(parts).contiguous(), np.asarray(dims, dtype=np.int32), np.asarray(offs, dtype=np.int64), max_w
+
+
+def check_params(params: ImplicitNetParams, x):
+    """Raise on a net or input the kernel does not take."""
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"IGR kernel takes float32 or float64, not {x.dtype}")
+    if x.dim() != 2 or x.shape[1] != params.d_in:
+        raise ValueError(f"IGR kernel: x must be (N, {params.d_in}), got {tuple(x.shape)}")
+    if not 0 < len(params.weights) <= MAX_LAYERS or params.weights[-1].shape[0] != 1:
+        raise ValueError("IGR kernel takes 1..32 layers ending in one output")
+    width = params.d_in
+    for i, w in enumerate(params.weights):
+        if i in params.skip_in:
+            width += params.d_in
+        if w.shape[1] != width:
+            raise ValueError(f"IGR kernel: layer {i} takes {w.shape[1]} inputs, the net gives {width}")
+        if w.dtype != x.dtype or w.device != x.device:
+            raise TypeError(f"IGR kernel: weights {w.dtype} on {w.device}, x {x.dtype} on {x.device}")
+        width = w.shape[0]
+
+
+class _IgrKernel:
+    """Callable wrapper of the K4 launch; ``launches`` counts kernel launches."""
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+        self._packed = {}  # (weight storage, version) -> packed buffer
+
+    def _lib_fn(self):
+        if self._fn is None:
+            from ._build import load
+
+            fn = load("igr_mlp").igr_mlp
+            fn.restype = ctypes.c_int
+            fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 6
+            self._fn = fn
+        return self._fn
+
+    def __call__(self, params: ImplicitNetParams, x):
+        """(N, d_in) -> (N,)."""
+        if not x.is_cuda:
+            return implicit_net_apply(params, x)
+        return _IgrMlp.apply(x, params, self)
+
+    def _pack(self, params: ImplicitNetParams):
+        tensors = params.weights + params.biases
+        key = tuple((t.data_ptr(), t._version) for t in tensors) + (params.skip_in,)
+        if key not in self._packed:
+            if len(self._packed) >= 8:
+                self._packed.clear()
+            # the entry holds the weights, so their storage is not reused under its key
+            self._packed[key] = (tensors, pack_params(params))
+        return self._packed[key][1]
+
+    def run(self, params: ImplicitNetParams, x):
+        """Validate, launch once on the current stream and return (N,)."""
+        check_params(params, x)
+        x = x.detach().contiguous()
+        prm, dims, offs, max_w = self._pack(params)
+        out = torch.empty((x.shape[0],), dtype=x.dtype, device=x.device)
+        err = self._lib_fn()(
+            1 if x.dtype == torch.float64 else 0, x.shape[0], len(params.weights), params.d_in, max_w,
+            float(params.beta), dims.ctypes.data, offs.ctypes.data, x.data_ptr(), prm.data_ptr(),
+            out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"igr_mlp kernel launch failed: CUDA error {err}")
+        self.launches += 1
+        return out
+
+
+class _IgrMlp(torch.autograd.Function):
+    """Forward: kernel K4. Backward: the plain version's vector-Jacobian
+    product with respect to x."""
+
+    @staticmethod
+    def forward(ctx, x, params, kernel):
+        ctx.params = params
+        ctx.save_for_backward(x)
+        return kernel.run(params, x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xd = x.detach().requires_grad_(True)
+            (gx,) = torch.autograd.grad(implicit_net_apply(ctx.params, xd), xd, grad)
+        return gx, None, None
+
+
+igr_mlp = _IgrKernel()

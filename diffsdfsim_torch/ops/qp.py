@@ -56,6 +56,16 @@ def _cho_solve(L, B):
     return torch.cholesky_solve(B, L)
 
 
+def _cholesky(M):
+    """Cholesky factor that is NaN where M is not positive definite, as the
+    JAX package's ``jnp.linalg.cholesky`` returns, instead of raising (a
+    degenerate contact row, e.g. one with a zero normal, leaves a zero row
+    and column in the Schur complement); the solver's best-iterate logic
+    then handles the NaN lanes as the reference does."""
+    L, info = torch.linalg.cholesky_ex(M)
+    return torch.where((info != 0)[..., None, None], torch.full_like(L, float("nan")), L)
+
+
 class _KKTCache(NamedTuple):
     invQ: torch.Tensor  # (nb, nz, nz)
     base: torch.Tensor  # (nb, m, m) = [A;G] Q^-1 [A;G]', m = neq+nineq
@@ -68,7 +78,7 @@ class _KKTCache(NamedTuple):
 def _pre_factor(Q, G, A, F, structure=None):
     """One-time products (reference pre_factor_kkt, batch.py:413-479)."""
     nz = Q.shape[-1]
-    Q_chol = torch.linalg.cholesky(Q)
+    Q_chol = _cholesky(Q)
     invQ = _cho_solve(Q_chol, _eye(nz, Q).expand(Q.shape))
     AG = torch.cat([A, G], dim=-2) if A.shape[-2] > 0 else G
     base = AG @ invQ @ AG.transpose(-1, -2)
@@ -147,7 +157,7 @@ def _factor_S(cache: _KKTCache, d):
             # f32 PD ridge (JAX ops/qp.py:168-176); a no-op in f64
             diag_scale = torch.amax(torch.abs(torch.diagonal(M, dim1=-2, dim2=-1)), dim=-1)
             M = M + (1e-6 * diag_scale)[..., None, None] * _eye(m, d)
-        cholM = torch.linalg.cholesky(M)
+        cholM = _cholesky(M)
         U = torch.cat(
             [
                 torch.zeros(dc.shape[:-1] + (neq + k, k), dtype=dtype, device=d.device),
@@ -167,7 +177,7 @@ def _factor_S(cache: _KKTCache, d):
     zeros_eq = torch.zeros(dinv.shape[:-1] + (neq,), dtype=dtype, device=d.device)
     S = cache.base + F_pad + _eye(neq + nineq, d) * torch.cat([zeros_eq, dinv], dim=-1)[..., None, :]
     if cache.structure is not None and cache.structure[0] == "plain":
-        return _SFactor("plain", torch.linalg.cholesky(S), d)
+        return _SFactor("plain", _cholesky(S), d)
     return _SFactor("lu", S, d)
 
 

@@ -102,3 +102,95 @@ def brick_sdf(pts, dims, r):
     maxd = torch.amax(q2, dim=-1)
     m = torch.clamp(q2, min=0.0)
     return _safe_norm(m) + torch.clamp(maxd, max=0.0)
+
+
+# --------------------------------------------------------------------------
+# voxel-grid SDF (reference bodies.py:203-257). The functions below take the
+# trilinear sampler as ``interp``: the plain ``grid_interp`` by default, the
+# kernel K5 (ops/grid_cuda.py) from GridShape.
+# --------------------------------------------------------------------------
+
+
+def grid_interp(grid, inds):
+    """Trilinear interpolation of ``grid`` ((C,) X, Y, Z) at fractional voxel
+    indices ``inds`` (N, 3), the base corner clamped to [0, dim - 2]; returns
+    (N,) or (C, N). Plain version of kernel K5."""
+    shape = torch.tensor(grid.shape[-3:], dtype=inds.dtype, device=inds.device)
+    i0 = torch.clamp(torch.floor(inds), min=torch.zeros_like(shape), max=shape - 2.0)
+    frac = inds - i0
+    i0 = i0.long()
+    x0, y0, z0 = i0[..., 0], i0[..., 1], i0[..., 2]
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+
+    def g(dx, dy, dz):
+        return grid[..., x0 + dx, y0 + dy, z0 + dz]
+
+    c00 = g(0, 0, 0) * (1 - fx) + g(1, 0, 0) * fx
+    c10 = g(0, 1, 0) * (1 - fx) + g(1, 1, 0) * fx
+    c01 = g(0, 0, 1) * (1 - fx) + g(1, 0, 1) * fx
+    c11 = g(0, 1, 1) * (1 - fx) + g(1, 1, 1) * fx
+    c0 = c00 * (1 - fy) + c10 * fy
+    c1 = c01 * (1 - fy) + c11 * fy
+    return c0 * (1 - fz) + c1 * fz
+
+
+def _grid_inds(pts, res):
+    shape = torch.tensor(res[-3:], dtype=pts.dtype, device=pts.device)
+    inds = (pts + 1.0) * 0.5 * (shape - 1.0)
+    valid = torch.all((inds <= shape - 1.0) & (inds >= 0.0), dim=-1)
+    return inds, valid
+
+
+def grid_sdf_raw(pts, grid, interp=grid_interp):
+    """Trilinear SDF sample at pts (..., 3); out-of-bounds points get sdf = 1
+    (reference :203-211)."""
+    inds, valid = _grid_inds(pts.reshape(-1, 3), grid.shape)
+    vals = interp(grid, torch.where(valid[..., None], inds, torch.zeros_like(inds)))
+    return torch.where(valid, vals, torch.ones_like(vals)).reshape(pts.shape[:-1])
+
+
+def grid_grad_volume(grid):
+    """Central-difference gradient volume (3, X, Y, Z) (reference :224-234),
+    with one-sided differences on the boundary slabs (np.gradient-style), so
+    points on the grid-domain faces still project onto the surface."""
+
+    def diff(axis):
+        g = grid.movedim(axis, 0)
+        d = torch.cat([g[1:2] - g[:1], (g[2:] - g[:-2]) / 2.0, g[-1:] - g[-2:-1]], dim=0)
+        return d.movedim(0, axis)
+
+    return torch.stack([diff(0), diff(1), diff(2)], dim=0)
+
+
+def grid_sdf_grad(pts, grid, interp=grid_interp):
+    """Normalized trilinear sample of the gradient volume (reference
+    :214-243); out-of-bounds points get zero gradient."""
+    inds, valid = _grid_inds(pts.reshape(-1, 3), grid.shape)
+    safe = torch.where(valid[..., None], inds, torch.zeros_like(inds))
+    g = normalize(interp(grid_grad_volume(grid), safe).T)
+    return torch.where(valid[..., None], g, torch.zeros_like(g)).reshape(pts.shape)
+
+
+class GridSdf(torch.autograd.Function):
+    """Differentiable grid SDF: the value by trilinear interpolation; the
+    vector-Jacobian product with respect to the points is the sampled
+    normalized gradient volume times the cotangent, and zero for the grid,
+    as the reference's ``DiffGridSDF`` (bodies.py:246-257) and the JAX
+    package's ``grid_sdf`` custom_vjp."""
+
+    @staticmethod
+    def forward(ctx, pts, grid, interp):
+        ctx.save_for_backward(pts, grid)
+        ctx.interp = interp
+        return grid_sdf_raw(pts, grid, interp)
+
+    @staticmethod
+    def backward(ctx, d_sdf):
+        pts, grid = ctx.saved_tensors
+        d_pts = grid_sdf_grad(pts, grid, ctx.interp) * d_sdf[..., None]
+        d_grid = torch.zeros_like(grid) if ctx.needs_input_grad[1] else None
+        return d_pts, d_grid, None
+
+
+def grid_sdf(pts, grid, interp=grid_interp):
+    return GridSdf.apply(pts, grid, interp)

@@ -2,6 +2,8 @@ from .shapes import (
     BoxShape,
     BrickShape,
     CylinderShape,
+    GridShape,
+    LatentShape,
     RoundedBoxShape,
     SphereShape,
     query_sdfs,

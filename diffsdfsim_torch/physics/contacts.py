@@ -4,8 +4,10 @@ PyTorch counterpart of ``diffsdfsim_tpu/physics/contacts.py`` (reference
 ``FWContactHandler``, ``sdf_physics/physics3d/contacts.py:161-273``):
 
 - per directed body pair (body 1's surface mesh vs body 2's SDF) a
-  gradient-free search: the Frank-Wolfe kernel K3 (``ops/fw_cuda.py``) on
-  CUDA tensors, its plain version ``search_pair_raw_plain`` on CPU tensors;
+  gradient-free search: the Frank-Wolfe kernel K3 (``ops/fw_cuda.py``) for
+  a pair of analytic kinds on CUDA tensors, its plain version
+  ``search_pair_raw_plain`` on CPU tensors and for every pair with a grid
+  or latent shape (whose SDF queries reach kernels K5 and K4 on CUDA);
 - filtering of the accepted rung's candidates to K representatives;
 - the contact recompute at the selected candidates, differentiable in the
   poses and the bodies (the search itself is gradient-free, as in the
@@ -229,8 +231,12 @@ def search_pair_raw_plain(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: S
 
 def search_pair_raw(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimConfig) -> RawPairSearch:
     """One directed pair's gradient-free search for R poses: the K3 kernel
-    on CUDA tensors, its plain version on CPU tensors."""
-    return fw_cuda.fw_search_pair(bd1, q1, pos1, bd2, q2, pos2, cfg)
+    for a pair it supports on CUDA tensors (a static choice by shape kind,
+    as the JAX package's ``_use_fw_pallas``), otherwise the plain version on
+    the tensors' device."""
+    if q1.is_cuda and fw_cuda.supported_pair(bd1, bd2):
+        return fw_cuda.fw_search_pair(bd1, q1, pos1, bd2, q2, pos2, cfg)
+    return search_pair_raw_plain(bd1, q1, pos1, bd2, q2, pos2, cfg)
 
 
 def cache_from_raw(raw: RawPairSearch, cfg: SimConfig) -> PairCache:

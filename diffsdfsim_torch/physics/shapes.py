@@ -3,8 +3,10 @@
 PyTorch counterpart of the analytic kinds in
 ``diffsdfsim_tpu/physics/shapes.py`` (reference SDF body subclasses,
 ``sdf_physics/physics3d/bodies.py:763-1060``): sphere, box, rounded box,
-cylinder and brick, the kinds the Frank-Wolfe kernel knows. Bowl, grid and
-latent shapes wait for later slices.
+cylinder and brick, the kinds the Frank-Wolfe kernel K3 knows; the voxel-grid
+shape, whose samples are kernel K5 (``ops/grid_cuda.py``) on CUDA tensors;
+and the shape-space shape, an IGR decoder whose values are kernel K4
+(``ops/igr_cuda.py``) on CUDA tensors. The bowl waits for a later slice.
 
 Each shape is a dataclass of tensors. ``query_sdfs`` reproduces
 ``SDF3D.query_sdfs`` (bodies.py:721-760): metric local points in, metric sdf
@@ -14,15 +16,19 @@ and normalized local gradients out, with the bounding-scale overlap mask
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 
 import torch
 
+from ..models import igr
 from ..ops import inertia as inertia_ops
 from ..ops import sdf as sdf_ops
+from ..ops.grid_cuda import grid_interp
 from ..utils.spherical import normalize
 
-# shape-kind tags shared with the Frank-Wolfe kernel (ops/fw_cuda.py)
+# shape-kind tags shared with the Frank-Wolfe kernel (ops/fw_cuda.py); a
+# shape the kernel does not know has kind None
 KIND_NONE = -1  # body 1 is a plain mesh (no SDF queries on it)
 KIND_SPHERE = 0
 KIND_BOX = 1
@@ -31,17 +37,24 @@ KIND_CYLINDER = 3
 KIND_BRICK = 4
 
 
+def _field_to(value, device, dtype):
+    """A shape field on this device and dtype: a module (the decoder) is
+    copied there unless it is there already, anything else becomes a tensor."""
+    if isinstance(value, torch.nn.Module):
+        p = next(value.parameters(), None)
+        if p is None or (p.device == torch.device(device) and p.dtype == dtype):
+            return value
+        return copy.deepcopy(value).to(device=device, dtype=dtype)
+    return torch.as_tensor(value, dtype=dtype, device=device)
+
+
 class ShapeBase:
-    kind: int = KIND_NONE
+    kind = None  # the Frank-Wolfe kernel's tag, None where it has none
 
     def to(self, device, dtype):
-        """Copy with every parameter as a tensor of this device and dtype."""
+        """Copy with every parameter on this device and dtype."""
         return dataclasses.replace(
-            self,
-            **{
-                f.name: torch.as_tensor(getattr(self, f.name), dtype=dtype, device=device)
-                for f in dataclasses.fields(self)
-            },
+            self, **{f.name: _field_to(getattr(self, f.name), device, dtype) for f in dataclasses.fields(self)}
         )
 
     def scale(self):
@@ -172,6 +185,45 @@ class CylinderShape(ShapeBase):
     def kernel_params(self):
         s = self.scale()
         return [self.rad / s, self.height / s]
+
+
+@dataclasses.dataclass
+class GridShape(ShapeBase):
+    """Voxel-grid SDF body (reference SDFGrid3D, bodies.py:763-775): ``grid``
+    holds normalized-frame distances on a regular lattice over [-1, 1]^3,
+    ``scale_`` is the metric half-extent. The grid takes no gradient."""
+
+    grid: torch.Tensor  # (X, Y, Z)
+    scale_: torch.Tensor  # ()
+
+    def scale(self):
+        return self.scale_
+
+    def sdf(self, pts):
+        return sdf_ops.grid_sdf(pts, self.grid, grid_interp)
+
+    def sdf_grad(self, pts):
+        return sdf_ops.grid_sdf_grad(pts, self.grid, grid_interp)
+
+
+@dataclasses.dataclass
+class LatentShape(ShapeBase):
+    """Learned shape-space SDF (reference IGR decoder bodies, utils.py:286-350):
+    ``decoder`` is a frozen ``models.igr.ImplicitNet`` fed (latent, pts);
+    ``latent`` is the differentiable code."""
+
+    latent: torch.Tensor  # (L,)
+    scale_: torch.Tensor  # ()
+    decoder: igr.ImplicitNet
+
+    def scale(self):
+        return self.scale_
+
+    def sdf(self, pts):
+        return igr.decode(self.decoder, pts, self.latent)
+
+    def sdf_grad(self, pts):
+        return igr.decode_grad(self.decoder, pts, self.latent)
 
 
 def query_sdfs(shape: ShapeBase, pts_loc, return_grads: bool = True):

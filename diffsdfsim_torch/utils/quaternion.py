@@ -179,3 +179,13 @@ def quat_from_euler(euler, style="wxyz"):
     if style == "xyzw":
         return torch.stack([x, y, z, w], dim=-1)
     return torch.stack([w, x, y, z], dim=-1)
+
+
+def random_quaternions(n: int, generator=None, dtype=torch.float64, device="cpu"):
+    """Uniform random unit quaternions (wxyz, w >= 0), as pytorch3d draws
+    them: normalized Gaussian 4-vectors from ``generator`` (a
+    ``torch.Generator``; the draws differ from the JAX package's
+    ``jax.random`` ones)."""
+    q = torch.randn((n, 4), generator=generator, dtype=dtype, device=device)
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    return torch.where(q[..., :1] < 0, -q, q)

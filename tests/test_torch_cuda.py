@@ -129,3 +129,63 @@ def test_bench_gradient_runs_through_k2(cuda):
         grads.append(float(rad.grad))
     assert kkt_grad_fric.launches > before
     assert abs(grads[0] - grads[1]) <= 1e-8 * abs(grads[1])
+
+
+def _igr_net(cuda, dtype=torch.float64):
+    import numpy as np
+
+    from diffsdfsim_torch.models.igr import init_implicit_net
+
+    return init_implicit_net(5, radius_init=0.55, generator=np.random.default_rng(1234), dtype=dtype).to(cuda)
+
+
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n", [1, 100, 2304])
+def test_igr_kernel_matches_plain(cuda, dtype, rtol, n):
+    """K4 against implicit_net_apply at the reference's width ((128,)*8,
+    skip at 4): relative to the largest value."""
+    from diffsdfsim_torch.models.igr import implicit_net_apply
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    net = _igr_net(cuda, dtype)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.rand((n, 5), generator=g, device=cuda, dtype=dtype) * 2 - 1
+    before = igr_mlp.launches
+    out = igr_mlp(net.params(), x)
+    torch.cuda.synchronize()
+    assert igr_mlp.launches == before + 1
+    ref = implicit_net_apply(net.params(), x)
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
+def test_igr_kernel_backward_gradcheck(cuda):
+    """The K4 Function's backward (the plain version's VJP) against finite
+    differences of the kernel's forward, float64, a narrow net."""
+    import numpy as np
+
+    from diffsdfsim_torch.models.igr import init_implicit_net
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    net = init_implicit_net(5, (32,) * 4, (2,), radius_init=0.55, generator=np.random.default_rng(0)).to(cuda)
+    x = (torch.rand((7, 5), dtype=torch.float64, device=cuda) * 2 - 1).requires_grad_(True)
+    assert torch.autograd.gradcheck(lambda t: igr_mlp(net.params(), t), (x,), eps=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("channels", [1, 3])
+def test_grid_kernel_matches_plain(cuda, dtype, channels):
+    """K5 against sdf.grid_interp bitwise (the same products in the same
+    order, no FMA contraction), points in, on and outside the grid."""
+    from diffsdfsim_torch.ops import sdf
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+
+    g = torch.Generator(device=cuda).manual_seed(channels)
+    shape = (channels, 33, 33, 33) if channels > 1 else (33, 33, 33)
+    grid = torch.randn(shape, generator=g, device=cuda, dtype=dtype)
+    inds = torch.rand((1000, 3), generator=g, device=cuda, dtype=dtype) * 36 - 2
+    inds[:3] = torch.tensor([[32.0, 32.0, 32.0], [0.0, 0.0, 0.0], [32.0, 0.5, 31.999]], dtype=dtype)
+    before = grid_interp.launches
+    out = grid_interp(grid, inds)
+    torch.cuda.synchronize()
+    assert grid_interp.launches == before + 1
+    assert torch.equal(out, sdf.grid_interp(grid, inds))

@@ -1,0 +1,147 @@
+"""Port parity, the IGR shape-space decoder (diffsdfsim_torch.models.igr vs
+diffsdfsim_tpu.models.igr, float64 on the CPU) at a small width: 5 inputs
+(latent 2 + point 3), ``(32,)*4`` hidden, skip at layer 2, weights from a
+numpy seed handed to both packages.
+
+Tolerances: values and first derivatives 1e-12 absolute (same formulas,
+matmul rounding only); the mixed second derivative d/d latent of the point
+gradient 1e-10; the checkpoint round trip against a torch forward 1e-10.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffsdfsim_torch.models import igr as tigr
+from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+from diffsdfsim_tpu.models import igr as jigr
+from torch_jax_bridge import one_torch_thread  # noqa: F401
+
+DIMS, SKIP = (32,) * 4, (2,)
+
+
+@pytest.fixture(scope="module")
+def nets():
+    net = tigr.init_implicit_net(5, DIMS, SKIP, radius_init=0.55, generator=np.random.default_rng(0))
+    p = net.params()
+    jp = jigr.ImplicitNetParams(tuple(jnp.asarray(w.numpy()) for w in p.weights),
+                                tuple(jnp.asarray(b.numpy()) for b in p.biases), SKIP, 5)
+    rng = np.random.default_rng(1)
+    pts = rng.uniform(-1.0, 1.0, (64, 3))
+    pts[0] = 0.0
+    return net, jp, pts, rng.normal(size=2) * 0.3
+
+
+def test_structure_and_frozen_weights(nets):
+    net, _, _, _ = nets
+    assert [getattr(net, f"lin{i}").weight.shape for i in range(5)] == [
+        (32, 5), (27, 32), (32, 32), (32, 32), (1, 32)]
+    assert not any(p.requires_grad for p in net.parameters())
+    full = tigr.init_implicit_net(5, (128,) * 8, (4,), generator=np.random.default_rng(0))
+    assert full.num_layers == 9 and full.lin3.weight.shape == (123, 128) and full.lin4.weight.shape == (128, 128)
+    assert sum(p.numel() for p in full.parameters()) == 115836
+
+
+def test_geometric_init_approximates_sphere(nets):
+    """The full-width net (the reference's (128,)*8) starts near |x| - r."""
+    _, _, pts, _ = nets
+    net = tigr.init_implicit_net(5, radius_init=0.55, generator=np.random.default_rng(0))
+    sdf = tigr.decode(net, torch.tensor(pts * 0.8), torch.zeros(2, dtype=torch.float64))
+    assert np.corrcoef(sdf.numpy(), np.linalg.norm(pts * 0.8, axis=-1) - 0.55)[0, 1] > 0.75
+
+
+def test_values_point_and_latent_gradients_match_jax(nets):
+    net, jp, pts, lat = nets
+    jdec = jigr.make_decoder(jp)
+    z = torch.tensor(lat, requires_grad=True)
+    vals = tigr.decode(net, torch.tensor(pts), z)
+    grads = tigr.decode_grad(net, torch.tensor(pts), torch.tensor(lat))
+    (gz,) = torch.autograd.grad(vals.sum(), z)
+
+    @jax.jit
+    def ref(p, zz):
+        f = lambda p, zz: jnp.sum(jdec(p, zz))  # noqa: E731
+        return jdec(p, zz), jax.grad(f, 0)(p, zz), jax.grad(f, 1)(p, zz)
+
+    for a, b in zip((vals, grads, gz), ref(jnp.asarray(pts), jnp.asarray(lat))):
+        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-12)
+
+
+def test_point_gradient_differentiates_in_the_latent(nets):
+    """d/d latent of sum(w * d decoder / d pts): the mixed second derivative
+    the contact normals carry into d loss / d latent."""
+    net, jp, pts, lat = nets
+    jdec = jigr.make_decoder(jp)
+    w = np.random.default_rng(2).normal(size=pts.shape)
+    z = torch.tensor(lat, requires_grad=True)
+    (gz,) = torch.autograd.grad(torch.sum(tigr.decode_grad(net, torch.tensor(pts), z) * torch.tensor(w)), z)
+
+    def f(zz):
+        g = jax.grad(lambda p: jnp.sum(jdec(p, zz)))(jnp.asarray(pts))
+        return jnp.sum(g * w)
+
+    np.testing.assert_allclose(gz.numpy(), np.asarray(jax.jit(jax.grad(f))(jnp.asarray(lat))), rtol=0, atol=1e-10)
+
+
+def test_kernel_wrapper_takes_the_plain_version_on_cpu(nets):
+    net, _, pts, lat = nets
+    x = torch.cat([torch.tensor(lat).expand(len(pts), 2), torch.tensor(pts)], dim=-1)
+    before = igr_mlp.launches
+    assert torch.equal(net(x), tigr.implicit_net_apply(net.params(), x))
+    assert igr_mlp.launches == before
+
+
+def test_softplus_matches_torch():
+    x = torch.linspace(-1, 1, 101, dtype=torch.float64)
+    np.testing.assert_allclose(tigr.softplus_beta(x).numpy(),
+                               torch.nn.functional.softplus(x, beta=100).numpy(), rtol=0, atol=1e-15)
+
+
+@pytest.mark.parametrize("weight_norm", [False, True])
+def test_checkpoint_roundtrip(tmp_path, weight_norm):
+    """A fake IGR checkpoint (plain or weight-norm state dict) loads into
+    both packages and gives the torch forward's values (test_models.py:46-74)."""
+    dims = [8, 16, 16, 1]
+    g = torch.Generator().manual_seed(0)
+    sd, ws = {}, []
+    for i in range(len(dims) - 1):
+        w = torch.randn(dims[i + 1], dims[i], dtype=torch.float64, generator=g)
+        if weight_norm:
+            sd[f"module.lin{i}.weight_g"] = torch.linalg.norm(w, dim=1, keepdim=True) * 2.0
+            sd[f"module.lin{i}.weight_v"] = w
+            w = 2.0 * w
+        else:
+            sd[f"lin{i}.weight"] = w
+        sd[f"{'module.' if weight_norm else ''}lin{i}.bias"] = torch.randn(dims[i + 1], dtype=torch.float64, generator=g)
+        ws.append(w)
+    mp, lp = tmp_path / "model.pth", tmp_path / "latent.pth"
+    torch.save({"model_state_dict": sd}, mp)
+    torch.save({"latent_codes": {"weight": torch.randn(5, 2, dtype=torch.float64, generator=g)}}, lp)
+
+    net, codes = tigr.load_torch_checkpoint(str(mp), str(lp), skip_in=(), device="cpu")
+    jparams, jcodes = jigr.load_torch_checkpoint(str(mp), str(lp), skip_in=())
+    assert codes.shape == (5, 2)
+    np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
+    x = torch.ones(3, 8, dtype=torch.float64)
+    tx = x
+    for i, w in enumerate(ws):
+        tx = torch.nn.functional.linear(tx, w, sd[f"{'module.' if weight_norm else ''}lin{i}.bias"])
+        if i < len(ws) - 1:
+            tx = torch.nn.functional.softplus(tx, beta=100)
+    np.testing.assert_allclose(net(x).numpy(), tx[:, 0].numpy(), rtol=0, atol=1e-10)
+    np.testing.assert_allclose(net(x).numpy(), np.asarray(jigr.implicit_net_apply(jparams, jnp.asarray(x.numpy()))),
+                               rtol=0, atol=1e-10)
+
+
+def test_hocon_lite_matches_jax():
+    text = """
+    // IGR exp.conf excerpt
+    train { latent_size = 2, epochs = 10000 }
+    network {
+        inputs { dims = [512, 512, 512, 512], skip_in = [4], geometric_init = True, radius_init = 1, beta = 100 }
+        "loss" : { lambda = 0.1 }
+    }
+    """
+    assert tigr._parse_hocon_lite(text) == jigr._parse_hocon_lite(text)

@@ -151,3 +151,22 @@ def test_kernel_wrapper_validation():
         qp_cuda.check_inputs(*args[:-1], args[-1].float(), invQ, ("fric", 4, 8))
     with pytest.raises(ValueError):
         qp_cuda.check_inputs(*args, invQ[:, :6], ("fric", 4, 8))
+
+
+def test_degenerate_contact_row_gives_jax_answer(jax_solve):
+    """A contact whose rows are all zero (a valid slot with a zero normal)
+    with h = 0 makes d infinite and the Schur complement singular: the
+    Cholesky factor is NaN there, as JAX's, and the solve returns what
+    JAX's returns instead of raising."""
+    rng = np.random.default_rng(5)
+    k, fd = 2, 4
+    Q, p, G, h, A, b, F = fric_pm_problem(rng, 2, neq=3, k=k, fd=fd)
+    rows = [0, *range(k, k + fd), k + k * fd]
+    G[0, rows] = 0.0
+    h[0, rows] = 0.0
+    p[0], A[0] = 0.0, 0.0  # x = 0 and s = h: exact zeros, d = z / s infinite
+    args = (Q, p, G, h, A, b, F)
+    jsol = jax_solve(*[jnp.asarray(a) for a in args], 10, 1e-9, 3, ("fric", k, fd))
+    tsol = tqp.pdipm_solve_raw(*[torch.tensor(a) for a in args], 10, 1e-9, 3, ("fric", k, fd))
+    for name, t, j in zip("xyzs", tsol, jsol):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=ATOL, equal_nan=True, err_msg=name)

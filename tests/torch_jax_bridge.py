@@ -38,15 +38,30 @@ def jax_body_np(bd) -> dict:
     return d
 
 
+def jax_decoder(d: dict):
+    """The JAX package's decoder of the port's ``interop`` decoder arrays
+    (``weights``, ``biases``, ``skip_in``): the weights-across function for
+    ``ImplicitNetParams``."""
+    from diffsdfsim_tpu.models.igr import ImplicitNetParams, make_decoder
+
+    ws = tuple(jnp.asarray(w) for w in d["weights"])
+    return make_decoder(ImplicitNetParams(ws, tuple(jnp.asarray(b) for b in d["biases"]),
+                                          tuple(int(i) for i in d["skip_in"]), int(ws[0].shape[1])))
+
+
 def jax_body_from_torch(tb):
-    """The JAX package's BodyDef holding the port body's values."""
+    """The JAX package's BodyDef holding the port body's values (a latent
+    body's decoder from the port's weights)."""
     from diffsdfsim_torch import interop
     from diffsdfsim_tpu.physics import shapes as jshapes
     from diffsdfsim_tpu.physics.bodies import BodyDef
 
     d = interop.body_to_numpy(tb)
     cls = getattr(jshapes, d["shape"])
-    shape = cls(**{name: jnp.asarray(d[name]) for name in cls.__dataclass_fields__})
+    kw = {name: jnp.asarray(d[name]) for name in cls.__dataclass_fields__ if name != "decoder"}
+    if d["shape"] == "LatentShape":
+        kw["decoder"] = jax_decoder(d)
+    shape = cls(**kw)
     return BodyDef(
         shape=shape, verts=jnp.asarray(d["verts"]), faces=np.asarray(d["faces"], dtype=np.int32),
         mass=jnp.asarray(d["mass"]), ang_inertia=jnp.asarray(d["ang_inertia"]),
@@ -100,3 +115,12 @@ def jax_spec_like(tspec):
     cfg = SimConfig(**{f: getattr(tspec.cfg, f) for f in BENCH_CFG})
     return WorldSpec([jax_body_from_torch(b) for b in tspec.bodies], joints=(TotalConstraint3D(body1=0),),
                      forces=((), (Gravity3D(10.0),)), cfg=cfg)
+
+
+def sphere_grid(res):
+    """A res^3 grid of the sphere SDF of radius 0.5 / 0.75 over [-1, 1]^3
+    (numpy; the grid body of tests/test_world_extra.py:53-67 and of
+    tests/golden/gen_torch_shape_golden.py)."""
+    lin = np.linspace(-1.0, 1.0, res)
+    pts = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), axis=-1)
+    return np.sqrt(np.maximum(np.sum(pts * pts, axis=-1), 1e-24)) - 0.5 / 0.75
