@@ -27,6 +27,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .models.igr import ImplicitNet
 from .physics import shapes as shapes_mod
 from .physics.bodies import BodyDef
@@ -48,7 +49,10 @@ def _t(x, device, dtype):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def body_from_numpy(d: dict, device="cpu", dtype=torch.float64) -> BodyDef:
+def body_from_numpy(d: dict, device=None, dtype=torch.float64) -> BodyDef:
+    """A body from its numpy dict, on ``device`` (None: CUDA, raising
+    without it; pass "cpu" for the plain path)."""
+    device = resolve_device(device)
     cls = _SHAPES[d["shape"]]
     kw = {f.name: _t(d[f.name], device, dtype) for f in dataclasses.fields(cls) if f.name != "decoder"}
     if cls is shapes_mod.LatentShape:
@@ -81,7 +85,9 @@ def body_to_numpy(bd: BodyDef) -> dict:
     return out
 
 
-def contacts_from_numpy(d: dict, device="cpu", dtype=torch.float64) -> Contacts:
+def contacts_from_numpy(d: dict, device=None, dtype=torch.float64) -> Contacts:
+    """A contact buffer from its numpy dict, on ``device`` (as body_from_numpy)."""
+    device = resolve_device(device)
     kw = {}
     for f in dataclasses.fields(Contacts):
         if f.name in _CONTACT_INT:
@@ -97,7 +103,9 @@ def contacts_to_numpy(c: Contacts) -> dict:
     return {f.name: getattr(c, f.name).detach().cpu().numpy() for f in dataclasses.fields(Contacts)}
 
 
-def state_from_numpy(d: dict, device="cpu", dtype=torch.float64) -> WorldState:
+def state_from_numpy(d: dict, device=None, dtype=torch.float64) -> WorldState:
+    """A world state from its numpy dict, on ``device`` (as body_from_numpy)."""
+    device = resolve_device(device)
     return WorldState(
         quat=_t(d["quat"], device, dtype), pos=_t(d["pos"], device, dtype), v=_t(d["v"], device, dtype),
         t=_t(d["t"], device, dtype), contacts=contacts_from_numpy(d["contacts"], device, dtype),

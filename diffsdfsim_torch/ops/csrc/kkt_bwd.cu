@@ -1,4 +1,4 @@
-// K2: batched backward KKT solve of the physics mixed LCP, one problem per block.
+// K2: batched backward KKT solve of the physics mixed LCP, one block per problem.
 //
 // Replaces the Pallas TPU kernel diffsdfsim_tpu/ops/qp_pallas.py
 // `_make_grad_kernel` (launched by `_kkt_grad_flat`, public
@@ -12,126 +12,117 @@
 //
 // with S the Schur complement, solved on the reduced system that K1 uses
 // (fric_schur.cuh: cone rows eliminated, +/- friction pairs folded, an
-// m2 = neq + k + k*fd/2 Gauss-Jordan inverse, 26 rows on the bench).
+// m2 = neq + k + k*fd/2 Gauss-Jordan inverse, 26 rows on the bench). The
+// kernel forms the reduced base block from Q^-1, G and A and reads F only
+// at its k cone coefficients.
 //
 // What bounds it on an H100: neither bytes nor FLOPs. One problem reads
-// ~10 KB and does ~80 kFLOP (the 26-pivot Gauss-Jordan is most of it), so
-// the card's roofline time for the bench's one problem per launch is a few
-// nanoseconds; the kernel is latency-bound on the serial chain of 26
-// Gauss-Jordan pivots and a dozen dependent matrix-vector passes. As in K1,
-// each problem's operands stay in shared memory, one warp per problem makes
-// every barrier a __syncwarp, and a batch of problems (hundreds for a seed
-// sweep) spreads over blocks.
+// ~10 KB and does ~80 kFLOP, so the card's roofline time for the bench's
+// one problem per launch is a few nanoseconds; the kernel is latency-bound
+// on its chain: the setup products, m2 Gauss-Jordan pivots and one KKT
+// solve. As in K1, a block of NT = 128 threads per problem keeps the
+// inverse in registers (one barrier per pivot) and spreads every product
+// over the block; a batch of problems (hundreds for a seed sweep) spreads
+// over blocks. m2 + 12 barriers per launch, counted at run time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "fric_schur.cuh"
 
 namespace {
 
-using fric::WARP;
 using fric::carve;
-using fric::copy;
-using fric::mtv;
-using fric::mv;
+using fric::Ctx;
+using fric::NT;
+using fric::R;
 
-template <typename T>
-__global__ void kkt_bwd_kernel(fric::Dims S, const T* __restrict__ ginvQ, const T* __restrict__ gG,
-                               const T* __restrict__ gA, const T* __restrict__ gbase_red,
-                               const T* __restrict__ gmu, const T* __restrict__ gd,
-                               const T* __restrict__ grx, T* out_dx, T* out_dlam, T* out_dnu) {
+template <class S, typename T>
+__host__ __device__ size_t smem_elems(const S& D) {
+  T* p = nullptr;
+  fric::carve_work(p, D);
+  carve(p, D.nz());  // rx
+  return (size_t)(p - (T*)nullptr);
+}
+
+template <typename T, class S>
+__global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T* __restrict__ ginvQ, const T* __restrict__ gG,
+                                                     const T* __restrict__ gA, const T* __restrict__ gF,
+                                                     const T* __restrict__ gd, const T* __restrict__ grx, T* out_dx,
+                                                     T* out_dlam, T* out_dnu, int32_t* out_syncs) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x;
   const int prob = blockIdx.x;
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq, k = S.k;
-  const int m2 = fric::m2_of(S), m = neq + nineq;
+  const int nz = D.nz(), neq = D.neq(), nineq = D.nineq();
 
-  T* p = reinterpret_cast<T*>(smem_raw);
-  T* invQ = carve(p, nz * nz);
-  T* G = carve(p, nineq * nz);
-  T* A = carve(p, neq * nz);
-  T* rx = carve(p, nz);
-  T* dinv = carve(p, nineq);
-  T* hvec = carve(p, m);
-  T* wvec = carve(p, m);
-  T* t_nz = carve(p, nz);
-  T* t_nz2 = carve(p, nz);
-  fric::Work<T> w = fric::carve_work(p, S);
+  R* p = reinterpret_cast<R*>(smem_raw);
+  fric::Work<R> w = fric::carve_work(p, D);
+  R* rx = carve(p, nz);
+  Ctx<R> c{(int)threadIdx.x, w.red, 0, 0};
+  const int t = c.t;
 
-  copy(invQ, ginvQ + (size_t)prob * nz * nz, nz * nz, lane);
-  copy(G, gG + (size_t)prob * nineq * nz, nineq * nz, lane);
-  copy(A, gA + (size_t)prob * neq * nz, neq * nz, lane);
-  copy(w.base_red, gbase_red + (size_t)prob * m2 * m2, m2 * m2, lane);
-  copy(w.mu, gmu + (size_t)prob * k, k, lane);
-  copy(rx, grx + (size_t)prob * nz, nz, lane);
-  const T* d = gd + (size_t)prob * nineq;
-  for (int i = lane; i < nineq; i += WARP) dinv[i] = (T)1 / d[i];
-  __syncwarp();
-
-  fric::factor(S, w, dinv, lane);
-
-  // hvec = [A; G] Q^-1 rx
-  mv(t_nz, invQ, rx, nz, nz, lane);
-  __syncwarp();
-  mv(hvec, A, t_nz, neq, nz, lane);
-  mv(hvec + neq, G, t_nz, nineq, nz, lane);
-  __syncwarp();
-  fric::solve_S(S, w, hvec, wvec, lane);
-  for (int i = lane; i < m; i += WARP) wvec[i] = -wvec[i];
-  __syncwarp();
-  const T* w_eq = wvec;
-  const T* w_in = wvec + neq;
-  mtv(t_nz, G, w_in, nineq, nz, lane);
-  mtv(t_nz2, A, w_eq, neq, nz, lane);
-  __syncwarp();
-  for (int i = lane; i < nz; i += WARP) t_nz[i] = -rx[i] - t_nz[i] - t_nz2[i];
-  __syncwarp();
-  mv(out_dx + (size_t)prob * nz, invQ, t_nz, nz, nz, lane);
-  copy(out_dlam + (size_t)prob * nineq, w_in, nineq, lane);
-  copy(out_dnu + (size_t)prob * neq, w_eq, neq, lane);
-}
-
-size_t smem_elems(const fric::Dims& S) {
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq;
-  return (size_t)nz * nz + nineq * nz + neq * nz + 3 * nz + nineq + 2 * (neq + nineq) +
-         fric::work_elems(S);
+  fric::load(D, w, t, gA + (size_t)prob * neq * nz, gG + (size_t)prob * nineq * nz, ginvQ + (size_t)prob * nz * nz,
+             gF + (size_t)prob * nineq * nineq);
+  for (int i = t; i < nz; i += NT) rx[i] = (R)grx[(size_t)prob * nz + i];
+  for (int i = t; i < nineq; i += NT) {
+    const R d = (R)gd[(size_t)prob * nineq + i];
+    w.d[i] = d;
+    w.dinv[i] = fric::recip(d);
+  }
+  c.sync();
+  fric::setup(D, w, c);
+  c.sync();
+  fric::Inv<S, R> K;
+  fric::factor(D, w, K, c);
+  fric::solve_kkt(D, w, K, c, rx, w.zero, w.zero, w.zero, out_dx + (size_t)prob * nz, (T*)nullptr,
+                  out_dlam + (size_t)prob * nineq, out_dnu + (size_t)prob * neq);
+  if (t == 0) out_syncs[prob] = c.nsync;
 }
 
 template <typename T>
-int launch(int B, const fric::Dims& S, const void* invQ, const void* G, const void* A,
-           const void* base_red, const void* mu, const void* d, const void* rx, void* dx,
-           void* dlam, void* dnu, void* stream) {
-  const size_t bytes = smem_elems(S) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(kkt_bwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  kkt_bwd_kernel<T><<<B, WARP, bytes, (cudaStream_t)stream>>>(
-      S, (const T*)invQ, (const T*)G, (const T*)A, (const T*)base_red, (const T*)mu, (const T*)d,
-      (const T*)rx, (T*)dx, (T*)dlam, (T*)dnu);
-  return (int)cudaGetLastError();
+int launch(const fric::Dims& dims, int B, const void* invQ, const void* G, const void* A, const void* F,
+           const void* d, const void* rx, void* dx, void* dlam, void* dnu, void* syncs, void* stream) {
+  return fric::with_shape(dims, [&](auto D) {
+    using S = decltype(D);
+    const size_t bytes = smem_elems<S, R>(D) * sizeof(R);
+    cudaError_t err =
+        cudaFuncSetAttribute(kkt_bwd_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    kkt_bwd_kernel<T, S><<<B, NT, bytes, (cudaStream_t)stream>>>(
+        D, (const T*)invQ, (const T*)G, (const T*)A, (const T*)F, (const T*)d, (const T*)rx, (T*)dx, (T*)dlam,
+        (T*)dnu, (int32_t*)syncs);
+    return (int)cudaGetLastError();
+  });
+}
+
+template <typename T>
+int info(const fric::Dims& dims, long long* out) {
+  return fric::with_shape(dims, [&](auto D) {
+    using S = decltype(D);
+    return fric::resources<S>(kkt_bwd_kernel<T, S>, smem_elems<S, R>(D) * sizeof(R), out);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. Returns cudaGetLastError() of the launch.
-int kkt_bwd(int dtype, int B, int nz, int neq, int neq_real, int nineq, int k, int fd,
-            const void* invQ, const void* G, const void* A, const void* base_red, const void* mu,
-            const void* d, const void* rx, void* dx, void* dlam, void* dnu, void* stream) {
-  const fric::Dims S{nz, neq, neq_real, nineq, k, fd};
-  if (dtype == 1)
-    return launch<double>(B, S, invQ, G, A, base_red, mu, d, rx, dx, dlam, dnu, stream);
-  return launch<float>(B, S, invQ, G, A, base_red, mu, d, rx, dx, dlam, dnu, stream);
+// dtype: 0 = float32, 1 = float64. syncs: (B,) barriers of each block.
+// Returns cudaGetLastError() of the launch.
+int kkt_bwd(int dtype, int B, int nz, int neq, int neq_real, int nineq, int k, int fd, const void* invQ,
+            const void* G, const void* A, const void* F, const void* d, const void* rx, void* dx, void* dlam,
+            void* dnu, void* syncs, void* stream) {
+  const fric::Dims dims{nz, neq, neq_real, nineq, k, fd};
+  if (dtype == 1) return launch<double>(dims, B, invQ, G, A, F, d, rx, dx, dlam, dnu, syncs, stream);
+  return launch<float>(dims, B, invQ, G, A, F, d, rx, dx, dlam, dnu, syncs, stream);
 }
 
-// shared-memory bytes one problem needs (the wrapper refuses what the card cannot hold)
-long long kkt_bwd_smem_bytes(int dtype, int nz, int neq, int nineq, int k, int fd) {
-  const fric::Dims S{nz, neq, neq, nineq, k, fd};
-  return (long long)(smem_elems(S) * (dtype == 1 ? sizeof(double) : sizeof(float)));
+// the launch's resources, as pdipm_fwd_info
+int kkt_bwd_info(int dtype, int nz, int neq, int nineq, int k, int fd, long long* out) {
+  const fric::Dims dims{nz, neq, neq, nineq, k, fd};
+  return dtype == 1 ? info<double>(dims, out) : info<float>(dims, out);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// K1: batched PDIPM forward for the physics mixed LCP, one problem per block.
+// K1: batched PDIPM forward for the physics mixed LCP, one block per problem.
 //
 // Replaces the Pallas TPU kernel diffsdfsim_tpu/ops/qp_pallas.py
 // `_make_kernel` (launched by `_pdipm_pallas_flat`, public `pdipm_pallas`)
@@ -10,24 +10,25 @@
 //
 // with the initialization at d = 1 and the slack shift, best-iterate
 // tracking, the NaN freeze, and per-lane not-improved / eps / mu stopping.
-// The Schur complement is solved on the reduced system of the JAX kernel:
-// the k cone rows are eliminated, the +/- friction-direction pairs are
-// folded into sum/difference variables (a per-contact Sherman-Morrison), and
-// the remaining m2 = neq + k + k*fd/2 rows (26 on the bench) are inverted by
-// pivot-free Gauss-Jordan with the same tiny-pivot guard (safe_pv). That
-// reduced solve is shared with the backward kernel K2 (kkt_bwd.cu) through
-// fric_schur.cuh.
+// The Schur complement is solved on the reduced system of the JAX kernel
+// (fric_schur.cuh, shared with the backward kernel K2): the k cone rows
+// eliminated, the +/- friction-direction pairs folded (a per-contact
+// Sherman-Morrison), and the remaining m2 = neq + k + k*fd/2 rows inverted
+// by pivot-free Gauss-Jordan with the same tiny-pivot guard (safe_pv). The
+// kernel forms that system's base block and the cone coefficients from Q^-1,
+// G, A and F itself.
 //
 // What bounds it on an H100: neither bytes nor FLOPs. At the main path's
-// shapes (B = 3 or 6 problems) one launch reads ~50-100 KB and does
+// shapes (B = 3 or 6 problems) one launch reads ~20-100 KB and does
 // ~0.5 MFLOP per problem, so the card's roofline time is tens of
 // nanoseconds; the kernel is latency-bound on the serial chain of ~11
-// iterations x (26 Gauss-Jordan pivots + two KKT solves), each step a few
-// dependent shared-memory passes. The design answers that by keeping every
-// operand and iterate of a problem in shared memory for the whole loop (no
-// device-memory traffic after the first load), using one warp per problem
-// so that every reduction is a register shuffle and every barrier a
-// __syncwarp, and spreading problems over blocks (B = 576 fills the card).
+// iterations, each a Gauss-Jordan inverse of m2 pivots and two KKT solves.
+// The design shortens each link of the chain: a block of NT = 128 threads
+// per problem; every operand and iterate in shared memory for the whole
+// loop; the Gauss-Jordan matrix in registers with one barrier per pivot;
+// every product spread over the block (fric_schur.cuh). One
+// Mehrotra iteration costs m2 + 24 barriers (50 at k = 4), counted at run
+// time and returned beside the stop iteration.
 //
 // Loop semantics match the plain version (ops/qp.py `_pdipm_forward`, the
 // JAX XLA path) exactly: a lane keeps the step taken in the iteration in
@@ -47,21 +48,10 @@
 
 namespace {
 
-using fric::WARP;
 using fric::carve;
-using fric::copy;
-using fric::dot;
-using fric::mtv;
-using fric::mv;
-using fric::warp_any;
-using fric::warp_min;
-using fric::warp_sum;
-
-template <typename T>
-struct Sizes : fric::Dims {
-  int max_iter, nil;
-  T eps;
-};
+using fric::Ctx;
+using fric::NT;
+using fric::R;
 
 template <typename T>
 __device__ __forceinline__ T big_value();
@@ -70,323 +60,309 @@ __device__ __forceinline__ float big_value<float>() { return 3.402823466e38f; }
 template <>
 __device__ __forceinline__ double big_value<double>() { return 1.7976931348623157e308; }
 
-// max step in [0, inf) keeping v + a dv > 0 (reference get_step)
+// the loop's shared arrays beside the reduced solve's
 template <typename T>
-__device__ T get_step(const T* v, const T* dv, int n, int lane) {
-  T a = (T)INFINITY;
-  for (int i = lane; i < n; i += WARP)
-    if (dv[i] < 0) a = fmin(a, -v[i] / dv[i]);
-  return warp_min(a);
-}
-
-template <typename T>
-struct Work {
-  // problem data (base_red and mu live in the reduced-solve work f)
-  T *Q, *invQ, *G, *A, *F, *p, *h, *b;
-  // iterates and best iterates
-  T *x, *s, *z, *y, *bx, *bs, *bz, *by;
-  // residuals and directions
-  T *rx, *rz, *ry, *dxa, *dsa, *dza, *dya, *dxc, *dsc, *dzc, *dyc, *rs, *d, *dinv;
-  // scratch
-  T *t_nz, *t_nz2, *hvec, *wvec, *zero;
-  // the reduced Schur solve (fric_schur.cuh)
-  fric::Work<T> f;
+struct Iter {
+  T *Q, *F, *p, *h, *b;
+  T *x, *s, *z, *y, *bx, *bs, *bz, *by;                          // iterates, best iterates
+  T *rx, *rz, *ry, *rs, *hneg, *bneg;                            // residuals, rs, -h, -b
+  T *dxa, *dsa, *dza, *dya, *dxc, *dsc, *dzc, *dyc;              // directions
 };
 
-// one KKT solve with the factored Schur complement (JAX kernel solve_kkt)
-template <typename T>
-__device__ void solve_kkt(const Sizes<T>& S, Work<T>& w, const T* d, const T* rx, const T* rs,
-                          const T* rz, const T* ry, T* dx, T* ds, T* dz, T* dy, int lane) {
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq;
-  mv(w.t_nz, w.invQ, rx, nz, nz, lane);  // invQ rx
-  __syncwarp();
-  mv(w.hvec, w.A, w.t_nz, neq, nz, lane);
-  mv(w.hvec + neq, w.G, w.t_nz, nineq, nz, lane);
-  __syncwarp();
-  for (int i = lane; i < neq; i += WARP) w.hvec[i] = w.hvec[i] - ry[i];
-  for (int i = lane; i < nineq; i += WARP) w.hvec[neq + i] = w.hvec[neq + i] + rs[i] / d[i] - rz[i];
-  __syncwarp();
-  fric::solve_S(S, w.f, w.hvec, w.wvec, lane);
-  for (int i = lane; i < neq + nineq; i += WARP) w.wvec[i] = -w.wvec[i];
-  __syncwarp();
-  const T* w_eq = w.wvec;
-  const T* w_in = w.wvec + neq;
-  mtv(w.t_nz, w.G, w_in, nineq, nz, lane);
-  mtv(w.t_nz2, w.A, w_eq, neq, nz, lane);
-  __syncwarp();
-  for (int i = lane; i < nz; i += WARP) w.t_nz[i] = -rx[i] - w.t_nz[i] - w.t_nz2[i];
-  __syncwarp();
-  mv(dx, w.invQ, w.t_nz, nz, nz, lane);
-  for (int i = lane; i < nineq; i += WARP) {
-    ds[i] = (-rs[i] - w_in[i]) / d[i];
-    dz[i] = w_in[i];
-  }
-  for (int i = lane; i < neq; i += WARP) dy[i] = w_eq[i];
-  __syncwarp();
+template <class S, typename T>
+__host__ __device__ Iter<T> carve_iter(T*& p, const S& D) {
+  const int nz = D.nz(), neq = D.neq(), nineq = D.nineq();
+  Iter<T> v;
+  v.Q = carve(p, (size_t)nz * D.ldz());
+  v.F = carve(p, (size_t)nineq * fric::odd(nineq));
+  v.p = carve(p, nz); v.h = carve(p, nineq); v.b = carve(p, neq);
+  v.x = carve(p, nz); v.s = carve(p, nineq); v.z = carve(p, nineq); v.y = carve(p, neq);
+  v.bx = carve(p, nz); v.bs = carve(p, nineq); v.bz = carve(p, nineq); v.by = carve(p, neq);
+  v.rx = carve(p, nz); v.rz = carve(p, nineq); v.ry = carve(p, neq);
+  v.rs = carve(p, nineq); v.hneg = carve(p, nineq); v.bneg = carve(p, neq);
+  v.dxa = carve(p, nz); v.dsa = carve(p, nineq); v.dza = carve(p, nineq); v.dya = carve(p, neq);
+  v.dxc = carve(p, nz); v.dsc = carve(p, nineq); v.dzc = carve(p, nineq); v.dyc = carve(p, neq);
+  return v;
 }
 
-// residuals of the current iterate; returns (mu, resid)
-template <typename T>
-__device__ void residuals(const Sizes<T>& S, Work<T>& w, const T* x, const T* s, const T* z,
-                          const T* y, T& mu, T& res, int lane) {
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq;
-  // rx = G'z + Q'x + p + A'y
-  for (int j = lane; j < nz; j += WARP) {
-    T gz = 0, qx = 0, ay = 0;
-    for (int i = 0; i < nineq; ++i) gz += w.G[i * nz + j] * z[i];
-    for (int i = 0; i < nz; ++i) qx += w.Q[i * nz + j] * x[i];
-    for (int i = 0; i < neq; ++i) ay += w.A[i * nz + j] * y[i];
-    w.rx[j] = gz + qx + w.p[j] + ay;
-  }
-  // rz = Gx + s - h - Fz
-  for (int i = lane; i < nineq; i += WARP) {
-    T gx = 0, fz = 0;
-    for (int j = 0; j < nz; ++j) gx += w.G[i * nz + j] * x[j];
-    for (int j = 0; j < nineq; ++j) fz += w.F[i * nineq + j] * z[j];
-    w.rz[i] = gx + s[i] - w.h[i] - fz;
-  }
-  for (int i = lane; i < neq; i += WARP) {
-    T ax = 0;
-    for (int j = 0; j < nz; ++j) ax += w.A[i * nz + j] * x[j];
-    w.ry[i] = ax - w.b[i];
-  }
-  __syncwarp();
-  mu = fabs(dot(s, z, nineq, lane) / (T)nineq);
-  const T pri = sqrt(dot(w.rz, w.rz, nineq, lane)) + sqrt(dot(w.ry, w.ry, neq, lane));
-  res = pri + sqrt(dot(w.rx, w.rx, nz, lane)) + (T)nineq * mu;
+template <class S, typename T>
+__host__ __device__ size_t smem_elems(const S& D) {
+  T* p = nullptr;
+  fric::carve_work(p, D);
+  carve_iter(p, D);
+  return (size_t)(p - (T*)nullptr);
 }
 
+// residuals of the current iterate (one barrier); returns (mu, resid)
+template <class S, typename T>
+__device__ void residuals(const S& D, fric::Work<T>& w, Iter<T>& v, Ctx<T>& c, T& mu, T& res) {
+  using fric::gdot;
+  const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), ldz = D.ldz(), ldf = fric::odd(nineq);
+  const T* A = w.AG;
+  const T* G = w.AG + neq * ldz;
+  T acc[4] = {0, 0, 0, 0};  // s'z, |rz|^2, |ry|^2, |rx|^2
+  // rx = G'z + Q'x + A'y + p,  rz = Gx - Fz + s - h,  ry = Ax - b
+  fric::rows<T, 8>(
+      c.t, nz + nineq + neq,
+      [&](int r, int l) -> T {
+        if (r < nz)
+          return gdot<8>(l, nineq, G + r, ldz, v.z) + gdot<8>(l, nz, v.Q + r, ldz, v.x) +
+                 gdot<8>(l, neq, A + r, ldz, v.y);
+        if (r < nz + nineq) {
+          const int i = r - nz;
+          return gdot<8>(l, nz, G + i * ldz, 1, v.x) - gdot<8>(l, nineq, v.F + i * ldf, 1, v.z);
+        }
+        return gdot<8>(l, nz, A + (r - nz - nineq) * ldz, 1, v.x);
+      },
+      [&](int r, T a) {
+        if (r < nz) {
+          const T t = a + v.p[r];
+          v.rx[r] = t;
+          acc[3] += t * t;
+        } else if (r < nz + nineq) {
+          const int i = r - nz;
+          const T t = a + v.s[i] - v.h[i];
+          v.rz[i] = t;
+          acc[1] += t * t;
+        } else {
+          const int i = r - nz - nineq;
+          const T t = a - v.b[i];
+          v.ry[i] = t;
+          acc[2] += t * t;
+        }
+      });
+  for (int i = c.t; i < nineq; i += NT) acc[0] += v.s[i] * v.z[i];
+  c.reduce(acc, fric::Sum());
+  mu = fabs(acc[0] / (T)nineq);
+  res = sqrt(acc[1]) + sqrt(acc[2]) + sqrt(acc[3]) + (T)nineq * mu;
+}
+
+// max step in [0, inf) keeping val + a dv > 0 over this thread's entries
 template <typename T>
-__global__ void pdipm_fwd_kernel(Sizes<T> S, const T* __restrict__ gQ, const T* __restrict__ ginvQ,
-                                 const T* __restrict__ gG, const T* __restrict__ gA,
-                                 const T* __restrict__ gF, const T* __restrict__ gbase_red,
-                                 const T* __restrict__ gmu, const T* __restrict__ gp,
-                                 const T* __restrict__ gh, const T* __restrict__ gb, T* out_best,
-                                 T* out_cur, int32_t* out_done_it, int32_t* out_cur_improves) {
+__device__ T own_step(int t, const T* val, const T* dv, int n) {
+  T a = (T)INFINITY;
+  for (int i = t; i < n; i += NT)
+    if (dv[i] < 0) a = fmin(a, -val[i] / dv[i]);
+  return a;
+}
+
+template <typename T, class S>
+__global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
+    S D, int max_iter, int nil, R eps, const T* __restrict__ gQ, const T* __restrict__ ginvQ,
+    const T* __restrict__ gG, const T* __restrict__ gA, const T* __restrict__ gF, const T* __restrict__ gp,
+    const T* __restrict__ gh, const T* __restrict__ gb, T* out_sol, int32_t* out_int, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int lane = threadIdx.x;
   const int prob = blockIdx.x;
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq, k = S.k, fd2 = S.fd / 2;
-  const int nf2 = k * fd2, m2 = neq + k + nf2, m = neq + nineq;
+  const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), ldz = D.ldz();
   const int nsol = nz + 2 * nineq + neq;
 
-  T* p = reinterpret_cast<T*>(smem_raw);
-  Work<T> w;
-  w.Q = carve(p, nz * nz);
-  w.invQ = carve(p, nz * nz);
-  w.G = carve(p, nineq * nz);
-  w.A = carve(p, neq * nz);
-  w.F = carve(p, nineq * nineq);
-  w.p = carve(p, nz);
-  w.h = carve(p, nineq);
-  w.b = carve(p, neq);
-  w.x = carve(p, nz); w.s = carve(p, nineq); w.z = carve(p, nineq); w.y = carve(p, neq);
-  w.bx = carve(p, nz); w.bs = carve(p, nineq); w.bz = carve(p, nineq); w.by = carve(p, neq);
-  w.rx = carve(p, nz); w.rz = carve(p, nineq); w.ry = carve(p, neq);
-  w.dxa = carve(p, nz); w.dsa = carve(p, nineq); w.dza = carve(p, nineq); w.dya = carve(p, neq);
-  w.dxc = carve(p, nz); w.dsc = carve(p, nineq); w.dzc = carve(p, nineq); w.dyc = carve(p, neq);
-  w.rs = carve(p, nineq);
-  w.d = carve(p, nineq);
-  w.dinv = carve(p, nineq);
-  w.t_nz = carve(p, nz);
-  w.t_nz2 = carve(p, nz);
-  w.hvec = carve(p, m); w.wvec = carve(p, m);
-  w.zero = carve(p, nineq > nz ? nineq : nz);
-  w.f = fric::carve_work(p, S);
+  R* p = reinterpret_cast<R*>(smem_raw);
+  fric::Work<R> w = fric::carve_work(p, D);
+  Iter<R> v = carve_iter(p, D);
+  Ctx<R> c{(int)threadIdx.x, w.red, 0, 0};
+  const int t = c.t;
+  const T* F = gF + (size_t)prob * nineq * nineq;
 
-  copy(w.Q, gQ + (size_t)prob * nz * nz, nz * nz, lane);
-  copy(w.invQ, ginvQ + (size_t)prob * nz * nz, nz * nz, lane);
-  copy(w.G, gG + (size_t)prob * nineq * nz, nineq * nz, lane);
-  copy(w.A, gA + (size_t)prob * neq * nz, neq * nz, lane);
-  copy(w.F, gF + (size_t)prob * nineq * nineq, nineq * nineq, lane);
-  copy(w.f.base_red, gbase_red + (size_t)prob * m2 * m2, m2 * m2, lane);
-  copy(w.f.mu, gmu + (size_t)prob * k, k, lane);
-  copy(w.p, gp + (size_t)prob * nz, nz, lane);
-  copy(w.h, gh + (size_t)prob * nineq, nineq, lane);
-  copy(w.b, gb + (size_t)prob * neq, neq, lane);
-  for (int i = lane; i < (nineq > nz ? nineq : nz); i += WARP) w.zero[i] = 0;
-  __syncwarp();
-
-  // initialization: one KKT solve at d = 1 (batch.py:84-90)
-  T* d = w.d;  // the diagonal d = z / s
-  T* dinv = w.dinv;
-  for (int i = lane; i < nineq; i += WARP) {
-    d[i] = 1;
-    dinv[i] = 1;
-    w.rs[i] = -w.h[i];  // rz = -h
+  fric::load(D, w, t, gA + (size_t)prob * neq * nz, gG + (size_t)prob * nineq * nz, ginvQ + (size_t)prob * nz * nz, F);
+  for (int e = t; e < nineq * nineq; e += NT) v.F[(e / nineq) * fric::odd(nineq) + e % nineq] = (R)F[e];
+  for (int e = t; e < nz * nz; e += NT) v.Q[(e / nz) * ldz + e % nz] = (R)gQ[(size_t)prob * nz * nz + e];
+  for (int i = t; i < nz; i += NT) v.p[i] = (R)gp[(size_t)prob * nz + i];
+  for (int i = t; i < nineq; i += NT) {
+    v.h[i] = (R)gh[(size_t)prob * nineq + i];
+    v.hneg[i] = -v.h[i];
+    w.d[i] = 1;  // initialization: one KKT solve at d = 1 (batch.py:84-90)
+    w.dinv[i] = 1;
   }
-  for (int i = lane; i < neq; i += WARP) w.ry[i] = -w.b[i];
-  __syncwarp();
-  fric::factor(S, w.f, dinv, lane);
-  solve_kkt(S, w, d, w.p, w.zero, w.rs, w.ry, w.x, w.s, w.z, w.y, lane);
+  for (int i = t; i < neq; i += NT) {
+    v.b[i] = (R)gb[(size_t)prob * neq + i];
+    v.bneg[i] = -v.b[i];
+  }
+  c.sync();
+  fric::setup(D, w, c);
+  c.sync();
+
+  fric::Inv<S, R> K;
+  fric::factor(D, w, K, c);
+  fric::solve_kkt(D, w, K, c, v.p, w.zero, v.hneg, v.bneg, v.x, v.s, v.z, v.y);
   // shift slacks and duals to >= 1 (batch.py:100-110)
   {
-    T ms = (T)INFINITY, mz = (T)INFINITY;
-    for (int i = lane; i < nineq; i += WARP) {
-      ms = fmin(ms, w.s[i]);
-      mz = fmin(mz, w.z[i]);
+    R mn[2] = {(R)INFINITY, (R)INFINITY};
+    for (int i = t; i < nineq; i += NT) {
+      mn[0] = fmin(mn[0], v.s[i]);
+      mn[1] = fmin(mn[1], v.z[i]);
     }
-    ms = warp_min(ms);
-    mz = warp_min(mz);
-    for (int i = lane; i < nineq; i += WARP) {
-      if (ms < 0) w.s[i] = w.s[i] - ms + (T)1;
-      if (mz < 0) w.z[i] = w.z[i] - mz + (T)1;
+    c.reduce(mn, fric::Min());
+    for (int i = t; i < nineq; i += NT) {
+      if (mn[0] < 0) v.s[i] = v.s[i] - mn[0] + (R)1;
+      if (mn[1] < 0) v.z[i] = v.z[i] - mn[1] + (R)1;
+      v.bs[i] = v.s[i];
+      v.bz[i] = v.z[i];
     }
+    for (int i = t; i < nz; i += NT) v.bx[i] = v.x[i];
+    for (int i = t; i < neq; i += NT) v.by[i] = v.y[i];
   }
-  copy(w.bx, w.x, nz, lane);
-  copy(w.bs, w.s, nineq, lane);
-  copy(w.bz, w.z, nineq, lane);
-  copy(w.by, w.y, neq, lane);
-  __syncwarp();
+  c.sync();
 
-  T bres = big_value<T>();
+  R bres = big_value<R>();
   int nni = 0;
   bool done = false;
-  int done_it = S.max_iter;
+  int done_it = max_iter;
+  int iter_syncs = 0;
   int it = 0;
-  while (it < S.max_iter && !done) {
-    T mu, res;
-    residuals(S, w, w.x, w.s, w.z, w.y, mu, res, lane);
+  while (it < max_iter && !done) {
+    const int n0 = c.nsync;
+    R mu, res;
+    residuals(D, w, v, c, mu, res);
     const bool improved = res < bres;
-    if (improved) {
-      copy(w.bx, w.x, nz, lane);
-      copy(w.bs, w.s, nineq, lane);
-      copy(w.bz, w.z, nineq, lane);
-      copy(w.by, w.y, neq, lane);
+    if (improved) {  // each thread copies the entries it owns
+      for (int i = t; i < nz; i += NT) v.bx[i] = v.x[i];
+      for (int i = t; i < nineq; i += NT) {
+        v.bs[i] = v.s[i];
+        v.bz[i] = v.z[i];
+      }
+      for (int i = t; i < neq; i += NT) v.by[i] = v.y[i];
       bres = res;
       nni = 0;
     } else {
       nni += 1;
     }
-    const bool stop = (nni >= S.nil) || (bres < S.eps) || (mu > (T)1e32);
+    const bool stop = (nni >= nil) || (bres < eps) || (mu > (R)1e32);
 
-    for (int i = lane; i < nineq; i += WARP) {
-      d[i] = w.z[i] / w.s[i];
-      dinv[i] = (T)1 / d[i];
+    for (int i = t; i < nineq; i += NT) {
+      w.d[i] = v.z[i] / v.s[i];
+      w.dinv[i] = fric::recip(w.d[i]);
     }
-    __syncwarp();
-    fric::factor(S, w.f, dinv, lane);
-    solve_kkt(S, w, d, w.rx, w.z, w.rz, w.ry, w.dxa, w.dsa, w.dza, w.dya, lane);
+    c.sync();
+    fric::factor(D, w, K, c);
+    fric::solve_kkt(D, w, K, c, v.rx, v.z, v.rz, v.ry, v.dxa, v.dsa, v.dza, v.dya);
 
     // centering-corrector (batch.py:184-211)
-    T alpha = fmin(fmin(get_step(w.z, w.dza, nineq, lane), get_step(w.s, w.dsa, nineq, lane)), (T)1);
-    T num = 0, den = 0;
-    for (int i = lane; i < nineq; i += WARP) {
-      num += (w.s[i] + alpha * w.dsa[i]) * (w.z[i] + alpha * w.dza[i]);
-      den += w.s[i] * w.z[i];
+    R st[1] = {fmin(own_step(t, v.z, v.dza, nineq), own_step(t, v.s, v.dsa, nineq))};
+    c.reduce(st, fric::Min());
+    R alpha = fmin(st[0], (R)1);
+    R nd[2] = {0, 0};
+    for (int i = t; i < nineq; i += NT) {
+      nd[0] += (v.s[i] + alpha * v.dsa[i]) * (v.z[i] + alpha * v.dza[i]);
+      nd[1] += v.s[i] * v.z[i];
     }
-    const T ratio = warp_sum(num) / warp_sum(den);
-    const T sig = ratio * ratio * ratio;
-    for (int i = lane; i < nineq; i += WARP) w.rs[i] = (-(mu * sig) + w.dsa[i] * w.dza[i]) / w.s[i];
-    __syncwarp();
-    solve_kkt(S, w, d, w.zero, w.rs, w.zero, w.zero, w.dxc, w.dsc, w.dzc, w.dyc, lane);
-    // combined direction: dx in dxa, ds in dsa, dz in dza, dy in dya
-    for (int i = lane; i < nz; i += WARP) w.dxa[i] += w.dxc[i];
-    for (int i = lane; i < nineq; i += WARP) {
-      w.dsa[i] += w.dsc[i];
-      w.dza[i] += w.dzc[i];
+    c.reduce(nd, fric::Sum());
+    const R ratio = nd[0] / nd[1];
+    const R sig = ratio * ratio * ratio;
+    for (int i = t; i < nineq; i += NT) v.rs[i] = (-(mu * sig) + v.dsa[i] * v.dza[i]) / v.s[i];
+    c.sync();
+    fric::solve_kkt(D, w, K, c, w.zero, v.rs, w.zero, w.zero, v.dxc, v.dsc, v.dzc, v.dyc);
+    // combined direction (each thread its own entries): dx in dxa, ds in dsa, dz in dza, dy in dya
+    for (int i = t; i < nz; i += NT) v.dxa[i] += v.dxc[i];
+    for (int i = t; i < nineq; i += NT) {
+      v.dsa[i] += v.dsc[i];
+      v.dza[i] += v.dzc[i];
     }
-    for (int i = lane; i < neq; i += WARP) w.dya[i] += w.dyc[i];
-    __syncwarp();
-    alpha = fmin((T)0.999 * fmin(get_step(w.z, w.dza, nineq, lane), get_step(w.s, w.dsa, nineq, lane)), (T)1);
+    for (int i = t; i < neq; i += NT) v.dya[i] += v.dyc[i];
+    st[0] = fmin(own_step(t, v.z, v.dza, nineq), own_step(t, v.s, v.dsa, nineq));
+    c.reduce(st, fric::Min());
+    alpha = fmin((R)0.999 * st[0], (R)1);
 
-    int bad = 0;
-    for (int i = lane; i < nz; i += WARP) bad |= !isfinite(w.x[i] + alpha * w.dxa[i]);
-    for (int i = lane; i < nineq; i += WARP)
-      bad |= !isfinite(w.s[i] + alpha * w.dsa[i]) | !isfinite(w.z[i] + alpha * w.dza[i]);
-    const bool finite = !warp_any(bad);
+    bool bad = false;
+    for (int i = t; i < nz; i += NT) bad |= !isfinite(v.x[i] + alpha * v.dxa[i]);
+    for (int i = t; i < nineq; i += NT)
+      bad |= !isfinite(v.s[i] + alpha * v.dsa[i]) || !isfinite(v.z[i] + alpha * v.dza[i]);
+    const bool finite = !c.any(bad);
     if (finite) {
-      for (int i = lane; i < nz; i += WARP) w.x[i] = w.x[i] + alpha * w.dxa[i];
-      for (int i = lane; i < nineq; i += WARP) {
-        w.s[i] = w.s[i] + alpha * w.dsa[i];
-        w.z[i] = w.z[i] + alpha * w.dza[i];
+      for (int i = t; i < nz; i += NT) v.x[i] = v.x[i] + alpha * v.dxa[i];
+      for (int i = t; i < nineq; i += NT) {
+        v.s[i] = v.s[i] + alpha * v.dsa[i];
+        v.z[i] = v.z[i] + alpha * v.dza[i];
       }
-      for (int i = lane; i < neq; i += WARP) w.y[i] = w.y[i] + alpha * w.dya[i];
+      for (int i = t; i < neq; i += NT) v.y[i] = v.y[i] + alpha * v.dya[i];
     }
-    __syncwarp();
+    c.sync();
     if (stop || !finite) {
       done = true;
       done_it = it;
     }
+    if (it == 0) iter_syncs = c.nsync - n0;
     it += 1;
   }
 
   // would the current iterate replace the best one? (final check / the
   // next iteration's check; the wrapper decides which applies)
-  T mu, res;
-  residuals(S, w, w.x, w.s, w.z, w.y, mu, res, lane);
-  const size_t off = (size_t)prob * nsol;
-  copy(out_best + off, w.bx, nz, lane);
-  copy(out_best + off + nz, w.bs, nineq, lane);
-  copy(out_best + off + nz + nineq, w.bz, nineq, lane);
-  copy(out_best + off + nz + 2 * nineq, w.by, neq, lane);
-  copy(out_cur + off, w.x, nz, lane);
-  copy(out_cur + off + nz, w.s, nineq, lane);
-  copy(out_cur + off + nz + nineq, w.z, nineq, lane);
-  copy(out_cur + off + nz + 2 * nineq, w.y, neq, lane);
-  if (lane == 0) {
-    out_done_it[prob] = done_it;
-    out_cur_improves[prob] = res < bres ? 1 : 0;
+  R mu, res;
+  residuals(D, w, v, c, mu, res);
+  T* best = out_sol + (size_t)prob * nsol;
+  T* cur = out_sol + ((size_t)B + prob) * nsol;
+  for (int i = t; i < nz; i += NT) {
+    best[i] = (T)v.bx[i];
+    cur[i] = (T)v.x[i];
+  }
+  for (int i = t; i < nineq; i += NT) {
+    best[nz + i] = (T)v.bs[i];
+    best[nz + nineq + i] = (T)v.bz[i];
+    cur[nz + i] = (T)v.s[i];
+    cur[nz + nineq + i] = (T)v.z[i];
+  }
+  for (int i = t; i < neq; i += NT) {
+    best[nz + 2 * nineq + i] = (T)v.by[i];
+    cur[nz + 2 * nineq + i] = (T)v.y[i];
+  }
+  if (t == 0) {
+    int32_t* o = out_int + (size_t)prob * 4;
+    o[0] = done_it;
+    o[1] = res < bres ? 1 : 0;
+    o[2] = iter_syncs;
+    o[3] = c.nsync;
   }
 }
 
 template <typename T>
-size_t smem_elems(const Sizes<T>& S) {
-  const int nz = S.nz, neq = S.neq, nineq = S.nineq, m = neq + nineq;
-  size_t n = 0;
-  n += 2 * nz * nz + nineq * nz + neq * nz + nineq * nineq + nz + nineq + neq;  // problem data
-  n += 2 * (nz + 2 * nineq + neq);               // iterates, best
-  n += nz + nineq + neq;                         // residuals
-  n += 2 * (nz + 2 * nineq + neq) + 3 * nineq;   // directions, rs, d, dinv
-  n += 2 * nz + 2 * m + (nineq > nz ? nineq : nz);  // scratch
-  return n + fric::work_elems(S);
+int launch(const fric::Dims& dims, int B, int max_iter, int nil, double eps, const void* Q, const void* invQ,
+           const void* G, const void* A, const void* F, const void* p, const void* h, const void* b,
+           void* out_sol, void* out_int, void* stream) {
+  return fric::with_shape(dims, [&](auto D) {
+    using S = decltype(D);
+    const size_t bytes = smem_elems<S, R>(D) * sizeof(R);
+    cudaError_t err = cudaFuncSetAttribute(pdipm_fwd_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    pdipm_fwd_kernel<T, S><<<B, NT, bytes, (cudaStream_t)stream>>>(
+        D, max_iter, nil, (R)eps, (const T*)Q, (const T*)invQ, (const T*)G, (const T*)A, (const T*)F,
+        (const T*)p, (const T*)h, (const T*)b, (T*)out_sol, (int32_t*)out_int, B);
+    return (int)cudaGetLastError();
+  });
 }
 
 template <typename T>
-int launch(int B, int nz, int neq, int neq_real, int nineq, int k, int fd, int max_iter, int nil,
-           double eps, const void* Q, const void* invQ, const void* G, const void* A,
-           const void* F, const void* base_red, const void* mu, const void* p, const void* h,
-           const void* b, void* out_best, void* out_cur, void* done_it, void* cur_improves,
-           void* stream) {
-  Sizes<T> S{{nz, neq, neq_real, nineq, k, fd}, max_iter, nil, (T)eps};
-  const size_t bytes = smem_elems(S) * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(pdipm_fwd_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  pdipm_fwd_kernel<T><<<B, WARP, bytes, (cudaStream_t)stream>>>(
-      S, (const T*)Q, (const T*)invQ, (const T*)G, (const T*)A, (const T*)F, (const T*)base_red,
-      (const T*)mu, (const T*)p, (const T*)h, (const T*)b, (T*)out_best, (T*)out_cur,
-      (int32_t*)done_it, (int32_t*)cur_improves);
-  return (int)cudaGetLastError();
+int info(const fric::Dims& dims, long long* out) {
+  return fric::with_shape(dims, [&](auto D) {
+    using S = decltype(D);
+    return fric::resources<S>(pdipm_fwd_kernel<T, S>, smem_elems<S, R>(D) * sizeof(R), out);
+  });
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. Returns cudaGetLastError() of the launch.
-int pdipm_fwd(int dtype, int B, int nz, int neq, int neq_real, int nineq, int k, int fd,
-              int max_iter, int not_improved_lim, double eps, const void* Q, const void* invQ,
-              const void* G, const void* A, const void* F, const void* base_red, const void* mu,
-              const void* p, const void* h, const void* b, void* out_best, void* out_cur,
-              void* done_it, void* cur_improves, void* stream) {
+// dtype: 0 = float32, 1 = float64. out_sol: (2, B, nz + 2 nineq + neq), the
+// best then the current iterate; out_int: (B, 4) stop iteration, current
+// improves best, barriers in the first Mehrotra iteration, barriers in all.
+// Returns cudaGetLastError() of the launch.
+int pdipm_fwd(int dtype, int B, int nz, int neq, int neq_real, int nineq, int k, int fd, int max_iter,
+              int not_improved_lim, double eps, const void* Q, const void* invQ, const void* G, const void* A,
+              const void* F, const void* p, const void* h, const void* b, void* out_sol, void* out_int,
+              void* stream) {
+  const fric::Dims dims{nz, neq, neq_real, nineq, k, fd};
   if (dtype == 1)
-    return launch<double>(B, nz, neq, neq_real, nineq, k, fd, max_iter, not_improved_lim, eps, Q,
-                          invQ, G, A, F, base_red, mu, p, h, b, out_best, out_cur, done_it,
-                          cur_improves, stream);
-  return launch<float>(B, nz, neq, neq_real, nineq, k, fd, max_iter, not_improved_lim, eps, Q,
-                       invQ, G, A, F, base_red, mu, p, h, b, out_best, out_cur, done_it,
-                       cur_improves, stream);
+    return launch<double>(dims, B, max_iter, not_improved_lim, eps, Q, invQ, G, A, F, p, h, b, out_sol, out_int,
+                          stream);
+  return launch<float>(dims, B, max_iter, not_improved_lim, eps, Q, invQ, G, A, F, p, h, b, out_sol, out_int,
+                       stream);
 }
 
-// shared-memory bytes one problem needs (the wrapper refuses what the card cannot hold)
-long long pdipm_fwd_smem_bytes(int dtype, int nz, int neq, int nineq, int k, int fd) {
-  if (dtype == 1) {
-    Sizes<double> S{{nz, neq, neq, nineq, k, fd}, 0, 0, 0.0};
-    return (long long)(smem_elems(S) * sizeof(double));
-  }
-  Sizes<float> S{{nz, neq, neq, nineq, k, fd}, 0, 0, 0.0f};
-  return (long long)(smem_elems(S) * sizeof(float));
+// the launch's resources: threads, shared bytes, registers per thread,
+// local (spill) bytes per thread, blocks per SM, static m2 (0: runtime sizes)
+int pdipm_fwd_info(int dtype, int nz, int neq, int nineq, int k, int fd, long long* out) {
+  const fric::Dims dims{nz, neq, neq, nineq, k, fd};
+  return dtype == 1 ? info<double>(dims, out) : info<float>(dims, out);
 }
 
 }  // extern "C"

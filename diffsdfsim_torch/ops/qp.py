@@ -356,6 +356,90 @@ def kkt_grad_plain(invQ, G, A, F, d, rx, structure=None):
     return dx, dlam, dnu
 
 
+def _gj_inverse(K):
+    """Inverse of a batch of (nb, n, n) systems by pivot-free Gauss-Jordan
+    on [K | I] with the JAX kernels' tiny-pivot guard (qp_pallas.py:72-86)."""
+    n = K.shape[-1]
+    aug = torch.cat([K, _eye(n, K).expand(K.shape)], dim=-1)
+    for kk in range(n):
+        pv = aug[..., kk, kk][..., None]
+        pv = torch.where(torch.abs(pv) < 1e-30, torch.full_like(pv, 1e-30), pv)
+        piv = aug[..., kk, :] / pv
+        aug = aug - aug[..., :, kk][..., None] * piv[..., None, :]
+        aug[..., kk, :] = piv
+    return aug[..., n:]
+
+
+def fric_reduced_solve(invQ, G, A, F, d, hvec, structure):
+    """S^-1 hvec for the physics friction layout (``structure=("fric", k,
+    fd)``) by the reduced solve that the kernels K1 and K2 run
+    (``ops/csrc/fric_schur.cuh``; JAX ``_make_fric_ops``,
+    qp_pallas.py:107-244): base_red = ([A; G] Q^-1 [A; G]') on the rows
+    [eq, n, f+], the cone rows eliminated, each +/- friction pair folded by
+    the per-contact Sherman-Morrison, and the remaining m2 = neq + k + k*fd/2
+    rows inverted by Gauss-Jordan. A with no row is padded with a zero row
+    pinned by a unit diagonal, as in the kernels. Used by tests and
+    ``chip_smoke.py``; the solver's own CPU path is ``_factor_S``."""
+    _, k, fd = structure
+    nb, nineq, nz = G.shape
+    neq_real = A.shape[-2]
+    dtype, device = G.dtype, G.device
+    if neq_real == 0:
+        A = torch.zeros((nb, 1, nz), dtype=dtype, device=device)
+        hvec = torch.cat([torch.zeros((nb, 1), dtype=dtype, device=device), hvec], dim=-1)
+    neq = A.shape[-2]
+    fd2, nf = fd // 2, k * fd
+    nf2, vs = k * fd2, neq + k
+    m = neq + nineq
+    r = torch.arange(nf2, device=device)
+    idx = torch.cat([torch.arange(vs, device=device), vs + (r // fd2) * fd + r % fd2])
+    AG = torch.cat([A, G], dim=-2)
+    base_red = (AG[:, idx] @ invQ) @ AG[:, idx].transpose(-1, -2)
+    mu = torch.diagonal(F[:, k * (1 + fd) :, :k], dim1=-2, dim2=-1)
+
+    def expand(xk):  # per contact (nb, k) -> per folded row (nb, nf2)
+        return torch.repeat_interleave(xk, fd2, dim=-1)
+
+    def csum(x2):  # per folded row -> per contact
+        return x2.reshape(nb, k, fd2).sum(-1)
+
+    dinv = 1.0 / d
+    dc = 1.0 / dinv[:, k + nf :]
+    df_inv = dinv[:, k : k + nf].reshape(nb, k, fd)
+    dpi, dmi = df_inv[..., :fd2].reshape(nb, nf2), df_inv[..., fd2:].reshape(nb, nf2)
+    sigma, delta = 0.5 * (dpi + dmi), 0.5 * (dpi - dmi)
+    sig_inv = 1.0 / sigma
+    dsig = delta * sig_inv
+    sj = csum(sig_inv)
+    cj = 2.0 * dc / (1.0 + 2.0 * dc * sj)
+    cj_r = expand(cj)
+    pad_reg = torch.zeros((nb, neq), dtype=dtype, device=device)
+    pad_reg[:, neq_real:] = 1.0
+    diag = torch.cat([pad_reg, dinv[:, :k], 0.5 * sigma - 0.5 * delta * dsig], dim=-1)
+    K = base_red + torch.diag_embed(diag)
+    same = torch.repeat_interleave(_eye(k, d), fd2, dim=0)  # (nf2, k): a folded row's contact
+    K[:, vs:, vs:] += 0.5 * cj_r[:, :, None] * dsig[:, :, None] * dsig[:, None, :] * (same @ same.T)
+    K[:, vs:, neq:vs] += (dsig * expand(dc * mu * (1.0 - cj * sj)))[:, :, None] * same
+    invK = _gj_inverse(K)
+
+    def sm(x):  # (sigma + 2C)^-1 x, per-contact Sherman-Morrison
+        t = sig_inv * x
+        return t - cj_r * sig_inv * expand(csum(t))
+
+    hf = hvec[:, vs : vs + nf].reshape(nb, k, fd)
+    rp, rm = hf[..., :fd2].reshape(nb, nf2), hf[..., fd2:].reshape(nb, nf2)
+    hc = hvec[:, m - k :]
+    q = rp + rm - 2.0 * expand(dc * hc)
+    rhs = torch.cat([hvec[:, :vs], 0.5 * (rp - rm - delta * sm(q))], dim=-1)
+    w2 = _bmv(invK, rhs)
+    wn, v = w2[:, neq:vs], w2[:, vs:]
+    u = sm(q + 2.0 * expand(dc * mu * wn) - delta * v)
+    wf = torch.cat([(0.5 * (u + v)).reshape(nb, k, fd2), (0.5 * (u - v)).reshape(nb, k, fd2)], dim=-1)
+    wc = dc * (hc - mu * wn + csum(u))
+    w = torch.cat([w2[:, :vs], wf.reshape(nb, nf), wc], dim=-1)
+    return w[:, neq - neq_real :]
+
+
 def _lcp_bwd(Q, G, A, F, zhat, nu, lam, slack, dl_dzhat, structure, kkt_solve=None):
     """Gradients (dQ, dp, dG, dh, dA, db, dF) of the LCP solution's x
     (JAX ops/qp.py:485-533). ``kkt_solve(Q, G, A, F, d, rx, structure)``,

@@ -10,24 +10,26 @@
   differentiation, run by the replay's backward in every contacting
   substep.
 
-Both take only ``structure=("fric", k, fd)``, the physics friction layout.
-They dispatch on the tensors' device alone: CUDA tensors launch the kernel
-(or raise), CPU tensors take the plain version (``ops/qp.pdipm_solve_raw``,
-``ops/qp.kkt_grad_plain``). As in the JAX wrappers, Q^-1 (the analytic
-inverse of the block-diagonal mass matrix), base = [A;G] Q^-1 [A;G]' and its
-reduced block, and the cone coefficients mu are computed outside the kernels
-with plain tensor ops (``fric_inputs``).
+Both take only ``structure=("fric", k, fd)``, the physics friction layout,
+with a reduced system of m2 = neq + k + k*fd/2 <= 64 rows. They dispatch on
+the tensors' device alone: CUDA tensors launch the kernel (or raise), CPU
+tensors take the plain version (``ops/qp.pdipm_solve_raw``,
+``ops/qp.kkt_grad_plain``). Q^-1 (the analytic inverse of the block-diagonal
+mass matrix) comes from the caller; the kernels form the reduced Schur base
+block and read the cone coefficients from F themselves, so a launch runs no
+tensor ops besides allocating its outputs (and padding A when there is no
+equality row).
 """
 
 from __future__ import annotations
 
 import ctypes
-import functools
 
-import numpy as np
 import torch
 
 from .qp import kkt_grad_plain, pdipm_solve_raw
+
+M2_MAX = 64  # fric_schur.cuh: the largest reduced system a kernel takes
 
 
 def fric_ok(structure, nineq: int) -> bool:
@@ -40,14 +42,19 @@ def fric_ok(structure, nineq: int) -> bool:
 
 def _check(kernel, structure, tensors, want):
     """Raise on anything a kernel does not take: a structure other than the
-    physics friction layout, mixed devices or dtypes, a dtype other than
-    float32/float64, or inconsistent shapes."""
+    physics friction layout, a reduced system over M2_MAX rows, mixed
+    devices or dtypes, a dtype other than float32/float64, or inconsistent
+    shapes."""
     nineq = tensors["G"].shape[-2]
     if not fric_ok(structure, nineq):
         raise ValueError(
             f"the {kernel} kernel takes only structure=('fric', k, fd) with the "
             f"physics row layout; got {structure} for nineq={nineq}"
         )
+    _, k, fd = structure
+    m2 = max(tensors["A"].shape[-2], 1) + k + k * (fd // 2)
+    if m2 > M2_MAX:
+        raise ValueError(f"the {kernel} kernel takes a reduced system of at most {M2_MAX} rows, not {m2}")
     dtype, device = tensors["G"].dtype, tensors["G"].device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the {kernel} kernel takes float32 or float64, not {dtype}")
@@ -77,57 +84,84 @@ def check_grad_inputs(invQ, G, A, F, d, rx, structure):
     _check("KKT backward", structure, dict(invQ=invQ, G=G, A=A, F=F, d=d, rx=rx), want)
 
 
-@functools.lru_cache(maxsize=None)
-def _red_index(neq: int, k: int, fd: int, device: str) -> torch.Tensor:
-    """Rows [eq, n, f+] of the Schur frame (the reduced system's rows)."""
-    fd2 = fd // 2
-    nf2 = k * fd2
-    idx = np.concatenate(
-        [np.arange(neq + k), neq + k + (np.arange(nf2) // fd2) * fd + np.arange(nf2) % fd2]
-    )
-    return torch.as_tensor(idx, dtype=torch.long, device=device)
+def _pad_eq(A, b=None):
+    """A (and b) with at least one row: a padded zero row is pinned by the
+    kernels' pad_reg (qp_pallas.py:493-498)."""
+    if A.shape[-2] > 0:
+        return A, b
+    B, _, nz = A.shape
+    A = torch.zeros((B, 1, nz), dtype=A.dtype, device=A.device)
+    return A, None if b is None else torch.zeros((B, 1), dtype=A.dtype, device=A.device)
 
 
-def fric_inputs(invQ, G, A, F, structure):
-    """The reduced-Schur inputs both kernels read. Returns (A with at least
-    one row (a padded zero row is pinned by the kernels' pad_reg,
-    qp_pallas.py:493-498), neq, base_red (B, m2, m2), mu (B, k))."""
-    B, nineq, nz = G.shape
-    _, k, fd = structure
-    neq = max(A.shape[-2], 1)
-    if A.shape[-2] == 0:
-        A = torch.zeros((B, 1, nz), dtype=G.dtype, device=G.device)
-    AG = torch.cat([A, G], dim=-2)
-    base = AG @ invQ @ AG.transpose(-1, -2)
-    idx = _red_index(neq, k, fd, str(G.device))
-    base_red = base.index_select(1, idx).index_select(2, idx).contiguous()
-    mu = torch.diagonal(F[:, k * (1 + fd) :, :k], dim1=-2, dim2=-1).contiguous()
-    return A, neq, base_red, mu
+def _buffers(name, tensors, device):
+    out = [t.contiguous() for t in tensors]
+    for t in out:
+        if t.device != device:
+            raise ValueError(f"{name}: kernel buffers must lie on one device")
+    return out
 
 
-def _check_buffers(name, tensors, device):
-    for t in tensors:
-        if not t.is_contiguous() or t.device != device:
-            raise ValueError(f"{name}: kernel buffers must be contiguous on one device")
+class _Kernel:
+    """A ctypes-bound kernel library; ``launches`` counts kernel launches."""
 
-
-class _PdipmKernel:
-    """Callable wrapper of the K1 launch; ``launches`` counts kernel launches."""
+    lib = ""  # the source's name in ops/csrc
+    n_int = 0  # int arguments before the pointers
 
     def __init__(self):
         self.launches = 0
-        self.last_done_it = None  # (B,) stop iteration of each lane in the last launch
         self._fn = None
+        self._info = None
 
     def _lib_fn(self):
         if self._fn is None:
             from ._build import load
 
-            fn = load("pdipm_fwd").pdipm_fwd
+            lib = load(self.lib)
+            fn = getattr(lib, self.lib)
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 10 + [ctypes.c_double] + [ctypes.c_void_p] * 15
-            self._fn = fn
+            fn.argtypes = self._argtypes()
+            info = getattr(lib, f"{self.lib}_info")
+            info.restype = ctypes.c_int
+            info.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
+            self._fn, self._info = fn, info
         return self._fn
+
+    def info(self, dtype, nz, neq, nineq, k, fd):
+        """The launch's resources at these sizes: threads per block, shared
+        bytes per block, registers and local (spill) bytes per thread,
+        blocks per SM, and the static m2 of the instantiation (0: sizes read
+        at run time)."""
+        self._lib_fn()
+        out = (ctypes.c_longlong * 6)()
+        err = self._info(1 if dtype == torch.float64 else 0, nz, neq, nineq, k, fd, out)
+        if err != 0:
+            raise RuntimeError(f"{self.lib}_info failed: CUDA error {err}")
+        return dict(zip(("threads", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm", "static_m2"), out))
+
+    def launch(self, args):
+        """One kernel launch on the current stream (the only place that counts)."""
+        err = self._lib_fn()(
+            *args["dims"], *[t.data_ptr() for t in args["ins"] + args["outs"]],
+            torch.cuda.current_stream(args["device"]).cuda_stream,
+        )
+        if err != 0:
+            raise RuntimeError(f"{self.lib} kernel launch failed: CUDA error {err}")
+        self.launches += 1
+
+
+class _PdipmKernel(_Kernel):
+    """Callable wrapper of the K1 launch."""
+
+    lib = "pdipm_fwd"
+
+    def __init__(self):
+        super().__init__()
+        self.last_done_it = None  # (B,) stop iteration of each lane in the last launch
+        self.last_syncs = None  # (B, 2) barriers in the first Mehrotra iteration and in all
+
+    def _argtypes(self):
+        return [ctypes.c_int] * 10 + [ctypes.c_double] + [ctypes.c_void_p] * 11
 
     def __call__(self, Q, p, G, h, A, b, F, invQ, max_iter, eps, not_improved_lim, structure):
         """Solve the batch; returns (x, y, z, s) like ``pdipm_solve_raw``."""
@@ -138,26 +172,20 @@ class _PdipmKernel:
         return self.finish(args)
 
     def prepare(self, Q, p, G, h, A, b, F, invQ, max_iter, eps, not_improved_lim, structure):
-        """Validate, build the kernel's inputs and allocate its outputs."""
+        """Validate, pad A and b when there is no equality row, and allocate
+        the outputs."""
         check_inputs(Q, p, G, h, A, b, F, invQ, structure)
         B, nineq, nz = G.shape
         dtype, device = G.dtype, G.device
         _, k, fd = structure
         neq_real = A.shape[-2]
-        A, neq, base_red, mu = fric_inputs(invQ, G, A, F, structure)
-        if neq_real == 0:
-            b = torch.zeros((B, 1), dtype=dtype, device=device)
-        ins = [t.contiguous() for t in (Q, invQ, G, A, F)] + [base_red, mu] + [
-            t.contiguous() for t in (p, h, b)
-        ]
-        nsol = nz + 2 * nineq + neq
+        A, b = _pad_eq(A, b)
+        neq = A.shape[-2]
+        ins = _buffers("pdipm_fwd", (Q, invQ, G, A, F, p, h, b), device)
         outs = [
-            torch.empty((B, nsol), dtype=dtype, device=device),  # best iterate
-            torch.empty((B, nsol), dtype=dtype, device=device),  # current iterate
-            torch.empty((B,), dtype=torch.int32, device=device),  # stop iteration
-            torch.empty((B,), dtype=torch.int32, device=device),  # current improves best
+            torch.empty((2, B, nz + 2 * nineq + neq), dtype=dtype, device=device),  # best, current iterate
+            torch.empty((B, 4), dtype=torch.int32, device=device),  # stop it, current improves, barriers
         ]
-        _check_buffers("pdipm_fwd", ins + outs, device)
         dims = (1 if dtype == torch.float64 else 0, B, nz, neq, neq_real, nineq, k, fd,
                 int(max_iter), int(not_improved_lim))
         return dict(dims=dims, eps=float(eps), ins=ins, outs=outs, device=device)
@@ -175,8 +203,11 @@ class _PdipmKernel:
     def finish(self, args):
         """The solution (x, y, z, s) from the kernel's outputs."""
         _, B, nz, neq, neq_real, nineq, _, _, max_iter, _ = args["dims"]
-        best, cur, done_it, cur_imp = args["outs"]
+        sol2, ints = args["outs"]
+        best, cur = sol2[0], sol2[1]
+        done_it, cur_imp = ints[:, 0], ints[:, 1]
         self.last_done_it = done_it
+        self.last_syncs = ints[:, 2:]
         # The batch's loop ran n_run iterations; a lane that stopped at
         # iteration i had its last step checked for improvement only if the
         # loop ran an iteration i + 1 (ops/qp.py _pdipm_forward).
@@ -194,22 +225,17 @@ class _PdipmKernel:
 pdipm_fric = _PdipmKernel()
 
 
-class _KktGradKernel:
-    """Callable wrapper of the K2 launch; ``launches`` counts kernel launches."""
+class _KktGradKernel(_Kernel):
+    """Callable wrapper of the K2 launch."""
+
+    lib = "kkt_bwd"
 
     def __init__(self):
-        self.launches = 0
-        self._fn = None
+        super().__init__()
+        self.last_syncs = None  # (B,) barriers of each block in the last launch
 
-    def _lib_fn(self):
-        if self._fn is None:
-            from ._build import load
-
-            fn = load("kkt_bwd").kkt_bwd
-            fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 11
-            self._fn = fn
-        return self._fn
+    def _argtypes(self):
+        return [ctypes.c_int] * 8 + [ctypes.c_void_p] * 11
 
     def __call__(self, invQ, G, A, F, d, rx, structure):
         """The backward KKT solve with rhs (rx, 0, 0, 0) at diagonal d for a
@@ -221,35 +247,28 @@ class _KktGradKernel:
         return self.finish(args)
 
     def prepare(self, invQ, G, A, F, d, rx, structure):
-        """Validate, build the kernel's inputs and allocate its outputs."""
+        """Validate, pad A when there is no equality row, and allocate the
+        outputs."""
+        check_grad_inputs(invQ, G, A, F, d, rx, structure)
         B, nineq, nz = G.shape
         neq_real = A.shape[-2]
         dtype, device = G.dtype, G.device
-        check_grad_inputs(invQ, G, A, F, d, rx, structure)
         _, k, fd = structure
-        A, neq, base_red, mu = fric_inputs(invQ, G, A, F, structure)
-        ins = [t.contiguous() for t in (invQ, G, A)] + [base_red, mu] + [t.contiguous() for t in (d, rx)]
+        A, _ = _pad_eq(A)
+        neq = A.shape[-2]
+        ins = _buffers("kkt_bwd", (invQ, G, A, F, d, rx), device)
         outs = [
             torch.empty((B, nz), dtype=dtype, device=device),  # dx
             torch.empty((B, nineq), dtype=dtype, device=device),  # dlam
             torch.empty((B, neq), dtype=dtype, device=device),  # dnu (padded rows included)
+            torch.empty((B,), dtype=torch.int32, device=device),  # barriers per block
         ]
-        _check_buffers("kkt_bwd", ins + outs, device)
         dims = (1 if dtype == torch.float64 else 0, B, nz, neq, neq_real, nineq, k, fd)
         return dict(dims=dims, ins=ins, outs=outs, device=device, neq_real=neq_real)
 
-    def launch(self, args):
-        """One kernel launch on the current stream (the only place that counts)."""
-        err = self._lib_fn()(
-            *args["dims"], *[t.data_ptr() for t in args["ins"] + args["outs"]],
-            torch.cuda.current_stream(args["device"]).cuda_stream,
-        )
-        if err != 0:
-            raise RuntimeError(f"kkt_bwd kernel launch failed: CUDA error {err}")
-        self.launches += 1
-
     def finish(self, args):
-        dx, dlam, dnu = args["outs"]
+        dx, dlam, dnu, syncs = args["outs"]
+        self.last_syncs = syncs
         return dx, dlam, dnu[:, : args["neq_real"]]
 
 

@@ -48,9 +48,23 @@ def test_mesh_body_and_interop_roundtrip():
     assert not tb.is_sdf and tb.kind == tshapes.KIND_NONE
     jb = j_make_body(jshapes.SphereShape(jnp.asarray(0.5)), subdiv=2)
     d = jax_body_np(jb)
-    back = interop.body_to_numpy(interop.body_from_numpy(d))
+    back = interop.body_to_numpy(interop.body_from_numpy(d, device="cpu"))
     for key, val in d.items():
         np.testing.assert_array_equal(np.asarray(back[key]), np.asarray(val), err_msg=key)
+
+
+def test_interop_defaults_to_cuda(monkeypatch):
+    """interop's from_numpy entry points take device=None, meaning CUDA: without
+    a card they raise with resolve_device's message."""
+    from diffsdfsim_torch.utils import meshes
+
+    tv, tf = meshes.cube_template(1)
+    d = interop.body_to_numpy(t_make_body(tshapes.BoxShape(torch.tensor([0.5, 0.5, 0.5])), verts=0.25 * tv,
+                                          faces=tf, device="cpu"))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn, arg in ((interop.body_from_numpy, d), (interop.contacts_from_numpy, {}), (interop.state_from_numpy, {})):
+        with pytest.raises(RuntimeError, match="no CUDA device is available; pass device='cpu'"):
+            fn(arg)
 
 
 def test_entry_points_refuse_cpu_fallback(monkeypatch):

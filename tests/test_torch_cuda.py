@@ -9,12 +9,14 @@ where JAX is not installed (tests/conftest.py imports it, hence
     pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Shapes are the main path's: the bench scene's LCPs (nz 12, neq 6, k 4,
-fd 8) at D = 3 and 6 rungs (K1) and 1 and 6 problems (K2), and both bench
-directed pairs (768-face floor, 320-face sphere) at three rung poses,
-float64. Tolerances: PDIPM x within 1e-8 (Gauss-Jordan vs Cholesky
-rounding), KKT residuals no worse than 10x the plain version's; FW search
-outputs within 1e-9 and masks equal; the backward KKT solve within 1e-9
-relative.
+fd 8) at D = 3 and 6 rungs and a 576-problem seed sweep (K1), 1, 6 and 576
+problems (K2), and the shape-space scene's k = 8 contact buffer (K1 at 4
+rungs, K2 at 1 problem); both bench directed pairs (768-face floor,
+320-face sphere) at three rung poses; float64. Tolerances: PDIPM x within
+1e-8 (Gauss-Jordan vs Cholesky rounding), KKT residuals no worse than 10x
+the plain version's; FW search outputs within 1e-9 and masks equal; the
+backward KKT solve within 1e-9 relative, of the plain version and of the
+plain reduced Schur solve ``fric_reduced_solve``.
 """
 
 import pytest
@@ -30,28 +32,28 @@ def cuda():
     return torch.device("cuda")
 
 
-def _lcps(B, device):
+def _lcps(B, device, k=4):
     import os
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
 
-    return chip_smoke.physics_lcps(B, seed=B, device=device, dtype=torch.float64)
+    return chip_smoke.physics_lcps(B, seed=B, device=device, dtype=torch.float64, k=k)
 
 
-@pytest.mark.parametrize("B", [3, 6])
-def test_pdipm_kernel_matches_plain(cuda, B):
+@pytest.mark.parametrize("k,B", [(4, 3), (4, 6), (4, 576), (8, 4)])
+def test_pdipm_kernel_matches_plain(cuda, k, B):
     from diffsdfsim_torch.ops.qp import lcp_residuals, pdipm_solve_raw
     from diffsdfsim_torch.ops.qp_cuda import pdipm_fric
 
-    Q, p, G, h, A, b, F, invQ = _lcps(B, cuda)
+    Q, p, G, h, A, b, F, invQ = _lcps(B, cuda, k)
     args = (Q, p, G, h, A, b, F)
     before = pdipm_fric.launches
-    sol_k = pdipm_fric(*args, invQ, 10, 1e-12, 3, ("fric", 4, 8))
+    sol_k = pdipm_fric(*args, invQ, 10, 1e-12, 3, ("fric", k, 8))
     torch.cuda.synchronize()
     assert pdipm_fric.launches == before + 1
-    sol_p = pdipm_solve_raw(*args, 10, 1e-12, 3, ("fric", 4, 8))
+    sol_p = pdipm_solve_raw(*args, 10, 1e-12, 3, ("fric", k, 8))
     assert float((sol_k[0] - sol_p[0]).abs().max()) <= 1e-8
     assert bool(torch.all(lcp_residuals(*args, sol_k) <= 10 * lcp_residuals(*args, sol_p) + 1e-10))
 
@@ -89,26 +91,49 @@ def test_fw_kernel_matches_plain(cuda, direction):
         assert float((out_k.max_pen - out_p.max_pen)[fin].abs().max()) <= 1e-9
 
 
-@pytest.mark.parametrize("B", [1, 6])
-def test_kkt_grad_kernel_matches_plain(cuda, B):
-    """K2 against the plain backward KKT solve on the same (Q^-1, G, A, F,
-    d, rx): 1e-9 relative to the largest entry."""
+def _kkt_inputs(cuda, k, B):
+    """The backward's inputs at the plain solution of B bench LCPs with k
+    contact slots: (Q^-1, G, A, F, d, rx)."""
     import numpy as np
 
-    from diffsdfsim_torch.ops.qp import blockdiag_inv3, kkt_grad_plain, pdipm_solve_raw
-    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+    from diffsdfsim_torch.ops.qp import blockdiag_inv3, pdipm_solve_raw
 
-    Q, p, G, h, A, b, F, _ = _lcps(B, cuda)
-    x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12, 3, ("fric", 4, 8))
+    Q, p, G, h, A, b, F, _ = _lcps(B, cuda, k)
+    x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12, 3, ("fric", k, 8))
     d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12)
     rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=torch.float64, device=cuda)
-    ins = (blockdiag_inv3(Q), G, A, F, d, rx)
+    return blockdiag_inv3(Q), G, A, F, d, rx
+
+
+@pytest.mark.parametrize("k,B", [(4, 1), (4, 6), (4, 576), (8, 1)])
+def test_kkt_grad_kernel_matches_plain(cuda, k, B):
+    """K2 against the plain backward KKT solve on the same (Q^-1, G, A, F,
+    d, rx): 1e-9 relative to the largest entry."""
+    from diffsdfsim_torch.ops.qp import kkt_grad_plain
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    ins = _kkt_inputs(cuda, k, B)
     before = kkt_grad_fric.launches
-    out_k = kkt_grad_fric(*ins, ("fric", 4, 8))
+    out_k = kkt_grad_fric(*ins, ("fric", k, 8))
     torch.cuda.synchronize()
     assert kkt_grad_fric.launches == before + 1
-    for a, r in zip(out_k, kkt_grad_plain(*ins, ("fric", 4, 8))):
+    for a, r in zip(out_k, kkt_grad_plain(*ins, ("fric", k, 8))):
         assert float((a - r).abs().max()) <= 1e-9 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("k", [4, 8])
+def test_kkt_grad_kernel_matches_fric_reduced_solve(cuda, k):
+    """K2's (dnu, dlam) against the plain reduced Schur solve on the same
+    inputs, -S^-1 [A; G] Q^-1 rx: 1e-9 relative to the largest entry."""
+    from diffsdfsim_torch.ops.qp import fric_reduced_solve
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    iq, G, A, F, d, rx = _kkt_inputs(cuda, k, 6)
+    _, dlam, dnu = kkt_grad_fric(iq, G, A, F, d, rx, ("fric", k, 8))
+    iqrx = (iq @ rx[..., None])[..., 0]
+    hvec = torch.cat([(A @ iqrx[..., None])[..., 0], (G @ iqrx[..., None])[..., 0]], -1)
+    ref = -fric_reduced_solve(iq, G, A, F, d, hvec, ("fric", k, 8))
+    assert float((torch.cat([dnu, dlam], -1) - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
 
 
 def test_bench_gradient_runs_through_k2(cuda):

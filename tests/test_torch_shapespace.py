@@ -115,7 +115,7 @@ def test_latent_body_interop_roundtrip(net, golden):
     from diffsdfsim_torch import interop
 
     _, body = _bodies(net, golden["start_latent"])
-    back = interop.body_from_numpy(interop.body_to_numpy(body))
+    back = interop.body_from_numpy(interop.body_to_numpy(body), device="cpu")
     pts = torch.tensor(np.random.default_rng(1).uniform(-1, 1, (20, 3)))
     for a, b in zip(back.query_sdfs(pts), body.query_sdfs(pts)):
         assert torch.equal(a, b)
