@@ -62,16 +62,22 @@ N_FRAMES = 100
 # (a bounded tangential drift). The first frame where any component leaves
 # 1e-7 is reported.
 ATOL_Y, ATOL_VY, ATOL_ALL, ATOL_REPORT = 1e-6, 1e-5, 5e-2, 1e-7
-# How the gradient d loss / d rad is held: within 1e-4 relative through the
-# first bounce (20 frames) and through frame 26 (27 frames); over the whole
-# 100 frames within 3e-3 relative, because from the touchdown in frame 26
-# the reference's own contact point is decided by rounding (above), and the
-# CPU and CUDA runs round differently too. On an H100 nine equally valid
-# arithmetic orders of K1/K2 put the 100-frame gradient between 1.7e-2 and
-# 7.2e-4 from the JAX golden value while the 27-frame one stayed within
-# 1e-7; the committed kernels read 8.8e-4 from it and 9.7e-4 from the CPU
-# port's (ROADMAP queue 3).
-RTOL_GRAD_SHORT, RTOL_GRAD_100 = 1e-4, 3e-3
+# How the gradient d loss / d rad is held against the JAX golden values.
+# Through the first bounce (20 frames) and through frame 26 (27 frames) it
+# does not depend on the rounding-decided touchdown, so it holds the kernels
+# tightly: within 1e-10 and 1e-6 relative (the first bounce reads 0 to
+# 4e-16 on an H100; at 27 frames nine equally valid arithmetic orders of
+# K1/K2 all read within 1e-7, PR 3's kernels 1e-16). Over the whole 100
+# frames within 3e-3 relative, because from the touchdown in frame 26 the
+# reference's own contact point is decided by rounding (above), and the CPU
+# and CUDA runs round differently too. That check does not tell a right
+# kernel from a wrong one: the nine orders put the 100-frame gradient
+# between 8.8e-4 and 1.7e-2 from the golden value, six of them over 3e-3
+# from it or from the CPU port's, and the committed order was picked among
+# the three that pass (8.8e-4 from the golden, 9.7e-4 from the CPU port;
+# ROADMAP queue 3).
+RTOL_GRAD_SHORT = {20: 1e-10, 27: 1e-6}
+RTOL_GRAD_100 = 3e-3
 # How the grid and latent paths are held against their JAX goldens:
 # identical discrete decisions and every pose and velocity within
 # ATOL_SHAPE_PATH (K1's Gauss-Jordan rounds each solve differently from the
@@ -229,20 +235,66 @@ def physics_lcps(B, seed, device, dtype, k=4):
     return [torch.stack(o).to(device=device, dtype=dtype).contiguous() for o in out]
 
 
-def k1_flops(done_it, max_iter, nz, neq, nineq, k, fd):
-    """FLOPs the reduced PDIPM needs for these lanes: once, the reduced
-    Schur base block [A; G]_r Q^-1 [A; G]_r' over its m2 rows; per Mehrotra
-    iteration one LU of the m2 x m2 system (2/3 m2^3 + 2 m2^2; the kernel
-    inverts instead), its assembly, two KKT solves and the residuals; plus
-    the initial solve."""
-    m2 = neq + k + k * fd // 2
-    base = 2 * m2 * nz * nz + 2 * m2 * m2 * nz
-    lu = 2 * m2**3 // 3 + 2 * m2 * m2 + 6 * m2 * m2
-    kkt = 2 * (2 * nz * nz + 2 * (neq + nineq) * nz) + 2 * m2 * m2 + 30 * k * fd
-    resid = 2 * (2 * nineq * nz + nz * nz + neq * nz) + 2 * nineq * nineq + 10 * nineq
-    per_iter = lu + 2 * kkt + resid + 40 * nineq
+def nnz(t):
+    """Nonzeros of one problem's matrix, averaged over the batch."""
+    return float((t != 0).sum()) / t.shape[0]
+
+
+def reduced_flops(invQ, G, A, k, fd):
+    """FLOPs per problem (averaged over the batch) of the pieces of the
+    reduced Schur solve that K1 and K2 share, each product costing 2 per
+    pair of nonzeros it multiplies in this run's data (Q^-1 is 3 x 3
+    block-diagonal, G's cone rows are zero):
+
+    - base: the reduced base block [A; G]_r Q^-1 [A; G]_r' over its m2 rows,
+      one triangle of the symmetric product;
+    - factor: K assembled at a new diagonal and one LU of it (2/3 m2^3).
+      The assembly: per contact its fd/2 pairs' sigma^-1 and their sum (4
+      each), the cone row's d, the Sherman-Morrison coefficient and the
+      (v, n) factor (9); per folded row delta, delta sigma^-1, the diagonal
+      add, the rank-1 row factor and the (v, n) coupling (11); 2 per entry
+      of each contact's fd/2 x fd/2 rank-1 block; m2 diagonal adds;
+    - solve: one KKT solve with the factored K for (rx, 0, 0, 0): Q^-1 rx,
+      [A; G] times it, the fold of the right-hand side and the recovery of
+      (wf+, wf-, wc) (9 per contact, 24 per folded row), the two triangular
+      solves (2 m2^2), [A; G]' w and Q^-1 again.
+
+    One LU and one solve are the 2/3 m2^3 + 2 m2^2 of a reduced LU solve;
+    the kernels invert K instead (4 m2^3)."""
+    import torch
+
+    fd2 = fd // 2
+    neq = max(A.shape[-2], 1)
+    m2 = neq + k + k * fd2
+    AG = torch.cat([A, G], -2)
+    rows = list(range(neq + k)) + [neq + k + c * fd + j for c in range(k) for j in range(fd2)]
+    pr = (AG[:, rows] != 0).double()
+    pq = (invQ != 0).double()
+    prq = pr @ pq  # products summed into each entry of [A; G]_r Q^-1
+    base = 2 * float(prq.sum()) + 2 * float(torch.triu((prq > 0).double() @ pr.transpose(-1, -2)).sum())
+    assemble = k * (9 + 4 * fd2) + 11 * k * fd2 + 2 * k * fd2 * fd2 + m2
+    solve = 4 * nnz(invQ) + 4 * nnz(AG) + 9 * k + 24 * k * fd2 + 2 * m2 * m2 + G.shape[-1]
+    return dict(base=base / G.shape[0], factor=assemble + 2 * m2**3 / 3, solve=solve)
+
+
+def k1_flops(done_it, max_iter, Q, G, A, F, invQ, k, fd):
+    """FLOPs the reduced PDIPM needs for these lanes (`reduced_flops` for
+    the shared pieces, products counted by the data's nonzeros). Once: the
+    base block, and the initial factor and KKT solve at d = 1 with its slack
+    shift. Per Mehrotra iteration, as many as each lane runs: the
+    residuals, one factor, two KKT solves (the right-hand sides rs, rz, ry
+    and ds add 6 per inequality row and 1 per equality row each) and the
+    step (step lengths, centering, the combined direction and the update:
+    35 per inequality row, 5 per variable, 3 per equality row). Last: the
+    final residuals."""
+    nz, nineq, neq = G.shape[-1], G.shape[-2], A.shape[-2]
+    red = reduced_flops(invQ, G, A, k, fd)
+    kkt = red["solve"] + 6 * nineq + neq
+    resid = 2 * (2 * nnz(G) + nnz(Q) + 2 * nnz(A) + nnz(F)) + 7 * nineq + 4 * nz + 3 * neq
+    per_iter = resid + red["factor"] + 2 * kkt + 35 * nineq + 5 * nz + 3 * neq
     iters = np.minimum(done_it.cpu().numpy() + 1, max_iter).astype(np.int64)
-    return int(np.sum(base + (iters + 1) * per_iter))
+    once = red["base"] + red["factor"] + kkt + 4 * nineq + resid
+    return int(np.sum(once + iters * per_iter))
 
 
 def fmt_info(info):
@@ -259,8 +311,9 @@ def phase_k1():
     rows = {}
     # float32: the plain version keeps the JAX XLA path's f32 rules (d
     # clipped to [1e-5, 1e5], a 1e-6 ridge), the kernel the Pallas kernel's
-    # (none), so their x agree only to ~1e-3 of |x| ~ 3; both are also held
-    # to their KKT residuals below. k = 8 contacts (nineq 80): the
+    # (none) in float64 arithmetic, so their x agree only to ~1e-3 of
+    # |x| ~ 3; both are also held to their KKT residuals below, and the
+    # kernel to the plain version in float64. k = 8 contacts (nineq 80): the
     # shape-space scene's buffer, at its probe batches of 3 and 4 rungs
     cases = [(4, B) for B in (3, 6, 576)] + [(8, B) for B in (3, 4)]
     for dtype, eps, tol_x in ((torch.float64, 1e-12, 1e-8), (torch.float32, 1e-6, 1e-2)):
@@ -282,19 +335,28 @@ def phase_k1():
             err = float((sol_k[0] - sol_p[0]).abs()[solved].max()) if bool(solved.any()) else 0.0
             floor_res = 1e-6 if dtype == torch.float64 else 1e-2
             bad_res = int((res_k > torch.clamp(10 * res_p, min=floor_res)).sum())
+            wide, err_w = "", 0.0
+            if dtype == torch.float32:
+                # the kernel widens float32 inputs to float64 (fric_schur.cuh):
+                # it is also held against the plain version run in float64 on
+                # the same inputs, 1e-4 relative to the largest |x|
+                sol_w = pdipm_solve_raw(*(t.double() for t in args), 10, eps, 3, structure)
+                err_w = float((sol_k[0].double() - sol_w[0]).abs().max()) / float(sol_w[0].abs().max())
+                wide = f"; vs the plain version in float64 {err_w:.3e} (tol 1e-4)"
             prep = pdipm_fric.prepare(*args, invQ, 10, eps, 3, structure)
             ms, how = device_ms(lambda: pdipm_fric.launch(prep), "pdipm_fwd_kernel")
             wrapper_ms = cuda_ms(lambda: pdipm_fric(*args, invQ, 10, eps, 3, structure))
             plain_ms = cuda_ms(lambda: pdipm_solve_raw(*args, 10, eps, 3, structure), n=5, warm=1)
-            nbytes = sum(t.numel() * t.element_size() for t in (*args, invQ)) + sum(
-                t.numel() * t.element_size() for t in sol_k
-            )
-            flops = k1_flops(done_it, 10, 12, 6, k * 10, k, 8)
+            # each input read once, F through its nonzeros (the residual's
+            # Fz; the reduced solve reads only its cone coefficients)
+            nbytes = sum(t.numel() * t.element_size() for t in (Q, p, G, h, A, b, invQ, *sol_k)) + int(
+                nnz(F) * B) * F.element_size()
+            flops = k1_flops(done_it, 10, Q, G, A, F, invQ, k, 8)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
             tag = f"K1 {str(dtype).split('.')[1]} k={k} B={B}"
             print(f"{tag}: max|dx| {err:.3e} (tol {tol_x:g}, {int(solved.sum())}/{B} lanes), resid kernel max {float(res_k.max()):.3e} "
-                  f"plain max {float(res_p.max()):.3e}, worse lanes {bad_res}; kernel {ms:.4f} ms ({how}) "
+                  f"plain max {float(res_p.max()):.3e}, worse lanes {bad_res}{wide}; kernel {ms:.4f} ms ({how}) "
                   f"(wrapper with its tensor glue {wrapper_ms:.4f} ms), "
                   f"plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
                   f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP); "
@@ -302,6 +364,7 @@ def phase_k1():
                   f"{fmt_info(info)}")
             check(err <= tol_x, f"{tag}: kernel x differs from the plain version by {err}")
             check(bad_res == 0, f"{tag}: {bad_res} lanes with a worse KKT residual than the plain version")
+            check(err_w <= 1e-4, f"{tag}: kernel differs from the plain version in float64 by {err_w}")
             rows[(dtype, k, B)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                        bytes_ms=bytes_ms, ops_ms=ops_ms)
     return rows
@@ -444,17 +507,13 @@ def phase_k3():
 # ---------------------------------------------------------------- phase 3b
 
 
-def k2_flops(nz, neq, nineq, k, fd, B):
-    """FLOPs the backward KKT solve needs per problem: the reduced Schur
-    matrix [A; G]_r Q^-1 [A; G]_r' over its m2 rows with the cone and
-    friction-pair terms, one LU solve of it (2/3 m2^3 + 2 m2^2; the kernel
-    inverts instead, 4 m2^3), and the matrix-vector products around it."""
-    m2 = neq + k + k * fd // 2
-    m = neq + nineq
-    schur = 2 * m2 * nz * nz + 2 * m2 * m2 * nz + 30 * k * fd
-    solve = 2 * m2**3 // 3 + 2 * m2 * m2
-    per = schur + solve + 4 * nz * nz + 4 * m * nz
-    return B * per
+def k2_flops(invQ, G, A, k, fd):
+    """FLOPs the backward KKT solve needs for the batch (`reduced_flops`):
+    the base block, one factor (K's assembly and its LU) and one KKT solve,
+    i.e. one reduced LU solve (2/3 m2^3 + 2 m2^2) and the products around
+    it."""
+    red = reduced_flops(invQ, G, A, k, fd)
+    return int(G.shape[0] * (red["base"] + red["factor"] + red["solve"]))
 
 
 def phase_k2():
@@ -506,7 +565,7 @@ def phase_k2():
             # coefficients mu (the kernel reads those, and forms the
             # reduced Schur block from invQ, G and A)
             nbytes = sum(t.numel() * t.element_size() for t in (iq, G, A, d, rx) + tuple(out_k)) + B * k * G.element_size()
-            flops = k2_flops(12, 6, k * 10, k, 8, B)
+            flops = k2_flops(iq, G, A, k, 8)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
             tol = 1e-9 if f64 else 1e-4
@@ -850,8 +909,8 @@ def phase_gradient():
         loss.backward()
         e = rel(float(rad.grad), golden[f"toc_{n}_grad"])
         print(f"gradient path, {n} frames: d loss / d rad {float(rad.grad)!r} vs JAX golden "
-              f"{golden[f'toc_{n}_grad']!r}: rel {e:.2e} (tol {RTOL_GRAD_SHORT:g})")
-        check(e <= RTOL_GRAD_SHORT, f"{n}-frame gradient differs from the golden value by {e} (relative)")
+              f"{golden[f'toc_{n}_grad']!r}: rel {e:.2e} (tol {RTOL_GRAD_SHORT[n]:g})")
+        check(e <= RTOL_GRAD_SHORT[n], f"{n}-frame gradient differs from the golden value by {e} (relative)")
     torch.cuda.synchronize()
 
     pdipm_fric.launches = fw_search_pair.launches = kkt_grad_fric.launches = 0

@@ -49,12 +49,14 @@
 // sizes read at run time and m2 <= M2_MAX.
 //
 // Everything here computes in R = double whatever the inputs' type: float32
-// inputs are widened on load and the results rounded on store. The
-// pivot-free Gauss-Jordan of a system whose diagonal d = z / s spans 1e-8 to
-// 1e8 leaves float32 arithmetic a KKT residual near 1e-2 on some lanes,
-// where the same iteration in float64 reaches the float32 inputs' own
-// rounding; the chain is latency-bound, so the wider arithmetic costs
-// little.
+// inputs are widened on load and the results rounded on store. This departs
+// on purpose from the Pallas kernels, which compute float32 in float32
+// (ROADMAP queue 3): the pivot-free Gauss-Jordan of a system whose diagonal
+// d = z / s spans 1e-8 to 1e8 leaves float32 arithmetic a KKT residual near
+// 1e-2 on some lanes, where the same iteration in float64 reaches the
+// float32 inputs' own rounding. Its plain version is therefore the plain
+// solver run in float64 on the same inputs. The chain is latency-bound, so
+// the wider arithmetic costs little.
 
 #pragma once
 

@@ -11,7 +11,9 @@
   substep.
 
 Both take only ``structure=("fric", k, fd)``, the physics friction layout,
-with a reduced system of m2 = neq + k + k*fd/2 <= 64 rows. They dispatch on
+with a reduced system of m2 = neq + k + k*fd/2 rows; a launch fails with
+cudaErrorInvalidValue past the kernels' limit (``fric_schur.cuh``
+``M2_MAX``). They dispatch on
 the tensors' device alone: CUDA tensors launch the kernel (or raise), CPU
 tensors take the plain version (``ops/qp.pdipm_solve_raw``,
 ``ops/qp.kkt_grad_plain``). Q^-1 (the analytic inverse of the block-diagonal
@@ -29,8 +31,6 @@ import torch
 
 from .qp import kkt_grad_plain, pdipm_solve_raw
 
-M2_MAX = 64  # fric_schur.cuh: the largest reduced system a kernel takes
-
 
 def fric_ok(structure, nineq: int) -> bool:
     """Can the reduced friction-structure solve be used? (JAX ``_fric_ok``)."""
@@ -42,19 +42,14 @@ def fric_ok(structure, nineq: int) -> bool:
 
 def _check(kernel, structure, tensors, want):
     """Raise on anything a kernel does not take: a structure other than the
-    physics friction layout, a reduced system over M2_MAX rows, mixed
-    devices or dtypes, a dtype other than float32/float64, or inconsistent
-    shapes."""
+    physics friction layout, mixed devices or dtypes, a dtype other than
+    float32/float64, or inconsistent shapes."""
     nineq = tensors["G"].shape[-2]
     if not fric_ok(structure, nineq):
         raise ValueError(
             f"the {kernel} kernel takes only structure=('fric', k, fd) with the "
             f"physics row layout; got {structure} for nineq={nineq}"
         )
-    _, k, fd = structure
-    m2 = max(tensors["A"].shape[-2], 1) + k + k * (fd // 2)
-    if m2 > M2_MAX:
-        raise ValueError(f"the {kernel} kernel takes a reduced system of at most {M2_MAX} rows, not {m2}")
     dtype, device = tensors["G"].dtype, tensors["G"].device
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"the {kernel} kernel takes float32 or float64, not {dtype}")

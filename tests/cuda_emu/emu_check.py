@@ -5,18 +5,20 @@ not of what only the GPU compiler would refuse).
 
     python tests/cuda_emu/emu_check.py
 
-Each source is rewritten (``kernel<<<grid, block, bytes, stream>>>(...)``
+or, case by case, ``pytest -m slow tests/test_torch_cuda_emu.py``. Each
+source is rewritten (``kernel<<<grid, block, bytes, stream>>>(...)``
 becomes ``emu::launch(grid, block, bytes, kernel, ...)``), compiled with g++
 (C++20) against ``tests/cuda_emu/cuda_runtime.h`` into a shared library with
 the same C interface, and called through the wrappers' ``prepare`` and
 ``finish`` on CPU tensors. Cases: the bench LCPs of ``chip_smoke.py`` at
 k = 4 and 8 contacts (the two compile-time shapes) and seeded structured
 problems of other sizes (the runtime-sized instantiation, neq = 0 padded
-included), float64 and float32. Tolerances as on the card: K1's x within
-1e-8 of the plain PDIPM with residuals no worse than 10x (float64; float32
-only its residual: both compute in float64); K2 within 1e-9 relative of ``kkt_grad_plain`` and of
-``fric_reduced_solve`` (float64), 1e-4 of a float64 solve (float32). Takes
-about 20 s.
+included), float64 and float32. Tolerances as on the card: K1's residuals no
+worse than 10x the plain PDIPM's and its x within 1e-8 of it (float64) or,
+since the kernel computes in float64, within 1e-4 relative of the plain
+version run in float64 (float32); K2 within 1e-9 relative of
+``kkt_grad_plain`` and of ``fric_reduced_solve`` (float64), 1e-4 of a
+float64 solve (float32). Takes about 20 s.
 """
 
 import ctypes
@@ -87,72 +89,92 @@ def structured(B, neq, k, fd, dtype, seed):
     return out + [blockdiag_inv3(out[0])]
 
 
-def main():
+# (label, B, k, (neq, fd) of a seeded structured problem, or None for the
+# bench LCPs at fd = 8)
+CASES = [("bench k=4", 3, 4, None), ("bench k=8", 2, 8, None), ("neq=3 k=2 fd=4", 2, 2, (3, 4)),
+         ("neq=0 k=1 fd=2", 2, 1, (0, 2))]
+
+
+def build_libs(out_dir):
+    """Both kernels compiled for the CPU into out_dir."""
+    return {n: build(n, out_dir) for n in ("pdipm_fwd", "kkt_bwd")}
+
+
+def check_case(libs, dtype, case):
+    """K1 and K2 on one case: [(report line, passed)] for each kernel."""
     import chip_smoke
 
-    cases = [("bench k=4", 3, 4, None), ("bench k=8", 2, 8, None), ("neq=3 k=2 fd=4", 2, 2, (3, 4)),
-             ("neq=0 k=1 fd=2", 2, 1, (0, 2))]
+    label, B, k, other = case
+    f64 = dtype == torch.float64
+    if other is None:
+        lcp = chip_smoke.physics_lcps(B, seed=B, device="cpu", dtype=dtype, k=k)
+        fd = 8
+    else:
+        neq, fd = other
+        lcp = structured(B, neq, k, fd, dtype, seed=B + k)
+    Q, p, G, h, A, b, F, invQ = lcp
+    structure = ("fric", k, fd)
+    eps = 1e-12 if f64 else 1e-6
+    out = []
+    # K1
+    args = qp_cuda.pdipm_fric.prepare(Q, p, G, h, A, b, F, invQ, 10, eps, 3, structure)
+    sol_k = run(libs["pdipm_fwd"], "pdipm_fwd", qp_cuda.pdipm_fric, args)
+    sol_p = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, eps, 3, structure)
+    res_k = lcp_residuals(Q, p, G, h, A, b, F, sol_k)
+    res_p = lcp_residuals(Q, p, G, h, A, b, F, sol_p)
+    dx = float((sol_k[0] - sol_p[0]).abs().max())
+    syncs = qp_cuda.pdipm_fric.last_syncs[0].tolist()
+    ok = bool(torch.all(res_k <= torch.clamp(10 * res_p, min=1e-6 if f64 else 1e-2)))
+    if f64:
+        ok &= dx <= 1e-8
+    else:
+        # the kernel computes in float64: held against the plain version in
+        # float64 on the same inputs, as chip_smoke.py does
+        sol_w = pdipm_solve_raw(*(t.double() for t in (Q, p, G, h, A, b, F)), 10, eps, 3, structure)
+        dx = float((sol_k[0].double() - sol_w[0]).abs().max()) / float(sol_w[0].abs().max())
+        ok &= dx <= 1e-4
+    out.append((f"K1 {str(dtype)[6:]} {label}: max|dx| {dx:.2e}{'' if f64 else ' (relative, vs float64)'}, "
+                f"resid kernel {float(res_k.max()):.2e} plain {float(res_p.max()):.2e}, stop its "
+                f"{qp_cuda.pdipm_fric.last_done_it.tolist()}, barriers first iteration / all {syncs}", ok))
+    # K2 at the plain solution's diagonal (bench LCPs, clipped as
+    # chip_smoke.py does) or at a seeded one in [0.01, 100]
+    rng = np.random.default_rng(B)
+    if other is None:
+        x, y, z, s = pdipm_solve_raw(*(t.double() for t in (Q, p, G, h, A, b, F)), 10, 1e-12, 3, structure)
+        d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12 if f64 else 1e5)
+    else:
+        d = torch.tensor(np.exp(rng.uniform(np.log(0.01), np.log(100.0), size=tuple(h.shape))))
+    d = d.to(dtype)
+    rx = torch.tensor(rng.normal(size=tuple(p.shape)), dtype=dtype)
+    ins = (invQ, G, A, F, d, rx)
+    args = qp_cuda.kkt_grad_fric.prepare(*ins, structure)
+    out_k = run(libs["kkt_bwd"], "kkt_bwd", qp_cuda.kkt_grad_fric, args)
+    ins64 = [t.double() for t in ins]
+    out_r = kkt_grad_plain(*ins64, structure)
+    rel = max(float((a.double() - r).abs().max()) / float(r.abs().max()) for a, r in zip(out_k, out_r) if r.numel())
+    # the same solve through fric_reduced_solve: w = -S^-1 [A; G] Q^-1 rx = (dnu, dlam)
+    iqrx = (ins64[0] @ ins64[5][..., None])[..., 0]
+    hv = torch.cat([(ins64[2] @ iqrx[..., None])[..., 0], (ins64[1] @ iqrx[..., None])[..., 0]], -1)
+    wr = -fric_reduced_solve(*ins64[:5], hv, structure)
+    wk = torch.cat([out_k[2], out_k[1]], -1).double()
+    rel_red = float((wk - wr).abs().max()) / float(wr.abs().max())
+    tol = 1e-9 if f64 else 1e-4
+    out.append((f"K2 {str(dtype)[6:]} {label}: rel err vs plain {rel:.2e}, vs fric_reduced_solve {rel_red:.2e} "
+                f"(tol {tol:g}), barriers {qp_cuda.kkt_grad_fric.last_syncs.tolist()}",
+                rel <= tol and rel_red <= tol))
+    return out
+
+
+def main():
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {n: build(n, tmp) for n in ("pdipm_fwd", "kkt_bwd")}
+        libs = build_libs(tmp)
         for dtype in (torch.float64, torch.float32):
-            f64 = dtype == torch.float64
-            for label, B, k, other in cases:
-                if other is None:
-                    lcp = chip_smoke.physics_lcps(B, seed=B, device="cpu", dtype=dtype, k=k)
-                    fd = 8
-                else:
-                    neq, fd = other
-                    lcp = structured(B, neq, k, fd, dtype, seed=B + k)
-                Q, p, G, h, A, b, F, invQ = lcp
-                structure = ("fric", k, fd)
-                eps = 1e-12 if f64 else 1e-6
-                # K1
-                args = qp_cuda.pdipm_fric.prepare(Q, p, G, h, A, b, F, invQ, 10, eps, 3, structure)
-                sol_k = run(libs["pdipm_fwd"], "pdipm_fwd", qp_cuda.pdipm_fric, args)
-                sol_p = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, eps, 3, structure)
-                res_k = lcp_residuals(Q, p, G, h, A, b, F, sol_k)
-                res_p = lcp_residuals(Q, p, G, h, A, b, F, sol_p)
-                dx = float((sol_k[0] - sol_p[0]).abs().max())
-                syncs = qp_cuda.pdipm_fric.last_syncs[0].tolist()
-                ok = bool(torch.all(res_k <= torch.clamp(10 * res_p, min=1e-6 if f64 else 1e-2)))
-                if f64:
-                    ok &= dx <= 1e-8
-                print(f"K1 {str(dtype)[6:]} {label}: max|dx| {dx:.2e}, resid kernel {float(res_k.max()):.2e} "
-                      f"plain {float(res_p.max()):.2e}, stop its {qp_cuda.pdipm_fric.last_done_it.tolist()}, "
-                      f"barriers first iteration / all {syncs}: {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(f"K1 {dtype} {label}")
-                # K2 at the plain solution's diagonal (bench LCPs, clipped as
-                # chip_smoke.py does) or at a seeded one in [0.01, 100]
-                rng = np.random.default_rng(B)
-                if other is None:
-                    x, y, z, s = pdipm_solve_raw(*(t.double() for t in (Q, p, G, h, A, b, F)), 10, 1e-12, 3, structure)
-                    d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12 if f64 else 1e5)
-                else:
-                    d = torch.tensor(np.exp(rng.uniform(np.log(0.01), np.log(100.0), size=tuple(h.shape))))
-                d = d.to(dtype)
-                rx = torch.tensor(rng.normal(size=tuple(p.shape)), dtype=dtype)
-                ins = (invQ, G, A, F, d, rx)
-                args = qp_cuda.kkt_grad_fric.prepare(*ins, structure)
-                out_k = run(libs["kkt_bwd"], "kkt_bwd", qp_cuda.kkt_grad_fric, args)
-                ins64 = [t.double() for t in ins]
-                out_r = kkt_grad_plain(*ins64, structure)
-                rel = max(float((a.double() - r).abs().max()) / float(r.abs().max())
-                          for a, r in zip(out_k, out_r) if r.numel())
-                # the same solve through fric_reduced_solve: w = -S^-1 [A; G] Q^-1 rx = (dnu, dlam)
-                iqrx = (ins64[0] @ ins64[5][..., None])[..., 0]
-                hv = torch.cat([(ins64[2] @ iqrx[..., None])[..., 0], (ins64[1] @ iqrx[..., None])[..., 0]], -1)
-                wr = -fric_reduced_solve(*ins64[:5], hv, structure)
-                wk = torch.cat([out_k[2], out_k[1]], -1).double()
-                rel_red = float((wk - wr).abs().max()) / float(wr.abs().max())
-                tol = 1e-9 if f64 else 1e-4
-                ok = rel <= tol and rel_red <= tol
-                print(f"K2 {str(dtype)[6:]} {label}: rel err vs plain {rel:.2e}, vs fric_reduced_solve "
-                      f"{rel_red:.2e} (tol {tol:g}), barriers {qp_cuda.kkt_grad_fric.last_syncs.tolist()}: "
-                      f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(f"K2 {dtype} {label}")
+            for case in CASES:
+                for line, ok in check_case(libs, dtype, case):
+                    print(f"{line}: {'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        failures.append(line.split(":")[0])
     if failures:
         print("FAILED:", failures)
         return 1
