@@ -48,15 +48,12 @@
 // register arrays are static; Shape<0, 0, 0, 0> is the same code with the
 // sizes read at run time and m2 <= M2_MAX.
 //
-// Everything here computes in R = double whatever the inputs' type: float32
-// inputs are widened on load and the results rounded on store. This departs
-// on purpose from the Pallas kernels, which compute float32 in float32
-// (ROADMAP queue 3): the pivot-free Gauss-Jordan of a system whose diagonal
-// d = z / s spans 1e-8 to 1e8 leaves float32 arithmetic a KKT residual near
-// 1e-2 on some lanes, where the same iteration in float64 reaches the
-// float32 inputs' own rounding. Its plain version is therefore the plain
-// solver run in float64 on the same inputs. The chain is latency-bound, so
-// the wider arithmetic costs little.
+// Everything here computes in the inputs' type T, as the Pallas kernels do.
+// In float32 the iteration's KKT residual stops at the arithmetic's own
+// floor: on 576 bench LCPs (k = 4) a CPU emulation of these kernels reads a
+// median 1.7e-4 and a tail up to 7.8e-3, whatever the lane's conditioning
+// (d = z / s spans 1e-13 to 1e14 at every solution). How close that tail
+// comes to a fixed bound is a matter of rounding order (ROADMAP queue 3).
 
 #pragma once
 
@@ -77,8 +74,6 @@ constexpr int RED_N = 4;     // values one block reduction combines at most
 struct Dims {
   int nz, neq, neq_real, nineq, k, fd;
 };
-
-using R = double;  // the arithmetic type of K1 and K2
 
 __host__ __device__ constexpr int odd(int n) { return n | 1; }  // row strides: odd, so a column walk hits every bank
 
@@ -119,8 +114,9 @@ struct Shape {
 template <typename T>
 __device__ __forceinline__ T shfl(T v, int o) { return __shfl_xor_sync(0xffffffffu, v, o); }
 
-// 1 / x, correctly rounded (bitwise the quotient 1.0 / x)
-__device__ __forceinline__ R recip(R x) { return __drcp_rn(x); }
+// 1 / x, correctly rounded (bitwise the quotient 1 / x)
+__device__ __forceinline__ double recip(double x) { return __drcp_rn(x); }
+__device__ __forceinline__ float recip(float x) { return __frcp_rn(x); }
 
 // the block's barriers, counted (K1 and K2 report the count)
 template <typename T>
@@ -252,14 +248,14 @@ struct Inv {
 
 // load the problem's [A; G], Q^-1 and mu (from F's cone rows) into shared
 // memory; the caller syncs before `setup`
-template <class S, typename T, typename I>
-__device__ void load(const S& D, Work<T>& w, int t, const I* __restrict__ gA, const I* __restrict__ gG,
-                     const I* __restrict__ ginvQ, const I* __restrict__ gF) {
+template <class S, typename T>
+__device__ void load(const S& D, Work<T>& w, int t, const T* __restrict__ gA, const T* __restrict__ gG,
+                     const T* __restrict__ ginvQ, const T* __restrict__ gF) {
   const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), k = D.k(), ldz = D.ldz();
-  for (int e = t; e < neq * nz; e += NT) w.AG[(e / nz) * ldz + e % nz] = (T)gA[e];
-  for (int e = t; e < nineq * nz; e += NT) w.AG[(neq + e / nz) * ldz + e % nz] = (T)gG[e];
-  for (int e = t; e < nz * nz; e += NT) w.invQ[(e / nz) * ldz + e % nz] = (T)ginvQ[e];
-  for (int c = t; c < k; c += NT) w.mu[c] = (T)gF[(size_t)(k * (1 + D.fd()) + c) * nineq + c];
+  for (int e = t; e < neq * nz; e += NT) w.AG[(e / nz) * ldz + e % nz] = gA[e];
+  for (int e = t; e < nineq * nz; e += NT) w.AG[(neq + e / nz) * ldz + e % nz] = gG[e];
+  for (int e = t; e < nz * nz; e += NT) w.invQ[(e / nz) * ldz + e % nz] = ginvQ[e];
+  for (int c = t; c < k; c += NT) w.mu[c] = gF[(size_t)(k * (1 + D.fd()) + c) * nineq + c];
   for (int i = t; i < (nineq > nz ? nineq : nz); i += NT) w.zero[i] = 0;
 }
 

@@ -38,7 +38,6 @@ namespace {
 using fric::carve;
 using fric::Ctx;
 using fric::NT;
-using fric::R;
 
 template <class S, typename T>
 __host__ __device__ size_t smem_elems(const S& D) {
@@ -57,24 +56,24 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
   const int prob = blockIdx.x;
   const int nz = D.nz(), neq = D.neq(), nineq = D.nineq();
 
-  R* p = reinterpret_cast<R*>(smem_raw);
-  fric::Work<R> w = fric::carve_work(p, D);
-  R* rx = carve(p, nz);
-  Ctx<R> c{(int)threadIdx.x, w.red, 0, 0};
+  T* p = reinterpret_cast<T*>(smem_raw);
+  fric::Work<T> w = fric::carve_work(p, D);
+  T* rx = carve(p, nz);
+  Ctx<T> c{(int)threadIdx.x, w.red, 0, 0};
   const int t = c.t;
 
   fric::load(D, w, t, gA + (size_t)prob * neq * nz, gG + (size_t)prob * nineq * nz, ginvQ + (size_t)prob * nz * nz,
              gF + (size_t)prob * nineq * nineq);
-  for (int i = t; i < nz; i += NT) rx[i] = (R)grx[(size_t)prob * nz + i];
+  for (int i = t; i < nz; i += NT) rx[i] = grx[(size_t)prob * nz + i];
   for (int i = t; i < nineq; i += NT) {
-    const R d = (R)gd[(size_t)prob * nineq + i];
+    const T d = gd[(size_t)prob * nineq + i];
     w.d[i] = d;
     w.dinv[i] = fric::recip(d);
   }
   c.sync();
   fric::setup(D, w, c);
   c.sync();
-  fric::Inv<S, R> K;
+  fric::Inv<S, T> K;
   fric::factor(D, w, K, c);
   fric::solve_kkt(D, w, K, c, rx, w.zero, w.zero, w.zero, out_dx + (size_t)prob * nz, (T*)nullptr,
                   out_dlam + (size_t)prob * nineq, out_dnu + (size_t)prob * neq);
@@ -86,7 +85,7 @@ int launch(const fric::Dims& dims, int B, const void* invQ, const void* G, const
            const void* d, const void* rx, void* dx, void* dlam, void* dnu, void* syncs, void* stream) {
   return fric::with_shape(dims, [&](auto D) {
     using S = decltype(D);
-    const size_t bytes = smem_elems<S, R>(D) * sizeof(R);
+    const size_t bytes = smem_elems<S, T>(D) * sizeof(T);
     cudaError_t err =
         cudaFuncSetAttribute(kkt_bwd_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
@@ -101,7 +100,7 @@ template <typename T>
 int info(const fric::Dims& dims, long long* out) {
   return fric::with_shape(dims, [&](auto D) {
     using S = decltype(D);
-    return fric::resources<S>(kkt_bwd_kernel<T, S>, smem_elems<S, R>(D) * sizeof(R), out);
+    return fric::resources<S>(kkt_bwd_kernel<T, S>, smem_elems<S, T>(D) * sizeof(T), out);
   });
 }
 

@@ -51,7 +51,6 @@ namespace {
 using fric::carve;
 using fric::Ctx;
 using fric::NT;
-using fric::R;
 
 template <typename T>
 __device__ __forceinline__ T big_value();
@@ -148,7 +147,7 @@ __device__ T own_step(int t, const T* val, const T* dv, int n) {
 
 template <typename T, class S>
 __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
-    S D, int max_iter, int nil, R eps, const T* __restrict__ gQ, const T* __restrict__ ginvQ,
+    S D, int max_iter, int nil, T eps, const T* __restrict__ gQ, const T* __restrict__ ginvQ,
     const T* __restrict__ gG, const T* __restrict__ gA, const T* __restrict__ gF, const T* __restrict__ gp,
     const T* __restrict__ gh, const T* __restrict__ gb, T* out_sol, int32_t* out_int, int B) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -156,45 +155,45 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
   const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), ldz = D.ldz();
   const int nsol = nz + 2 * nineq + neq;
 
-  R* p = reinterpret_cast<R*>(smem_raw);
-  fric::Work<R> w = fric::carve_work(p, D);
-  Iter<R> v = carve_iter(p, D);
-  Ctx<R> c{(int)threadIdx.x, w.red, 0, 0};
+  T* p = reinterpret_cast<T*>(smem_raw);
+  fric::Work<T> w = fric::carve_work(p, D);
+  Iter<T> v = carve_iter(p, D);
+  Ctx<T> c{(int)threadIdx.x, w.red, 0, 0};
   const int t = c.t;
   const T* F = gF + (size_t)prob * nineq * nineq;
 
   fric::load(D, w, t, gA + (size_t)prob * neq * nz, gG + (size_t)prob * nineq * nz, ginvQ + (size_t)prob * nz * nz, F);
-  for (int e = t; e < nineq * nineq; e += NT) v.F[(e / nineq) * fric::odd(nineq) + e % nineq] = (R)F[e];
-  for (int e = t; e < nz * nz; e += NT) v.Q[(e / nz) * ldz + e % nz] = (R)gQ[(size_t)prob * nz * nz + e];
-  for (int i = t; i < nz; i += NT) v.p[i] = (R)gp[(size_t)prob * nz + i];
+  for (int e = t; e < nineq * nineq; e += NT) v.F[(e / nineq) * fric::odd(nineq) + e % nineq] = F[e];
+  for (int e = t; e < nz * nz; e += NT) v.Q[(e / nz) * ldz + e % nz] = gQ[(size_t)prob * nz * nz + e];
+  for (int i = t; i < nz; i += NT) v.p[i] = gp[(size_t)prob * nz + i];
   for (int i = t; i < nineq; i += NT) {
-    v.h[i] = (R)gh[(size_t)prob * nineq + i];
+    v.h[i] = gh[(size_t)prob * nineq + i];
     v.hneg[i] = -v.h[i];
     w.d[i] = 1;  // initialization: one KKT solve at d = 1 (batch.py:84-90)
     w.dinv[i] = 1;
   }
   for (int i = t; i < neq; i += NT) {
-    v.b[i] = (R)gb[(size_t)prob * neq + i];
+    v.b[i] = gb[(size_t)prob * neq + i];
     v.bneg[i] = -v.b[i];
   }
   c.sync();
   fric::setup(D, w, c);
   c.sync();
 
-  fric::Inv<S, R> K;
+  fric::Inv<S, T> K;
   fric::factor(D, w, K, c);
   fric::solve_kkt(D, w, K, c, v.p, w.zero, v.hneg, v.bneg, v.x, v.s, v.z, v.y);
   // shift slacks and duals to >= 1 (batch.py:100-110)
   {
-    R mn[2] = {(R)INFINITY, (R)INFINITY};
+    T mn[2] = {(T)INFINITY, (T)INFINITY};
     for (int i = t; i < nineq; i += NT) {
       mn[0] = fmin(mn[0], v.s[i]);
       mn[1] = fmin(mn[1], v.z[i]);
     }
     c.reduce(mn, fric::Min());
     for (int i = t; i < nineq; i += NT) {
-      if (mn[0] < 0) v.s[i] = v.s[i] - mn[0] + (R)1;
-      if (mn[1] < 0) v.z[i] = v.z[i] - mn[1] + (R)1;
+      if (mn[0] < 0) v.s[i] = v.s[i] - mn[0] + (T)1;
+      if (mn[1] < 0) v.z[i] = v.z[i] - mn[1] + (T)1;
       v.bs[i] = v.s[i];
       v.bz[i] = v.z[i];
     }
@@ -203,7 +202,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
   }
   c.sync();
 
-  R bres = big_value<R>();
+  T bres = big_value<T>();
   int nni = 0;
   bool done = false;
   int done_it = max_iter;
@@ -211,7 +210,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
   int it = 0;
   while (it < max_iter && !done) {
     const int n0 = c.nsync;
-    R mu, res;
+    T mu, res;
     residuals(D, w, v, c, mu, res);
     const bool improved = res < bres;
     if (improved) {  // each thread copies the entries it owns
@@ -226,7 +225,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
     } else {
       nni += 1;
     }
-    const bool stop = (nni >= nil) || (bres < eps) || (mu > (R)1e32);
+    const bool stop = (nni >= nil) || (bres < eps) || (mu > (T)1e32);
 
     for (int i = t; i < nineq; i += NT) {
       w.d[i] = v.z[i] / v.s[i];
@@ -237,17 +236,17 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
     fric::solve_kkt(D, w, K, c, v.rx, v.z, v.rz, v.ry, v.dxa, v.dsa, v.dza, v.dya);
 
     // centering-corrector (batch.py:184-211)
-    R st[1] = {fmin(own_step(t, v.z, v.dza, nineq), own_step(t, v.s, v.dsa, nineq))};
+    T st[1] = {fmin(own_step(t, v.z, v.dza, nineq), own_step(t, v.s, v.dsa, nineq))};
     c.reduce(st, fric::Min());
-    R alpha = fmin(st[0], (R)1);
-    R nd[2] = {0, 0};
+    T alpha = fmin(st[0], (T)1);
+    T nd[2] = {0, 0};
     for (int i = t; i < nineq; i += NT) {
       nd[0] += (v.s[i] + alpha * v.dsa[i]) * (v.z[i] + alpha * v.dza[i]);
       nd[1] += v.s[i] * v.z[i];
     }
     c.reduce(nd, fric::Sum());
-    const R ratio = nd[0] / nd[1];
-    const R sig = ratio * ratio * ratio;
+    const T ratio = nd[0] / nd[1];
+    const T sig = ratio * ratio * ratio;
     for (int i = t; i < nineq; i += NT) v.rs[i] = (-(mu * sig) + v.dsa[i] * v.dza[i]) / v.s[i];
     c.sync();
     fric::solve_kkt(D, w, K, c, w.zero, v.rs, w.zero, w.zero, v.dxc, v.dsc, v.dzc, v.dyc);
@@ -260,7 +259,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
     for (int i = t; i < neq; i += NT) v.dya[i] += v.dyc[i];
     st[0] = fmin(own_step(t, v.z, v.dza, nineq), own_step(t, v.s, v.dsa, nineq));
     c.reduce(st, fric::Min());
-    alpha = fmin((R)0.999 * st[0], (R)1);
+    alpha = fmin((T)0.999 * st[0], (T)1);
 
     bool bad = false;
     for (int i = t; i < nz; i += NT) bad |= !isfinite(v.x[i] + alpha * v.dxa[i]);
@@ -286,7 +285,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) pdipm_fwd_kernel(
 
   // would the current iterate replace the best one? (final check / the
   // next iteration's check; the wrapper decides which applies)
-  R mu, res;
+  T mu, res;
   residuals(D, w, v, c, mu, res);
   T* best = out_sol + (size_t)prob * nsol;
   T* cur = out_sol + ((size_t)B + prob) * nsol;
@@ -319,12 +318,12 @@ int launch(const fric::Dims& dims, int B, int max_iter, int nil, double eps, con
            void* out_sol, void* out_int, void* stream) {
   return fric::with_shape(dims, [&](auto D) {
     using S = decltype(D);
-    const size_t bytes = smem_elems<S, R>(D) * sizeof(R);
+    const size_t bytes = smem_elems<S, T>(D) * sizeof(T);
     cudaError_t err = cudaFuncSetAttribute(pdipm_fwd_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            (int)bytes);
     if (err != cudaSuccess) return (int)err;
     pdipm_fwd_kernel<T, S><<<B, NT, bytes, (cudaStream_t)stream>>>(
-        D, max_iter, nil, (R)eps, (const T*)Q, (const T*)invQ, (const T*)G, (const T*)A, (const T*)F,
+        D, max_iter, nil, (T)eps, (const T*)Q, (const T*)invQ, (const T*)G, (const T*)A, (const T*)F,
         (const T*)p, (const T*)h, (const T*)b, (T*)out_sol, (int32_t*)out_int, B);
     return (int)cudaGetLastError();
   });
@@ -334,7 +333,7 @@ template <typename T>
 int info(const fric::Dims& dims, long long* out) {
   return fric::with_shape(dims, [&](auto D) {
     using S = decltype(D);
-    return fric::resources<S>(pdipm_fwd_kernel<T, S>, smem_elems<S, R>(D) * sizeof(R), out);
+    return fric::resources<S>(pdipm_fwd_kernel<T, S>, smem_elems<S, T>(D) * sizeof(T), out);
   });
 }
 

@@ -85,6 +85,7 @@ T __shfl_xor_sync(unsigned, T v, int o) {
 }
 
 inline double __drcp_rn(double x) { return 1.0 / x; }
+inline float __frcp_rn(float x) { return 1.0f / x; }
 
 template <typename T>
 T __ldg(const T* p) {
