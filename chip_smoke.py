@@ -399,7 +399,7 @@ def k3_cases(device, dtype):
         return quat_apply(q, bd.verts)[:, 1]
 
     cases = []
-    for R in (3, 6, 576):
+    for R in (3, 6, 9, 576):
         for tag, y0 in (("free", 0.8), ("touch", 0.5 + 1e-6), ("pen1e-3", 0.5 - 1e-3)):
             ps = ladder(R, y0, 2e-4)
             q = eye.expand(R, 4)
@@ -420,6 +420,11 @@ def k3_cases(device, dtype):
     return cases
 
 
+def fmt_k3_info(info):
+    return (f"{info['threads']} threads x {info['cluster']} CTAs per pose, {info['smem_bytes']} B shared, "
+            f"{info['regs']} registers, {info['spill_bytes']} B spilled, {info['blocks_per_sm']} CTAs/SM")
+
+
 def k3_flops(F, R, iters_run, polish):
     """FLOPs of the search: per face ~5 SDF queries at setup (~40 each),
     ~90 per FW iteration, ~200 per polish round and ~300 at the end."""
@@ -430,7 +435,7 @@ def k3_flops(F, R, iters_run, polish):
 def phase_k3():
     import torch
     from diffsdfsim_torch.config import SimConfig
-    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair, pack_inputs
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
     from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
 
     rows = {}
@@ -464,22 +469,27 @@ def phase_k3():
             allowed = int(mis_frac * out_k.cand.numel())
             line = (f"{tag}: max err {err:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}), "
                     f"mask mismatches {mis} (allowed {allowed}), cmask faces {int(out_k.cmask.sum())}")
-            if "R=576" in label or label.startswith(("floor->sphere touch R=3", "sphere->floor touch R=3")):
+            if "R=576" in label or any(label.startswith(f"{pair} touch R={R}") for pair in ("floor->sphere", "sphere->floor")
+                                       for R in (3, 9)):
                 R = q1.shape[0]
                 prep = fw_search_pair.prepare(bd1, q1, p1, bd2, q2, p2, cfg)
                 ms, how = device_ms(lambda: fw_search_pair.launch(prep), "fw_search_kernel")
                 wrapper_ms = cuda_ms(lambda: fw_search_pair(bd1, q1, p1, bd2, q2, p2, cfg))
                 plain_ms = cuda_ms(lambda: search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg), n=3, warm=1)
-                pqr, consts = pack_inputs(bd1, q1, p1, bd2, q2, p2)
-                nbytes = (pqr.numel() + consts.numel()) * pqr.element_size() + R * F * (
-                    13 * pqr.element_size() + 2) + R * pqr.element_size()
+                # each input read once (verts, faces, the poses, two constant
+                # blocks), each output written once
+                es = q1.element_size()
+                nbytes = (bd1.verts.numel() + 14 * R + 16) * es + 8 * bd1.faces_t.numel() + R * F * (
+                    13 * es + 2) + R * (es + 4)
                 flops = k3_flops(F, R, iters_run, cfg.contact_polish_iters if bd1.is_sdf else 0)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
                 ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
                 line += (f"; kernel {ms:.4f} ms ({how}; wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
-                         f"({'bytes' if bytes_ms > ops_ms else 'operations'})")
+                         f"({'bytes' if bytes_ms > ops_ms else 'operations'}), FW iterations per pose {sorted(set(iters_run.tolist()))}")
                 rows[(dtype, label)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                             bytes_ms=bytes_ms, ops_ms=ops_ms)
+                if label.endswith("R=3"):
+                    line += f"; {fmt_k3_info(fw_search_pair.info(bd1, bd2, dtype))}"
             print(line)
             check(errs["max_pen"] <= atol, f"{tag}: max_pen differs by {errs['max_pen']} (atol {atol})")
             if label.startswith(("floor->sphere", "sphere->floor")):
@@ -619,43 +629,71 @@ def igr_flops(params, n):
     return n * (2 * macs + 4 * acts)
 
 
-def phase_k4():
-    """K4 against implicit_net_apply at N = 100 (template projection),
-    2304 (a 3-rung Frank-Wolfe step over the 768-face floor) and 65536, at
-    the reference's width. Tolerance: 1e-12 (float64) and 1e-5 (float32)
-    relative to the largest value (the kernel sums each dot product in
-    input order, the plain version in cuBLAS's order)."""
+def fmt_k4_info(info):
+    return (f"{info['threads']} threads x cluster of {info['cluster']}, {info['tile']} points per cluster, "
+            f"{info['smem_bytes']} B shared per CTA, {info['regs']} registers, {info['spill_bytes']} B spilled, "
+            f"{info['blocks_per_sm']} CTAs/SM, {info['max_clusters']} clusters at once")
+
+
+def k4_case(params, n, rtol, tiles=(0,)):
+    """K4 at n points against implicit_net_apply (relative to the largest
+    value, tolerance rtol), with its device time at each tile in `tiles`
+    (0: the wrapper's choice by n), wrapper, plain and bound times. The
+    launches made here are comparisons, not the main path's."""
     import torch
     from diffsdfsim_torch.models.igr import implicit_net_apply
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
 
+    dtype = params.weights[0].dtype
+    rng = np.random.default_rng(n)
+    x = np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1.0, 1.0, (n, 3))], axis=1)
+    x = torch.tensor(x, dtype=dtype, device="cuda")
+    ref = implicit_net_apply(params, x)
+    errs, times = [], {}
+    for tile in tiles:
+        out = igr_mlp.run(params, x, tile)
+        torch.cuda.synchronize()
+        errs.append(float((out - ref).abs().max()))
+        times[tile], how = device_ms(lambda: igr_mlp.run(params, x, tile), "igr_mlp_kernel")
+    err = max(errs)
+    rel = err / float(ref.abs().max())
+    wrapper_ms = cuda_ms(lambda: igr_mlp(params, x))
+    plain_ms = cuda_ms(lambda: implicit_net_apply(params, x))
+    esize = x.element_size()
+    nbytes = (x.numel() + n + sum(t.numel() for t in params.weights + params.biases)) * esize
+    flops = igr_flops(params, n)
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_MATMUL_FLOPS[str(dtype).split(".")[1]] * 1e3
+    tag = f"K4 {str(dtype).split('.')[1]} N={n}"
+    tiles_s = ", ".join(f"tile {t} {ms:.4f}" for t, ms in times.items() if t)
+    print(f"{tag}: max abs err {err:.3e}, rel {rel:.3e} (tol {rtol:g}); kernel {times[0]:.4f} ms ({how}"
+          f"{'; ' + tiles_s if tiles_s else ''}) (wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+          f"bound {max(bytes_ms, ops_ms):.6f} ms ({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, "
+          f"{flops} FLOP); library: none")
+    check(rel <= rtol, f"{tag}: kernel differs from the plain version by {rel} (relative)")
+    return dict(err=err, ms=times[0], wrapper_ms=wrapper_ms, plain_ms=plain_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+K4_RTOL = {"float64": 1e-12, "float32": 1e-5}
+
+
+def phase_k4():
+    """K4 against implicit_net_apply at N = 100 (template projection),
+    2304 (a 3-rung Frank-Wolfe step over the 768-face floor) and 65536, at
+    the reference's width, each at 32 and 40 points per cluster besides the
+    wrapper's choice. Tolerance: 1e-12 (float64) and 1e-5 (float32)
+    relative to the largest value (the kernel sums each dot product in its
+    own order, the plain version in cuBLAS's)."""
+    import torch
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
     rows = {}
-    for dtype, rtol in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+    for dtype in (torch.float64, torch.float32):
         params = igr_net(dtype).params()
+        for tile in (32, 40):
+            print(f"K4 {str(dtype).split('.')[1]} resources, tile {tile}: {fmt_k4_info(igr_mlp.info(params, dtype, tile))}")
         for n in (100, 2304, 65536):
-            rng = np.random.default_rng(n)
-            x = np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1.0, 1.0, (n, 3))], axis=1)
-            x = torch.tensor(x, dtype=dtype, device="cuda")
-            out = igr_mlp.run(params, x)
-            ref = implicit_net_apply(params, x)
-            torch.cuda.synchronize()
-            err = float((out - ref).abs().max())
-            rel = err / float(ref.abs().max())
-            ms, how = device_ms(lambda: igr_mlp.run(params, x), "igr_mlp_kernel")
-            wrapper_ms = cuda_ms(lambda: igr_mlp(params, x))
-            plain_ms = cuda_ms(lambda: implicit_net_apply(params, x))
-            esize = x.element_size()
-            nbytes = (x.numel() + n + sum(t.numel() for t in params.weights + params.biases)) * esize
-            flops = igr_flops(params, n)
-            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-            ops_ms = flops / PEAK_MATMUL_FLOPS[str(dtype).split(".")[1]] * 1e3
-            tag = f"K4 {str(dtype).split('.')[1]} N={n}"
-            print(f"{tag}: max abs err {err:.3e}, rel {rel:.3e} (tol {rtol:g}); kernel {ms:.4f} ms ({how}) "
-                  f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
-                  f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP); library: none")
-            check(rel <= rtol, f"{tag}: kernel differs from the plain version by {rel} (relative)")
-            rows[(dtype, n)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                                    bytes_ms=bytes_ms, ops_ms=ops_ms)
+            rows[(dtype, n)] = k4_case(params, n, K4_RTOL[str(dtype).split(".")[1]], tiles=(0, 32, 40))
     return rows
 
 
@@ -1105,9 +1143,25 @@ def phase_latent_path():
     target, start, quat0 = (torch.tensor(golden[k], device="cuda") for k in ("target_latent", "start_latent", "quat0"))
 
     oss.simulate(target, quat0, net, dict(c, run_time=2 / 30.0), cfg, device="cuda")  # warm-up
-    reset_counts()
-    (_, traj), wall, syncs = synced(lambda: oss.simulate(target, quat0, net, c, cfg, device="cuda"))
-    launches = read_counts()
+    # record N of every K4 launch of the drop
+    from collections import Counter
+
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    sizes = Counter()
+    run = igr_mlp.run
+
+    def recording_run(params, x, tile=0):
+        sizes[x.shape[0]] += 1
+        return run(params, x, tile)
+
+    igr_mlp.run = recording_run
+    try:
+        reset_counts()
+        (_, traj), wall, syncs = synced(lambda: oss.simulate(target, quat0, net, c, cfg, device="cuda"))
+        launches = read_counts()
+    finally:
+        del igr_mlp.run
     check(launches["igr_mlp"] > 0 and launches["pdipm_fwd"] > 0 and launches["fw_search"] == 0,
           f"the latent forward must launch K4 and K1 and not K3: {launches}")
     check(traj.pos.grad_fn is None, "the latent forward recorded a tape with nothing requiring grad")
@@ -1117,6 +1171,10 @@ def phase_latent_path():
           f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads "
           f"({syncs / n_sub:.1f} per substep); launches {launches}; vs JAX golden "
           + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    mode_n = sizes.most_common(1)[0][0]
+    print(f"latent path, forward: K4 launches by N (N: launches) {dict(sorted(sizes.items()))}; most frequent N {mode_n}")
+    k4_case(net.params(), mode_n, K4_RTOL["float64"])
 
     reset_counts()
     out, fit_wall, fit_syncs = synced(lambda: oss.fit(net, target, start, quat0, c, cfg, device="cuda", max_iter=2))

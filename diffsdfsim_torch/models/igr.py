@@ -29,7 +29,7 @@ from typing import NamedTuple, Sequence
 import numpy as np
 import torch
 
-from ..config import default_dtype
+from ..config import default_dtype, resolve_device
 
 
 class ImplicitNetParams(NamedTuple):
@@ -132,7 +132,9 @@ class ImplicitNet(torch.nn.Module):
 
     @classmethod
     def from_arrays(cls, weights, biases, skip_in=(4,), beta: float = 100.0, dtype=None, device=None):
-        """A net holding the given per-layer (out, in) weights and biases."""
+        """A net holding the given per-layer (out, in) weights and biases, on
+        ``device`` (None: CUDA, raising without it; "cpu" for the plain path)."""
+        device = resolve_device(device)
         d_in = int(np.shape(weights[0])[1])
         dims = [int(np.shape(w)[0]) + (d_in if i + 1 in skip_in else 0) for i, w in enumerate(weights[:-1])]
         net = cls(d_in, dims, skip_in, beta=beta, dtype=dtype)
@@ -141,7 +143,7 @@ class ImplicitNet(torch.nn.Module):
                 lin = getattr(net, f"lin{i}")
                 lin.weight.copy_(torch.as_tensor(np.asarray(w)))
                 lin.bias.copy_(torch.as_tensor(np.asarray(b)))
-        return net.to(device) if device is not None else net
+        return net.to(device)
 
 
 def init_implicit_net(d_in: int, dims: Sequence[int] = (128,) * 8, skip_in: Sequence[int] = (4,),
@@ -247,8 +249,10 @@ def load_torch_checkpoint(model_path: str, latent_path: str, skip_in=(4,), dtype
     ``model_state_dict`` of ``lin{i}.weight/bias``, or its weight-norm form
     ``weight_g``/``weight_v``; ``LatentCodes/*.pth`` with ``latent_codes``).
 
-    Returns (ImplicitNet, latent_codes (n_shapes, L))."""
+    Both go to ``device`` (None: CUDA, raising without it; "cpu" for the
+    plain path). Returns (ImplicitNet, latent_codes (n_shapes, L))."""
     dtype = dtype or default_dtype()
+    device = resolve_device(device)
     sd = torch.load(model_path, map_location="cpu")["model_state_dict"]
     clean = {k.replace("module.", ""): v for k, v in sd.items()}
     ws, bs = [], []
@@ -279,7 +283,9 @@ def load_igr_experiment(experiment_dir: str, timestamp: str = "latest", checkpoi
     (``utils.py:286-327``): the latest timestamp directory, its exp.conf
     (skip_in) and the ModelParameters / LatentCodes checkpoints.
 
-    Returns (ImplicitNet, latent_codes, conf_dict)."""
+    On ``device`` as ``load_torch_checkpoint``. Returns (ImplicitNet,
+    latent_codes, conf_dict)."""
+    device = resolve_device(device)
     if timestamp == "latest":
         timestamps = sorted(os.listdir(experiment_dir))
         if not timestamps:

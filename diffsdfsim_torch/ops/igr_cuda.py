@@ -23,22 +23,46 @@ from torch.autograd.function import once_differentiable
 from ..models.igr import ImplicitNetParams, implicit_net_apply
 
 MAX_LAYERS = 32
+NS = 32  # output columns per CTA of a cluster (igr_mlp.cu NS)
+KC = 16  # inputs per weight chunk (igr_mlp.cu KC)
+MAX_WIDTH = 8 * NS  # widest hidden layer: a cluster has at most 8 CTAs
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
 
 
 def pack_params(params: ImplicitNetParams):
-    """The kernel's weight buffer: per layer W' (in, out) then b (out),
-    flattened; the per-layer (in, out, skip) dims and (w, b) offsets; and
-    the widest layer."""
+    """The kernel's weight buffer, its per-layer (in, out, skip) dims and
+    (w, b) offsets. A hidden layer's weight (out, in) is zero-padded to
+    (round_up(out, NS), round_up(in, KC)) and cut into chunks of NS output
+    rows by KC inputs, stored [rank][chunk][row][input]: the chunks CTA
+    ``rank`` of a cluster streams, in order, each contiguous. Its bias is
+    zero-padded to round_up(out, NS). The last layer (one output) is its
+    weight row zero-padded to round_up(in, KC), then its bias."""
     parts, dims, offs = [], [], []
     off = 0
+    n_layers = len(params.weights)
     for i, (w, b) in enumerate(zip(params.weights, params.biases)):
+        w, b = w.detach(), b.detach()
         n_out, n_in = w.shape
+        kp = _round_up(n_in, KC)
         dims += [n_in, n_out, int(i in params.skip_in)]
-        offs += [off, off + n_in * n_out]
-        parts += [w.detach().T.reshape(-1), b.detach().reshape(-1)]
-        off += n_in * n_out + n_out
-    max_w = max(max(w.shape) for w in params.weights)
-    return torch.cat(parts).contiguous(), np.asarray(dims, dtype=np.int32), np.asarray(offs, dtype=np.int64), max_w
+        if i < n_layers - 1:
+            np_ = _round_up(n_out, NS)
+            wp = torch.zeros((np_, kp), dtype=w.dtype, device=w.device)
+            wp[:n_out, :n_in] = w
+            tiles = wp.reshape(np_ // NS, NS, kp // KC, KC).permute(0, 2, 1, 3).reshape(-1)
+            bp = torch.zeros((np_,), dtype=b.dtype, device=b.device)
+            bp[:n_out] = b
+        else:
+            tiles = torch.zeros((kp,), dtype=w.dtype, device=w.device)
+            tiles[:n_in] = w[0]
+            bp = b.reshape(-1)
+        offs += [off, off + tiles.numel()]
+        parts += [tiles, bp]
+        off += tiles.numel() + bp.numel()
+    return torch.cat(parts).contiguous(), np.asarray(dims, dtype=np.int32), np.asarray(offs, dtype=np.int64)
 
 
 def check_params(params: ImplicitNetParams, x):
@@ -58,6 +82,8 @@ def check_params(params: ImplicitNetParams, x):
         if w.dtype != x.dtype or w.device != x.device:
             raise TypeError(f"IGR kernel: weights {w.dtype} on {w.device}, x {x.dtype} on {x.device}")
         width = w.shape[0]
+        if i < len(params.weights) - 1 and width > MAX_WIDTH:
+            raise ValueError(f"IGR kernel takes hidden layers up to {MAX_WIDTH} wide, layer {i} has {width}")
 
 
 class _IgrKernel:
@@ -66,16 +92,21 @@ class _IgrKernel:
     def __init__(self):
         self.launches = 0
         self._fn = None
+        self._info = None
         self._packed = {}  # (weight storage, version) -> packed buffer
 
     def _lib_fn(self):
         if self._fn is None:
             from ._build import load
 
-            fn = load("igr_mlp").igr_mlp
+            lib = load("igr_mlp")
+            fn = lib.igr_mlp
             fn.restype = ctypes.c_int
             fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 6
-            self._fn = fn
+            info = lib.igr_mlp_info
+            info.restype = ctypes.c_int
+            info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            self._fn, self._info = fn, info
         return self._fn
 
     def __call__(self, params: ImplicitNetParams, x):
@@ -94,15 +125,33 @@ class _IgrKernel:
             self._packed[key] = (tensors, pack_params(params))
         return self._packed[key][1]
 
-    def run(self, params: ImplicitNetParams, x):
-        """Validate, launch once on the current stream and return (N,)."""
+    def info(self, params: ImplicitNetParams, dtype, tile: int = 32):
+        """The launch's resources for this net: threads per CTA, cluster
+        size, shared bytes per CTA, registers and local (spill) bytes per
+        thread, CTAs per SM, points per cluster, clusters the card runs at
+        once."""
+        self._lib_fn()
+        _, dims, _ = pack_params(params)
+        out = (ctypes.c_longlong * 8)()
+        err = self._info(1 if dtype == torch.float64 else 0, tile, len(params.weights), params.d_in,
+                         dims.ctypes.data, ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"igr_mlp_info failed: CUDA error {err}")
+        keys = ("threads", "cluster", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm", "tile", "max_clusters")
+        return dict(zip(keys, out))
+
+    def run(self, params: ImplicitNetParams, x, tile: int = 0):
+        """Validate, launch once on the current stream and return (N,).
+        ``tile``: points per cluster, 32 or 40 (0: the kernel picks the one
+        that takes fewer waves of clusters at this N)."""
         check_params(params, x)
         x = x.detach().contiguous()
-        prm, dims, offs, max_w = self._pack(params)
-        out = torch.empty((x.shape[0],), dtype=x.dtype, device=x.device)
+        prm, dims, offs = self._pack(params)
+        n = x.shape[0]
+        out = torch.empty((n,), dtype=x.dtype, device=x.device)
         err = self._lib_fn()(
-            1 if x.dtype == torch.float64 else 0, x.shape[0], len(params.weights), params.d_in, max_w,
-            float(params.beta), dims.ctypes.data, offs.ctypes.data, x.data_ptr(), prm.data_ptr(),
+            1 if x.dtype == torch.float64 else 0, tile, n, len(params.weights),
+            params.d_in, float(params.beta), dims.ctypes.data, offs.ctypes.data, x.data_ptr(), prm.data_ptr(),
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )
         if err != 0:

@@ -1,13 +1,16 @@
-"""Run the K1 and K2 CUDA sources on the CPU, one OS thread per CUDA thread,
-and hold them against their plain PyTorch versions: a check of the kernels'
-indexing, barriers and arithmetic without a card (not of their speed, and
-not of what only the GPU compiler would refuse).
+"""Run the K1, K2, K3 and K4 CUDA sources on the CPU, one OS thread per CUDA
+thread, and hold them against their plain PyTorch versions: a check of the
+kernels' indexing, barriers, cluster exchanges and arithmetic without a card
+(not of their speed, not of the asynchrony of cp.async, and not of what only
+the GPU compiler would refuse).
 
     python tests/cuda_emu/emu_check.py
 
 or, case by case, ``pytest -m slow tests/test_torch_cuda_emu.py``. Each
 source is rewritten (``kernel<<<grid, block, bytes, stream>>>(...)``
-becomes ``emu::launch(grid, block, bytes, kernel, ...)``), compiled with g++
+becomes ``emu::launch(grid, block, bytes, kernel, ...)``, the dynamic shared
+memory each block's own buffer; a cluster launch goes through the stand-in's
+``cudaLaunchKernelEx``), compiled with g++
 (C++20) against ``tests/cuda_emu/cuda_runtime.h`` into a shared library with
 the same C interface, and called through the wrappers' ``prepare`` and
 ``finish`` on CPU tensors. Cases: the bench LCPs of ``chip_smoke.py`` at
@@ -17,7 +20,14 @@ included), float64 and float32. Tolerances as on the card: K1's residuals no
 worse than 10x the plain PDIPM's (float32: or than 1e-2) and, in float64,
 its x within 1e-8 of it; K2 within 1e-9 relative of
 ``kkt_grad_plain`` and of ``fric_reduced_solve`` (float64), 1e-4 of a
-float64 solve (float32). Takes about 20 s.
+float64 solve (float32). K4 (``K4_CASES``): nets whose clusters have 2, 3
+and 4 CTAs (the reference's (128,)*8 with its skip), 32 and 40 points per
+cluster, within 1e-12 (float64) and 1e-5 (float32) relative of
+``implicit_net_apply``. K3 (``K3_CASES``): the bench pairs at contact, a
+tilted box, the sphere on a cylinder (the 768-face floor's poses on
+clusters of 2 CTAs), and a 3072-face floor whose poses spread over clusters
+of 6 CTAs, held against ``search_pair_raw_plain`` as
+``chip_smoke.py`` holds them. Takes about 40 s.
 """
 
 import ctypes
@@ -40,11 +50,12 @@ from diffsdfsim_torch.ops.qp import (blockdiag_inv3, fric_reduced_solve, kkt_gra
                                      pdipm_solve_raw)
 
 LAUNCH = re.compile(r"(\w+<[^<>;]*>)<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*[^>]+>>>\(")
+SMEM = "extern __shared__ __align__(16) unsigned char smem_raw[];"
 
 
 def build(name, out_dir):
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
-    src = LAUNCH.sub(r"emu::launch(\2, \3, \4, \1, ", src)
+    src = LAUNCH.sub(r"emu::launch(\2, \3, \4, \1, ", src).replace(SMEM, "unsigned char* smem_raw = emu::smem();")
     path = os.path.join(out_dir, f"{name}.cpp")
     with open(path, "w") as f:
         f.write(src)
@@ -95,8 +106,8 @@ CASES = [("bench k=4", 3, 4, None), ("bench k=8", 2, 8, None), ("neq=3 k=2 fd=4"
 
 
 def build_libs(out_dir):
-    """Both kernels compiled for the CPU into out_dir."""
-    return {n: build(n, out_dir) for n in ("pdipm_fwd", "kkt_bwd")}
+    """The kernels compiled for the CPU into out_dir."""
+    return {n: build(n, out_dir) for n in ("pdipm_fwd", "kkt_bwd", "igr_mlp", "fw_search")}
 
 
 def check_case(libs, dtype, case):
@@ -158,13 +169,123 @@ def check_case(libs, dtype, case):
     return out
 
 
+# (label, hidden widths, skip layers, points, points per cluster): a cluster
+# of 2 CTAs with a partial last tile; 3 CTAs (an output count that is no
+# multiple of 32 and an uneven split of the last layer's rows) at 40 points
+# per cluster; the reference's (128,)*8 net with its skip at layer 4 (a
+# cluster of 4, layer 3's 123 outputs padded to 128) at 32 points per
+# cluster and at the kernel's own choice
+K4_CASES = [("K4 width 64 x 4", (64,) * 4, (2,), 40, 32), ("K4 width 90 x 3", (90,) * 3, (1,), 70, 40),
+            ("K4 reference net", (128,) * 8, (4,), 36, 32), ("K4 reference net, tile by waves", (128,) * 8, (4,), 45, 0)]
+
+
+def check_k4_case(libs, dtype, case):
+    """K4 on one net against implicit_net_apply: [(report line, passed)]."""
+    from diffsdfsim_torch.models.igr import implicit_net_apply, init_implicit_net
+    from diffsdfsim_torch.ops import igr_cuda
+
+    label, dims, skip_in, n, tile = case
+    rng = np.random.default_rng(len(dims) * 100 + n)
+    params = init_implicit_net(5, dims, skip_in, radius_init=0.55, generator=rng, dtype=dtype).params()
+    # the geometric init keeps the net near a sphere; perturb the biases so
+    # that softplus sees both of its branches
+    params = params._replace(biases=tuple(b + torch.tensor(rng.normal(size=b.shape) * 0.05, dtype=dtype)
+                                          for b in params.biases))
+    x = torch.tensor(np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1, 1, (n, 3))], 1), dtype=dtype)
+    prm, dims_a, offs = igr_cuda.pack_params(params)
+    out = torch.full((n,), float("nan"), dtype=dtype)
+    fn = libs["igr_mlp"].igr_mlp
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 6
+    err = fn(1 if dtype == torch.float64 else 0, tile, n, len(params.weights), 5, params.beta, dims_a.ctypes.data,
+             offs.ctypes.data, x.data_ptr(), prm.data_ptr(), out.data_ptr(), None)
+    assert err == 0, f"igr_mlp: error {err}"
+    ref = implicit_net_apply(params, x)
+    rel = float((out - ref).abs().max()) / float(ref.abs().max())
+    tol = 1e-12 if dtype == torch.float64 else 1e-5
+    return [(f"{label} {str(dtype)[6:]} N={n} tile {tile}: rel err {rel:.2e} (tol {tol:g})", rel <= tol)]
+
+
+# K3 cases: labels of chip_smoke.k3_cases (the bench pairs at contact, a
+# tilted box, the sphere on a cylinder), a coarse box 1-5 cm above the
+# sphere (several Frank-Wolfe iterations on a curved SDF), and a floor of
+# 3072 faces, which a pose spreads over a cluster of 6 CTAs
+K3_CASES = ["sphere->floor touch R=3", "floor->sphere pen1e-3 R=3", "box->floor tilted R=6", "sphere->cylinder R=6",
+            "box->sphere gap R=2", "floor3072->sphere touch R=2"]
+
+
+def k3_case(label, dtype):
+    """(bd1, bd2, q1, p1, q2, p2) of a K3 case, on the CPU."""
+    import chip_smoke
+    from diffsdfsim_torch.physics import BoxShape, make_body
+
+    if label.startswith("floor3072"):
+        floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=4, device="cpu", dtype=dtype)
+        _, sphere = chip_smoke.bench_bodies("cpu", dtype)
+        q = torch.tensor([[1.0, 0, 0, 0], [0.99, 0.1, 0.05, 0.0]], dtype=dtype)
+        q = q / q.norm(dim=-1, keepdim=True)
+        ps = torch.tensor([[0.0, 0.5 + 1e-6, 0.0], [0.01, 0.5 - 1e-3, 0.02]], dtype=dtype)
+        return floor, sphere, q[:1].expand(2, 4), torch.tensor([0.0, -0.5, 0.0], dtype=dtype).expand(2, 3), q, ps
+    if label.startswith("box->sphere"):
+        box = make_body(BoxShape(torch.tensor([0.6, 0.4, 0.5])), subdiv=1, device="cpu", dtype=dtype)
+        _, sphere = chip_smoke.bench_bodies("cpu", dtype)
+        q = torch.tensor([0.95, 0.2, 0.1, 0.05], dtype=dtype)
+        p1 = torch.tensor([[0.05, 0.71, 0.03], [0.0, 0.8, 0.0]], dtype=dtype)
+        eye = torch.tensor([1.0, 0, 0, 0], dtype=dtype).expand(2, 4)
+        return box, sphere, (q / q.norm()).expand(2, 4), p1, eye, torch.zeros((2, 3), dtype=dtype)
+    for case in chip_smoke.k3_cases("cpu", dtype):
+        if case[0] == label:
+            return case[1:]
+    raise KeyError(label)
+
+
+def check_k3_case(libs, dtype, label):
+    """K3 on one pair against search_pair_raw_plain: [(report line, passed)].
+    Tolerances as chip_smoke.py's: float64 1e-6 and no mask mismatch, float32
+    2e-3 and 0.5 % of the masks."""
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
+    import chip_smoke
+
+    f64 = dtype == torch.float64
+    cfg = SimConfig(**{**chip_smoke.BENCH_CFG, "tol": 1e-8 if f64 else 1e-5, "eps": 1e-3})
+    bd1, bd2, q1, p1, q2, p2 = k3_case(label, dtype)
+    args = fw_search_pair.prepare(bd1, q1, p1, bd2, q2, p2, cfg)
+    args["buf"].view(torch.uint8).fill_(0xFF)  # NaN bytes: an output the kernel misses shows
+    fn = libs["fw_search"].fw_search
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
+    err = fn(*args["dims"], *args["tols"], *args["ptrs"], None)
+    assert err == 0, f"fw_search: error {err}"
+    out_k = fw_search_pair.finish(args)
+    out_p = search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg)
+    mis = int((out_k.cand != out_p.cand).sum() + (out_k.cmask != out_p.cmask).sum())
+    both, agree = out_k.cmask & out_p.cmask, out_k.cand == out_p.cand
+    errs = {f: float((getattr(out_k, f) - getattr(out_p, f)).abs()[both].max()) if bool(both.any()) else 0.0
+            for f in ("n_ng", "p1_ng", "x1", "pen")}
+    errs["abc"] = float((out_k.abc - out_p.abc).abs()[agree].max()) if bool(agree.any()) else 0.0
+    same_inf = bool(torch.equal(torch.isfinite(out_k.max_pen), torch.isfinite(out_p.max_pen)))
+    fin = torch.isfinite(out_k.max_pen) & torch.isfinite(out_p.max_pen)
+    errs["max_pen"] = float((out_k.max_pen - out_p.max_pen).abs()[fin].max()) if bool(fin.any()) else 0.0
+    atol, allowed = (1e-6, 0) if f64 else (2e-3, int(0.005 * out_k.cand.numel()))
+    # as on the card: the bench pairs are held on every output, the other
+    # kinds on max_pen (exact-tie failsafe gradients, chip_smoke.phase_k3)
+    bench = label.startswith(("floor", "sphere->floor"))
+    ok = same_inf and errs["max_pen"] <= atol and (not bench or (mis <= allowed and max(errs.values()) <= atol))
+    return [(f"K3 {str(dtype)[6:]} {label}: errs " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+             + f", mask mismatches {mis} (allowed {allowed}), cmask faces {int(out_k.cmask.sum())}, "
+             f"FW iterations {fw_search_pair.last_iters.tolist()}", ok)]
+
+
 def main():
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libs(tmp)
         for dtype in (torch.float64, torch.float32):
-            for case in CASES:
-                for line, ok in check_case(libs, dtype, case):
+            for case in CASES + K4_CASES + K3_CASES:
+                check = check_k4_case if case in K4_CASES else check_k3_case if case in K3_CASES else check_case
+                for line, ok in check(libs, dtype, case):
                     print(f"{line}: {'ok' if ok else 'FAIL'}")
                     if not ok:
                         failures.append(line.split(":")[0])

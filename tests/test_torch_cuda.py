@@ -12,7 +12,8 @@ Shapes are the main path's: the bench scene's LCPs (nz 12, neq 6, k 4,
 fd 8) at D = 3 and 6 rungs and a 576-problem seed sweep (K1), 1, 6 and 576
 problems (K2), and the shape-space scene's k = 8 contact buffer (K1 at 4
 rungs, K2 at 1 problem); both bench directed pairs (768-face floor,
-320-face sphere) at three rung poses; float64. Tolerances: PDIPM x within
+320-face sphere) at three rung poses, and a 3072-face floor (K3 on a
+cluster per pose); float64. Tolerances: PDIPM x within
 1e-8 (Gauss-Jordan vs Cholesky rounding), KKT residuals no worse than 10x
 the plain version's; FW search outputs within 1e-9 and masks equal; the
 backward KKT solve within 1e-9 relative, of the plain version and of the
@@ -91,6 +92,38 @@ def test_fw_kernel_matches_plain(cuda, direction):
         assert float((out_k.max_pen - out_p.max_pen)[fin].abs().max()) <= 1e-9
 
 
+def test_fw_kernel_cluster_path(cuda):
+    """A 3072-face floor: each pose spreads over a cluster of CTAs with one
+    vote word in CTA 0; held against the plain version as above, also with
+    a pose tensor expanded from one row (stride 0) and at 512 faces per CTA."""
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.physics import BoxShape, SphereShape, make_body
+    from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
+
+    cfg = SimConfig(fric_dirs=8, max_contacts_per_pair=4, max_contacts_total=4, tol=1e-8)
+    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=4, device=cuda)
+    sphere = make_body(SphereShape(torch.tensor(0.5)), subdiv=2, device=cuda)
+    q = torch.tensor([[1.0, 0, 0, 0], [0.99, 0.1, 0.05, 0.0]], dtype=torch.float64, device=cuda)
+    q = q / q.norm(dim=-1, keepdim=True)
+    ps = torch.tensor([[0.0, 0.5 + 1e-6, 0.0], [0.01, 0.5 - 1e-3, 0.02]], dtype=torch.float64, device=cuda)
+    fp = torch.tensor([0.0, -0.5, 0.0], dtype=torch.float64, device=cuda).expand(2, 3)
+    for per_cta in (0, 512):
+        fw_search_pair.per_cta = per_cta
+        try:
+            out_k = fw_search_pair(floor, q[:1].expand(2, 4), fp, sphere, q, ps, cfg)
+        finally:
+            fw_search_pair.per_cta = 0
+        out_p = search_pair_raw_plain(floor, q[:1].expand(2, 4), fp, sphere, q, ps, cfg)
+        assert torch.equal(out_k.cmask, out_p.cmask) and torch.equal(out_k.cand, out_p.cand)
+        for name in ("abc", "n_ng", "p1_ng", "x1", "pen", "max_pen"):
+            a, b = getattr(out_k, name), getattr(out_p, name)
+            fin = torch.isfinite(b)
+            assert torch.equal(torch.isfinite(a), fin), name
+            if bool(fin.any()):
+                assert float((a - b)[fin].abs().max()) <= 1e-9, name
+
+
 def _kkt_inputs(cuda, k, B):
     """The backward's inputs at the plain solution of B bench LCPs with k
     contact slots: (Q^-1, G, A, F, d, rx)."""
@@ -165,10 +198,11 @@ def _igr_net(cuda, dtype=torch.float64):
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n", [1, 100, 2304])
+@pytest.mark.parametrize("n", [1, 100, 2304, 20000])
 def test_igr_kernel_matches_plain(cuda, dtype, rtol, n):
     """K4 against implicit_net_apply at the reference's width ((128,)*8,
-    skip at 4): relative to the largest value."""
+    skip at 4): relative to the largest value; 2304 points take 40 per
+    cluster, 20000 several waves."""
     from diffsdfsim_torch.models.igr import implicit_net_apply
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
 

@@ -1,7 +1,8 @@
-"""K1 and K2's CUDA sources run on the CPU (tests/cuda_emu: g++, one OS
-thread per CUDA thread) and held against their plain versions, case by case
-(see tests/cuda_emu/emu_check.py). Slow: it compiles both sources with g++
-and runs every CUDA thread of a block as an OS thread."""
+"""K1, K2, K3 and K4's CUDA sources run on the CPU (tests/cuda_emu: g++,
+one OS thread per CUDA thread, clusters, distributed shared memory and the
+DMMA fragment layout emulated) and held against their plain versions, case
+by case (see tests/cuda_emu/emu_check.py). Slow: it compiles the sources
+with g++ and runs every CUDA thread of a cluster as an OS thread."""
 
 import importlib.util
 import os
@@ -26,4 +27,18 @@ def libs(tmp_path_factory):
 @pytest.mark.parametrize("case", emu_check.CASES, ids=[c[0].replace(" ", "-") for c in emu_check.CASES])
 def test_kernels_match_plain_emulated(libs, case, dtype):
     for line, ok in emu_check.check_case(libs, dtype, case):
+        assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", emu_check.K4_CASES, ids=[c[0].replace(" ", "-") for c in emu_check.K4_CASES])
+def test_igr_kernel_matches_plain_emulated(libs, case, dtype):
+    for line, ok in emu_check.check_k4_case(libs, dtype, case):
+        assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", emu_check.K3_CASES, ids=[c.replace(" ", "-") for c in emu_check.K3_CASES])
+def test_fw_kernel_matches_plain_emulated(libs, case, dtype):
+    for line, ok in emu_check.check_k3_case(libs, dtype, case):
         assert ok, line

@@ -145,3 +145,62 @@ def test_hocon_lite_matches_jax():
     }
     """
     assert tigr._parse_hocon_lite(text) == jigr._parse_hocon_lite(text)
+
+
+def test_loaders_default_to_cuda(monkeypatch, tmp_path):
+    """The IGR loaders take device=None, meaning CUDA: without a card they
+    raise with resolve_device's message; device="cpu" builds the net and the
+    codes on the CPU."""
+    ws = [np.ones((4, 5)), np.ones((1, 4))]
+    bs = [np.zeros(4), np.zeros(1)]
+    mp, lp = tmp_path / "model.pth", tmp_path / "latent.pth"
+    torch.save({"model_state_dict": {f"lin{i}.{k}": torch.tensor(v) for i, (w, b) in enumerate(zip(ws, bs))
+                                     for k, v in (("weight", w), ("bias", b))}}, mp)
+    torch.save({"latent_codes": torch.zeros(3, 2, dtype=torch.float64)}, lp)
+    exp = tmp_path / "exp" / "2020_01_01"
+    (exp / "checkpoints" / "ModelParameters").mkdir(parents=True)
+    (exp / "checkpoints" / "LatentCodes").mkdir(parents=True)
+    (exp / "exp.conf").write_text("network { inputs { skip_in = [] } }")
+    (exp / "checkpoints" / "ModelParameters" / "latest.pth").write_bytes(mp.read_bytes())
+    (exp / "checkpoints" / "LatentCodes" / "latest.pth").write_bytes(lp.read_bytes())
+    calls = [lambda **kw: (tigr.ImplicitNet.from_arrays(ws, bs, skip_in=(), **kw), None),
+             lambda **kw: tigr.load_torch_checkpoint(str(mp), str(lp), skip_in=(), **kw),
+             lambda **kw: tigr.load_igr_experiment(str(tmp_path / "exp"), **kw)[:2]]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no CUDA device is available; pass device='cpu'"):
+            call()
+        net, codes = call(device="cpu")
+        assert net.lin0.weight.device.type == "cpu"
+        assert codes is None or codes.device.type == "cpu"
+
+
+def test_kernel_weight_layout_roundtrip(nets):
+    """K4's packed buffer (``igr_cuda.pack_params``: per hidden layer chunks
+    of NS output rows by KC inputs, stored [rank][chunk][row][input], zero
+    padded) unpacks exactly to the layers' weights and biases; the padding is
+    zero. Nets: the test width and the reference's (128,)*8 with its skip."""
+    from diffsdfsim_torch.ops import igr_cuda
+
+    ref = tigr.init_implicit_net(5, (128,) * 8, (4,), radius_init=0.55, generator=np.random.default_rng(1))
+    for p in (nets[0].params(), ref.params()):
+        prm, dims, offs = igr_cuda.pack_params(p)
+        n_layers = len(p.weights)
+        assert dims.reshape(n_layers, 3).tolist() == [[w.shape[1], w.shape[0], int(i in p.skip_in)]
+                                                      for i, w in enumerate(p.weights)]
+        for i, (w, b) in enumerate(zip(p.weights, p.biases)):
+            n_out, n_in = w.shape
+            kp = -(-n_in // igr_cuda.KC) * igr_cuda.KC
+            w_off, b_off = int(offs[2 * i]), int(offs[2 * i + 1])
+            if i < n_layers - 1:
+                np_ = -(-n_out // igr_cuda.NS) * igr_cuda.NS
+                tiles = prm[w_off:b_off].reshape(np_ // igr_cuda.NS, kp // igr_cuda.KC, igr_cuda.NS, igr_cuda.KC)
+                full = tiles.permute(0, 2, 1, 3).reshape(np_, kp)
+                bias = prm[b_off:b_off + np_]
+            else:
+                full = prm[w_off:b_off].reshape(1, kp)
+                bias = prm[b_off:b_off + 1]
+            assert torch.equal(full[:n_out, :n_in], w) and torch.equal(bias[:n_out], b)
+            assert not full[n_out:].any() and not full[:, n_in:].any() and not bias[n_out:].any()
+            assert w_off % 2 == 0 and b_off % 2 == 0  # 16-byte aligned chunks in float64
+        assert int(offs[-1]) + 1 == prm.numel()

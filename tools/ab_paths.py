@@ -9,7 +9,11 @@ commit). For each ROOT, in the order given, a fresh Python process imports
 that checkout's ``chip_smoke.py``, builds its kernels and runs its path
 phases with their checks: the bench forward rollout (``forward``), its
 gradient (``fwd_bwd``), the grid drop (``grid``), and the latent drop and
-fit (``latent``); ``--paths`` picks some, all by default. A root given
+fit (``latent``); ``--paths`` picks some, all by default. Besides the
+paths: ``k3`` and ``k4`` run the checkout's K3 and K4 kernel phases (their
+kernel and wrapper times go to the log), and ``digest`` prints the sha256 of
+the 100-frame bench trajectory and the repr of d loss / d rad at 20, 27 and
+100 frames, to tell whether two commits compute bitwise the same. A root given
 twice runs twice, so ``parent change change parent`` alternates the two.
 The processes' output goes to FILE (default ``chiprun_out/ab_paths.log``);
 the last line is one JSON object with each path's wall times in seconds,
@@ -32,9 +36,27 @@ import chip_smoke as cs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 cs.phase_device_and_build()
+
+
+def digest():
+    import hashlib
+    import numpy as np
+    spec, state, rollout = cs.run_rollout("cuda")
+    _, traj = rollout(spec, state, cs.N_FRAMES)
+    h = hashlib.sha256()
+    for v in traj:
+        h.update(np.ascontiguousarray(v.detach().cpu().numpy()).tobytes())
+    grads = []
+    for n in (20, 27, cs.N_FRAMES):
+        loss, rad, _ = cs.bench_loss("cuda", n)
+        loss.backward()
+        grads.append(repr(float(rad.grad)))
+    print(f"digest: trajectory sha256 {h.hexdigest()}; d loss / d rad at 20, 27, {cs.N_FRAMES} frames {' '.join(grads)}")
+
+
 for path in sys.argv[2].split(","):
     dict(forward=cs.phase_main_path, fwd_bwd=cs.phase_gradient, grid=cs.phase_grid_path,
-         latent=cs.phase_latent_path)[path]()
+         latent=cs.phase_latent_path, k3=cs.phase_k3, k4=cs.phase_k4, digest=digest)[path]()
 """
 
 # each path's wall time, as chip_smoke.py's path phases print it
@@ -72,7 +94,8 @@ def main(argv):
                 m = re.search(pat, proc.stdout, re.M)
                 if m:
                     walls[key] = float(m.group(1))
-            runs.append(dict(root=root, rc=proc.returncode, walls=walls))
+            m = re.search(r"^digest: (.*)$", proc.stdout, re.M)
+            runs.append(dict(root=root, rc=proc.returncode, walls=walls, **({"digest": m.group(1)} if m else {})))
             print(f"{root}: rc {proc.returncode}, walls (s) {walls}", flush=True)
     print(json.dumps({"runs": runs}))
     return 0 if all(r["rc"] == 0 for r in runs) else 1
