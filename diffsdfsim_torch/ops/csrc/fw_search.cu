@@ -1,4 +1,4 @@
-// K3: Frank-Wolfe contact search of one directed body pair, one block per pose.
+// K3: Frank-Wolfe contact search of one directed body pair at R poses.
 //
 // Replaces the Pallas TPU kernel diffsdfsim_tpu/ops/fw_pallas.py
 // `_make_kernel` (launched by `_fw_pallas_flat`, public `fw_search_pair`).
@@ -12,31 +12,51 @@
 //   - the push onto body 1's surface and, when body 1 is an SDF body, the
 //     contact-point polish (projected tangential descent, ops/polish.py);
 //   - the contact test, the no-grad contact quantities (world normal,
-//     world-oriented p1, penetration) and max_pen, a block reduction.
+//     world-oriented p1, penetration) and max_pen (-inf without a contact).
 //
-// Layout: block r handles pose r (one probe-ladder rung); threads run over
-// faces, looping when there are more faces than threads. Per-face FW state
-// lives in shared memory for the whole search; triangle corners are re-read
-// from device memory (L1-resident). Shape kinds are template parameters.
+// It forms its own inputs: from body 1's vertices and faces, the R poses
+// (q1, pos1, q2, pos2, any strides) and a small constant block per body
+// (scale and kind parameters, built once per body by the wrapper) it
+// computes each face's corners in body 2's frame and the frames R1, R2,
+// d21, formula for formula as utils/quaternion.py's quat_apply, quat_invert
+// and quat_to_matrix run on the card (each tensor op rounded on its own;
+// `cornered` below), so the outputs are those of the plain glue's inputs.
+//
+// Layout: one face per thread. The R F faces are spread over the card's
+// SMs, 64 to 256 a CTA (at most 512): a pose takes a thread-block cluster
+// of up to 16 CTAs (MAX_FACES = 8192; at the bench's R = 3 the sphere's 320
+// faces take 5 CTAs, the floor's 768 faces 12). Each thread keeps its
+// face's corners, Frank-Wolfe point and barycentrics in registers for the
+// whole search. A Frank-Wolfe iteration ends in one barrier: each warp ORs
+// "penetration found" and "still improving" into a flag word (a ring of
+// three, so no second barrier clears it; in CTA 0's shared memory), and
+// every thread then updates its own face. A non-candidate face skips the
+// polish rounds, which would change none of its outputs.
 //
 // What bounds it on an H100: latency. One launch reads 9 corners per face
-// (55 KB in float64 for the 768-face floor) and does ~40 iterations of a few
-// hundred FLOPs per face: microseconds of FLOPs and bytes, so the serial FW
-// iterations, each ending in a block-wide vote, dominate. The design keeps
-// the whole search in one launch per pair and stage (all rungs as blocks),
-// lets a search stop at the vote as soon as its pair stops, and skips the
-// polish rounds entirely for a pose without candidates.
+// and does ~40 iterations of a few hundred FLOPs per face: microseconds of
+// FLOPs and bytes. The critical path is one candidate face's chain: the
+// 10 polish rounds, each two SDF queries and a tangent step, ~20 dependent
+// float64 square roots and divisions (~5,500 cycles a round on an H100,
+// measured with clock64), which the rule "same arithmetic as the plain
+// version" keeps. The design takes everything else off that path (no host
+// glue, one barrier per vote, the frames formed while the vertices load)
+// and runs all rungs of a pair and stage in one launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
-#include <cuda_runtime.h>
+#include <cooperative_groups.h>
 #include <math.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int NCONST = 32;
-constexpr int MAX_THREADS = 512;
+constexpr int NBODY = 8;  // per-body constants: scale, prm[4], padding
+constexpr int MAX_THREADS = 512;  // up to 128 registers a thread
+constexpr int MAX_CS = 16;        // MAX_FACES = 8192; past 8 CTAs a non-portable cluster size
+constexpr int NUM_SMS = 132;  // H100 SXM
 constexpr int KIND_NONE = -1, KIND_SPHERE = 0, KIND_BOX = 1, KIND_ROUNDED_BOX = 2,
               KIND_CYLINDER = 3, KIND_BRICK = 4;
 
@@ -121,9 +141,80 @@ __device__ T query(T scale, const T* prm, T x, T y, T z, T* g) {
   return (ov ? sdf_n : (T)1) * scale;
 }
 
+// ---------------------------------------------------------------- poses and corners
+
+// correctly rounded operations, never contracted into an FMA: each stands
+// for one tensor op of utils/quaternion.py
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+
+// q / |q| for a wxyz quaternion at stride s. torch.linalg.norm over the 4
+// components on the card sums (q0^2 + q2^2) + (q1^2 + q3^2), each pair as
+// one FMA onto the rounded first square (matched bitwise on an H100)
+template <typename T>
+__device__ void quat_normalize(const T* q, long long s, T* out) {
+  const T a = q[0], b = q[s], c = q[2 * s], d = q[3 * s];
+  const T n2 = add_rn(fma(c, c, mul_rn(a, a)), fma(d, d, mul_rn(b, b)));
+  const T n = sqrt(n2);
+  out[0] = div_rn(a, n);
+  out[1] = div_rn(b, n);
+  out[2] = div_rn(c, n);
+  out[3] = div_rn(d, n);
+}
+
+// one component of a x b, a1 b2 - a2 b1, as torch.linalg.cross's kernel
+// rounds it: the second product rounded, the first fused into the subtraction
+template <typename T>
+__device__ __forceinline__ T cross_c(T a1, T b2, T a2, T b1) {
+  return fma(a1, b2, -mul_rn(a2, b1));
+}
+
+// quat_apply(q, p) = p + 2 (w (u x p) + u x (u x p)) for a normalized q
+template <typename T>
+__device__ void quat_apply(const T* q, const T* p, T* out) {
+  const T u[3] = {q[1], q[2], q[3]};
+  T uv[3], uuv[3];
+  uv[0] = cross_c(u[1], p[2], u[2], p[1]);
+  uv[1] = cross_c(u[2], p[0], u[0], p[2]);
+  uv[2] = cross_c(u[0], p[1], u[1], p[0]);
+  uuv[0] = cross_c(u[1], uv[2], u[2], uv[1]);
+  uuv[1] = cross_c(u[2], uv[0], u[0], uv[2]);
+  uuv[2] = cross_c(u[0], uv[1], u[1], uv[0]);
+  for (int c = 0; c < 3; ++c) out[c] = add_rn(p[c], mul_rn((T)2, add_rn(mul_rn(q[0], uv[c]), uuv[c])));
+}
+
+// quat_to_matrix of a normalized q, row-major
+template <typename T>
+__device__ void quat_to_matrix(const T* q, T* R) {
+  const T w = q[0], x = q[1], y = q[2], z = q[3], two = 2;
+  R[0] = sub_rn((T)1, mul_rn(two, add_rn(mul_rn(y, y), mul_rn(z, z))));
+  R[1] = mul_rn(two, sub_rn(mul_rn(x, y), mul_rn(w, z)));
+  R[2] = mul_rn(two, add_rn(mul_rn(x, z), mul_rn(w, y)));
+  R[3] = mul_rn(two, add_rn(mul_rn(x, y), mul_rn(w, z)));
+  R[4] = sub_rn((T)1, mul_rn(two, add_rn(mul_rn(x, x), mul_rn(z, z))));
+  R[5] = mul_rn(two, sub_rn(mul_rn(y, z), mul_rn(w, x)));
+  R[6] = mul_rn(two, sub_rn(mul_rn(x, z), mul_rn(w, y)));
+  R[7] = mul_rn(two, add_rn(mul_rn(y, z), mul_rn(w, x)));
+  R[8] = sub_rn((T)1, mul_rn(two, add_rn(mul_rn(x, x), mul_rn(y, y))));
+}
+
+// the R poses: pointer and (row, component) strides of each, in elements
+template <typename T>
+struct Poses {
+  const T *q1, *pos1, *q2, *pos2;
+  long long s[8];
+};
+
+// one pose's frames and normalized quaternions, formed once per CTA
 template <typename T>
 struct Frames {
-  T R1[9], R2[9], d21[3], R12[3][3], t12[3];
+  T R1[9], R2[9], d21[3], R12[3][3], t12[3], q1n[4], q2in[4];
   __device__ void to_b1(const T* x, T* out) const {
     for (int i = 0; i < 3; ++i) out[i] = R12[i][0] * x[0] + R12[i][1] * x[1] + R12[i][2] * x[2] + t12[i];
   }
@@ -137,122 +228,174 @@ struct Frames {
 };
 
 template <typename T>
-__device__ T block_max(T v, T* red) {
-  for (int o = 16; o > 0; o >>= 1) v = fmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nw = (blockDim.x + 31) / 32;
-  T out = red[0];
-  for (int i = 1; i < nw; ++i) out = fmax(out, red[i]);
-  return out;
-}
-
-template <typename T, int K1, int K2>
-__global__ void __launch_bounds__(MAX_THREADS)
-fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __restrict__ pqr,
-                 const T* __restrict__ consts, T* abc_out, T* nrm_out, T* p1_out, T* x1_out,
-                 T* pen_out, uint8_t* cand_out, uint8_t* cmask_out, T* mp_out, int32_t* iters_out) {
-  constexpr bool b1_sdf = K1 != KIND_NONE;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __shared__ T red[MAX_THREADS / 32];
-  T* sx = reinterpret_cast<T*>(smem_raw);  // FW point (3F), bary (3F), circumradius, step
-  T* sa = sx + 3 * F;
-  T* srad = sa + 3 * F;
-  T* sgam = srad + F;
-  uint8_t* scand = reinterpret_cast<uint8_t*>(sgam + F);
-  uint8_t* sidx = scand + F;
-
-  const int r = blockIdx.x;
-  const T* P = pqr + (size_t)r * 9 * F;  // corner v, component c of face f: P[(3v+c)F + f]
-  const T* C = consts + (size_t)r * NCONST;
-  Frames<T> fr;
-  for (int i = 0; i < 9; ++i) {
-    fr.R1[i] = C[i];
-    fr.R2[i] = C[9 + i];
-  }
-  for (int i = 0; i < 3; ++i) fr.d21[i] = C[18 + i];
-  const T s1 = C[21], s2 = C[22];
-  T prm1[4], prm2[4];
-  for (int i = 0; i < 4; ++i) {
-    prm1[i] = C[24 + i];
-    prm2[i] = C[28 + i];
-  }
+__device__ void make_frames(const Poses<T>& P, int r, Frames<T>& fr) {
+  const T* q1 = P.q1 + r * P.s[0];
+  const T* p1 = P.pos1 + r * P.s[2];
+  const T* q2 = P.q2 + r * P.s[4];
+  const T* p2 = P.pos2 + r * P.s[6];
+  T q2n[4];
+  quat_normalize(q1, P.s[1], fr.q1n);
+  quat_normalize(q2, P.s[5], q2n);
+  quat_to_matrix(fr.q1n, fr.R1);
+  quat_to_matrix(q2n, fr.R2);
+  // quat_invert then normalize: the norm of the conjugate is the norm of q2
+  fr.q2in[0] = q2n[0];
+  for (int i = 1; i < 4; ++i) fr.q2in[i] = -q2n[i];
+  for (int i = 0; i < 3; ++i) fr.d21[i] = sub_rn(p2[i * P.s[7]], p1[i * P.s[3]]);
   // R12 = R1' R2 (body-2 local -> body-1 local), t12 = R1' (p2 - p1)
   for (int i = 0; i < 3; ++i) {
     for (int j = 0; j < 3; ++j)
       fr.R12[i][j] = fr.R1[i] * fr.R2[j] + fr.R1[3 + i] * fr.R2[3 + j] + fr.R1[6 + i] * fr.R2[6 + j];
     fr.t12[i] = fr.R1[i] * fr.d21[0] + fr.R1[3 + i] * fr.d21[1] + fr.R1[6 + i] * fr.d21[2];
   }
+}
 
-  // candidate gate + min-corner init
-  int any_local = 0;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    T p[3][3];
-    for (int v = 0; v < 3; ++v)
-      for (int c = 0; c < 3; ++c) p[v][c] = P[(3 * v + c) * F + f];
+// a vertex of body 1 in body 2's frame: quat_apply(q2^-1, quat_apply(q1, v) + pos1 - pos2)
+template <typename T>
+__device__ void cornered(const Poses<T>& P, int r, const Frames<T>& fr, const T* v, T* out) {
+  T w[3];
+  quat_apply(fr.q1n, v, w);
+  const T* p1 = P.pos1 + r * P.s[2];
+  const T* p2 = P.pos2 + r * P.s[6];
+  for (int c = 0; c < 3; ++c) w[c] = sub_rn(add_rn(w[c], p1[c * P.s[3]]), p2[c * P.s[7]]);
+  quat_apply(fr.q2in, w, out);
+}
+
+// ---------------------------------------------------------------- votes
+
+// OR of `bits` over the pose's threads (its CTA or cluster), at one barrier:
+// warps OR into flag word n % 3 (in CTA 0), CTA 0's thread 0 clears the word
+// of the next vote before the barrier (the word of two votes ago, which
+// every thread has read before it reached the last barrier)
+struct Vote {
+  int* flags;  // CTA 0's three flag words
+  int n, cs;
+  bool lead;
+  __device__ int operator()(int bits, const cg::cluster_group& cluster) {
+    const int slot = n % 3;
+    bits = (int)__reduce_or_sync(0xffffffffu, (unsigned)bits);
+    if ((threadIdx.x & 31) == 0 && bits) atomicOr(&flags[slot], bits);
+    if (lead) flags[(slot + 1) % 3] = 0;
+    if (cs > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+    ++n;
+    return flags[slot];
+  }
+};
+
+constexpr int VOTE_PEN = 1, VOTE_IMPROVING = 2;
+
+// ---------------------------------------------------------------- the kernel
+
+template <typename T>
+struct Outs {
+  T *abc, *nrm, *p1, *x1, *pen, *mp;
+  uint8_t *cand, *cmask;
+  int32_t* iters;
+};
+
+template <typename T>
+__device__ __forceinline__ T pick(int m, T a, T b, T c) {
+  return m == 0 ? a : (m == 1 ? b : c);
+}
+
+template <typename T, int K1, int K2>
+__global__ void __launch_bounds__(MAX_THREADS)
+fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __restrict__ verts,
+                 const int64_t* __restrict__ faces, Poses<T> P, const T* __restrict__ c1,
+                 const T* __restrict__ c2, Outs<T> O) {
+  constexpr bool b1_sdf = K1 != KIND_NONE;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
+  const int r = blockIdx.x / cs;
+  const int f = rank * blockDim.x + threadIdx.x;
+  const bool has_face = f < F;
+  Frames<T>& fr = *reinterpret_cast<Frames<T>*>(smem_raw);
+  T* red = reinterpret_cast<T*>(smem_raw + (sizeof(Frames<T>) + 15) / 16 * 16);  // cs x 32 warp maxima
+  int* flags_local = reinterpret_cast<int*>(red + MAX_CS * 32);
+  Vote vote{cs > 1 ? cluster.map_shared_rank(flags_local, 0) : flags_local, 0, cs,
+            rank == 0 && threadIdx.x == 0};
+
+  // the face's vertices (body 1's frame), loaded while thread 0 forms the frames
+  T vtx[3][3];
+  if (has_face)
+    for (int v = 0; v < 3; ++v) {
+      const T* src = verts + 3 * faces[3 * f + v];
+      for (int c = 0; c < 3; ++c) vtx[v][c] = src[c];
+    }
+  if (threadIdx.x == 0) {
+    make_frames(P, r, fr);
+    if (rank == 0)
+      for (int i = 0; i < 3; ++i) flags_local[i] = 0;
+  }
+  if (cs > 1)
+    cluster.sync();  // also: every CTA of the cluster has started before one touches another's memory
+  else
+    __syncthreads();
+
+  const T s1 = b1_sdf ? c1[0] : (T)1, s2 = c2[0];
+  T prm1[4], prm2[4];
+  for (int i = 0; i < 4; ++i) {
+    prm1[i] = b1_sdf ? c1[1 + i] : (T)0;
+    prm2[i] = c2[1 + i];
+  }
+
+  // corners, candidate gate + min-corner init
+  T p[3][3], x[3], a[3], rad = 0;
+  bool cand = false;
+  if (has_face) {
+    for (int v = 0; v < 3; ++v) cornered(P, r, fr, vtx[v], p[v]);
     T cen[3], g[3];
     for (int c = 0; c < 3; ++c) cen[c] = (p[0][c] + p[1][c] + p[2][c]) / (T)3;
     const T csdf = query<T, K2>(s2, prm2, cen[0], cen[1], cen[2], g);
-    T rad = 0;
     for (int v = 0; v < 3; ++v) rad = fmax(rad, norm3(cen[0] - p[v][0], cen[1] - p[v][1], cen[2] - p[v][2]));
-    const bool cand = csdf < rad + eps && sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]) > (T)1e-12;
-    T cs[3];
-    for (int v = 0; v < 3; ++v) cs[v] = query<T, K2>(s2, prm2, p[v][0], p[v][1], p[v][2], nullptr);
-    const int i0 = (cs[0] <= cs[1] && cs[0] <= cs[2]) ? 0 : (cs[1] <= cs[2] ? 1 : 2);
+    cand = csdf < rad + eps && sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]) > (T)1e-12;
+    T cs3[3];
+    for (int v = 0; v < 3; ++v) cs3[v] = query<T, K2>(s2, prm2, p[v][0], p[v][1], p[v][2], nullptr);
+    const int i0 = (cs3[0] <= cs3[1] && cs3[0] <= cs3[2]) ? 0 : (cs3[1] <= cs3[2] ? 1 : 2);
     for (int c = 0; c < 3; ++c) {
-      sx[c * F + f] = p[i0][c];
-      sa[c * F + f] = i0 == c ? (T)1 : (T)0;
+      x[c] = pick(i0, p[0][c], p[1][c], p[2][c]);
+      a[c] = i0 == c ? (T)1 : (T)0;
     }
-    srad[f] = rad;
-    scand[f] = cand;
-    any_local |= cand;
   }
-  const int any_cand = __syncthreads_or(any_local);
+  const bool any_cand = vote(cand ? 1 : 0, cluster) != 0;
 
   // Frank-Wolfe loop (contacts.py:63-82): per-face LMO step, stopped for the
   // whole pair when no face improves or a penetration is found
   int it = 0, evaluated = 0;
   for (; any_cand && it < iters; ++it) {
     evaluated = it + 1;
-    int pen_found = 0, improving = 0;
-    const T gamma = (T)2 / ((T)it + (T)2);
-    for (int f = threadIdx.x; f < F; f += blockDim.x) {
-      const T x[3] = {sx[f], sx[F + f], sx[2 * F + f]};
+    int bits = 0, m = 0;
+    T gam = 0;
+    if (has_face) {
+      const T gamma = (T)2 / ((T)it + (T)2);
       T g[3];
       const T sdf = query<T, K2>(s2, prm2, x[0], x[1], x[2], g);
       T dv[3];
-      for (int v = 0; v < 3; ++v)
-        dv[v] = P[(3 * v) * F + f] * g[0] + P[(3 * v + 1) * F + f] * g[1] + P[(3 * v + 2) * F + f] * g[2];
-      const int m = (dv[0] <= dv[1] && dv[0] <= dv[2]) ? 0 : (dv[1] <= dv[2] ? 1 : 2);
+      for (int v = 0; v < 3; ++v) dv[v] = p[v][0] * g[0] + p[v][1] * g[1] + p[v][2] * g[2];
+      m = (dv[0] <= dv[1] && dv[0] <= dv[2]) ? 0 : (dv[1] <= dv[2] ? 1 : 2);
       T impr = 0;
-      for (int c = 0; c < 3; ++c) impr += (x[c] - P[(3 * m + c) * F + f]) * g[c];
-      const bool cand = scand[f];
-      const T gam = (cand && fabs(impr) > tol) ? gamma : (T)0;
-      sgam[f] = gam;
-      sidx[f] = (uint8_t)m;
-      pen_found |= cand && sdf < -tol;
-      improving |= gam != (T)0;
+      for (int c = 0; c < 3; ++c) impr += (x[c] - pick(m, p[0][c], p[1][c], p[2][c])) * g[c];
+      gam = (cand && fabs(impr) > tol) ? gamma : (T)0;
+      bits = (cand && sdf < -tol ? VOTE_PEN : 0) | (gam != (T)0 ? VOTE_IMPROVING : 0);
     }
-    pen_found = __syncthreads_or(pen_found);
-    improving = __syncthreads_or(improving);
-    if (pen_found || !improving) break;
-    for (int f = threadIdx.x; f < F; f += blockDim.x) {
-      const T ge = sgam[f];
-      const int m = sidx[f];
+    bits = vote(bits, cluster);
+    if ((bits & VOTE_PEN) || !(bits & VOTE_IMPROVING)) break;
+    if (has_face) {
       for (int c = 0; c < 3; ++c) {
-        sx[c * F + f] = ((T)1 - ge) * sx[c * F + f] + ge * P[(3 * m + c) * F + f];
-        sa[c * F + f] = sa[c * F + f] * ((T)1 - ge) + ge * (m == c ? (T)1 : (T)0);
+        x[c] = ((T)1 - gam) * x[c] + gam * pick(m, p[0][c], p[1][c], p[2][c]);
+        a[c] = a[c] * ((T)1 - gam) + gam * (m == c ? (T)1 : (T)0);
       }
     }
   }
 
   // push, polish, contact test, contact quantities (per face)
-  T local_max = (T)-3e38;
+  T local_max = -(T)INFINITY;
   const bool polish = b1_sdf && polish_iters > 0;
-  for (int f = threadIdx.x; f < F; f += blockDim.x) {
-    const T x[3] = {sx[f], sx[F + f], sx[2 * F + f]};
-    const bool cand = scand[f];
+  if (has_face) {
     T xf[3] = {x[0], x[1], x[2]};
     T g[3], tmp[3], tmp2[3];
     if (b1_sdf) {
@@ -271,14 +414,15 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
       T bs2 = query<T, K2>(s2, prm2, tmp[0], tmp[1], tmp[2], nullptr);
       T px[3] = {xf[0], xf[1], xf[2]};
       T eta_f = 1;
-      for (int k = 0; any_cand && k < polish_iters; ++k) {
+      // a non-candidate face's rounds change neither bx nor bs2: skip them
+      for (int k = 0; cand && k < polish_iters; ++k) {
         T x1c[3], g1[3], x1p[3], xp[3], g2[3], n1[3];
         fr.to_b1(px, x1c);
         const T s1v = query<T, K1>(s1, prm1, x1c[0], x1c[1], x1c[2], g1);
         for (int c = 0; c < 3; ++c) x1p[c] = x1c[c] - s1v * g1[c];
         fr.to_b2(x1p, xp);
         const T s2v = query<T, K2>(s2, prm2, xp[0], xp[1], xp[2], g2);
-        if (cand && s2v < bs2) {
+        if (s2v < bs2) {
           for (int c = 0; c < 3; ++c) bx[c] = x1p[c];
           bs2 = s2v;
         }
@@ -287,9 +431,8 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
         T t[3];
         for (int c = 0; c < 3; ++c) t[c] = g2[c] - dt * n1[c];
         const T tl = norm3(t[0], t[1], t[2]);
-        const T eta = srad[f] * eta_f;
-        if (cand)
-          for (int c = 0; c < 3; ++c) px[c] = xp[c] - eta * (t[c] / tl);
+        const T eta = rad * eta_f;
+        for (int c = 0; c < 3; ++c) px[c] = xp[c] - eta * (t[c] / tl);
         eta_f = eta_f * (T)0.5;
       }
       fsdf = bs2;
@@ -316,69 +459,152 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
     const size_t o3 = (size_t)r * 3 * F, o1 = (size_t)r * F;
     for (int c = 0; c < 3; ++c) {
       // a pose without any candidate reports all zeros (contacts.py:292-301)
-      abc_out[o3 + c * F + f] = any_cand ? sa[c * F + f] : (T)0;
-      nrm_out[o3 + c * F + f] = cmask ? nrm[c] : (T)0;
-      p1_out[o3 + c * F + f] = cmask ? p1w[c] : (T)0;
-      x1_out[o3 + c * F + f] = (polish && any_cand) ? bx[c] : (T)0;
+      O.abc[o3 + c * F + f] = any_cand ? a[c] : (T)0;
+      O.nrm[o3 + c * F + f] = cmask ? nrm[c] : (T)0;
+      O.p1[o3 + c * F + f] = cmask ? p1w[c] : (T)0;
+      O.x1[o3 + c * F + f] = (polish && any_cand) ? bx[c] : (T)0;
     }
-    pen_out[o1 + f] = cmask ? pen : (T)-1;
-    cand_out[o1 + f] = cand;
-    cmask_out[o1 + f] = cmask;
+    O.pen[o1 + f] = cmask ? pen : (T)-1;
+    O.cand[o1 + f] = cand;
+    O.cmask[o1 + f] = cmask;
     if (cmask) local_max = fmax(local_max, pen);
   }
-  const T mp = block_max(local_max, red);
-  if (threadIdx.x == 0) {
-    mp_out[r] = mp;
-    iters_out[r] = evaluated;  // FW iterations evaluated (for the bound in chip_smoke.py)
+
+  // max_pen: warp maxima into CTA 0, one barrier, CTA 0's thread 0 reduces
+  for (int o = 16; o > 0; o >>= 1) local_max = fmax(local_max, __shfl_xor_sync(0xffffffffu, local_max, o));
+  const int nw = blockDim.x / 32;
+  T* red0 = cs > 1 ? cluster.map_shared_rank(red, 0) : red;
+  if ((threadIdx.x & 31) == 0) red0[rank * nw + threadIdx.x / 32] = local_max;
+  if (cs > 1)
+    cluster.sync();
+  else
+    __syncthreads();
+  if (rank == 0 && threadIdx.x == 0) {
+    T mp = red[0];
+    for (int i = 1; i < cs * nw; ++i) mp = fmax(mp, red[i]);
+    O.mp[r] = mp;
+    O.iters[r] = evaluated;  // FW iterations evaluated (for the bound in chip_smoke.py)
   }
 }
 
+// ---------------------------------------------------------------- launch
+
 template <typename T>
-size_t smem_bytes(int F) { return (size_t)F * (8 * sizeof(T) + 2); }
+size_t smem_bytes() {
+  return (sizeof(Frames<T>) + 15) / 16 * 16 + MAX_CS * 32 * sizeof(T) + 3 * sizeof(int);
+}
+
+// threads per CTA and CTAs per pose for R poses of F faces, at most
+// `per_cta` faces per CTA (0: spread the R F faces over the card's SMs,
+// between 64 and 256 a CTA) and MAX_THREADS
+void geometry(int R, int F, int per_cta, int& threads, int& cs) {
+  if (per_cta <= 0) {
+    const long long share = ((long long)R * F + NUM_SMS - 1) / NUM_SMS;
+    per_cta = share < 64 ? 64 : (share > 256 ? 256 : (int)share);
+  }
+  per_cta = per_cta < MAX_THREADS ? per_cta : MAX_THREADS;
+  cs = (F + per_cta - 1) / per_cta;
+  cs = cs > MAX_CS ? MAX_CS : cs;
+  threads = ((F + cs - 1) / cs + 31) / 32 * 32;
+}
+
+// the output buffer: abc, normal, p1, x1 (R, 3, F), pen (R, F), max_pen (R,)
+// in T; then, 16-byte aligned, cand and cmask (R, F) bytes; then, 4-byte
+// aligned, the FW iterations run (R,) int32
+template <typename T>
+Outs<T> out_views(void* buf, int R, int F) {
+  Outs<T> o;
+  T* t = (T*)buf;
+  const size_t n3 = (size_t)R * 3 * F, n1 = (size_t)R * F;
+  o.abc = t;
+  o.nrm = t + n3;
+  o.p1 = t + 2 * n3;
+  o.x1 = t + 3 * n3;
+  o.pen = t + 4 * n3;
+  o.mp = t + 4 * n3 + n1;
+  uint8_t* b = (uint8_t*)buf + ((4 * n3 + n1 + R) * sizeof(T) + 15) / 16 * 16;
+  o.cand = b;
+  o.cmask = b + n1;
+  o.iters = (int32_t*)(b + (2 * n1 + 3) / 4 * 4);
+  return o;
+}
+
+struct Args {
+  int R, F, per_cta, iters, polish_iters;
+  double eps, tol;
+  const void *verts, *faces, *c1, *c2;
+  const void* poses[4];
+  long long strides[8];
+  void *out, *stream;
+};
 
 template <typename T, int K1, int K2>
-int launch_kinds(int R, int F, int iters, int polish_iters, double eps, double tol, const void* pqr,
-                 const void* consts, void* abc, void* nrm, void* p1, void* x1, void* pen, void* cand,
-                 void* cmask, void* mp, void* its, void* stream) {
-  const size_t bytes = smem_bytes<T>(F);
-  cudaError_t err = cudaFuncSetAttribute(fw_search_kernel<T, K1, K2>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+int launch_kinds(const Args& A) {
+  auto kernel = fw_search_kernel<T, K1, K2>;
+  int threads, cs;
+  geometry(A.R, A.F, A.per_cta, threads, cs);
+  const size_t bytes = smem_bytes<T>();
+  if (cs > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  Poses<T> P{(const T*)A.poses[0], (const T*)A.poses[1], (const T*)A.poses[2], (const T*)A.poses[3], {}};
+  for (int i = 0; i < 8; ++i) P.s[i] = A.strides[i];
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(A.R * cs), 1, 1);
+  cfg.blockDim = dim3((unsigned)threads, 1, 1);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)A.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, A.F, A.iters, A.polish_iters, (T)A.eps, (T)A.tol,
+                                       (const T*)A.verts, (const int64_t*)A.faces, P, (const T*)A.c1,
+                                       (const T*)A.c2, out_views<T>(A.out, A.R, A.F));
   if (err != cudaSuccess) return (int)err;
-  int threads = ((F + 31) / 32) * 32;
-  if (threads > MAX_THREADS) threads = MAX_THREADS;
-  fw_search_kernel<T, K1, K2><<<R, threads, bytes, (cudaStream_t)stream>>>(
-      F, iters, polish_iters, (T)eps, (T)tol, (const T*)pqr, (const T*)consts, (T*)abc, (T*)nrm,
-      (T*)p1, (T*)x1, (T*)pen, (uint8_t*)cand, (uint8_t*)cmask, (T*)mp, (int32_t*)its);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int K1>
-int launch_k2(int kind2, int R, int F, int iters, int polish_iters, double eps, double tol,
-              const void* pqr, const void* consts, void* abc, void* nrm, void* p1, void* x1,
-              void* pen, void* cand, void* cmask, void* mp, void* its, void* stream) {
-#define FW_K2(K)                                                                               \
-  case K:                                                                                      \
-    return launch_kinds<T, K1, K>(R, F, iters, polish_iters, eps, tol, pqr, consts, abc, nrm,  \
-                                  p1, x1, pen, cand, cmask, mp, its, stream);
-  switch (kind2) {
-    FW_K2(KIND_SPHERE)
-    FW_K2(KIND_BOX)
-    FW_K2(KIND_ROUNDED_BOX)
-    FW_K2(KIND_CYLINDER)
-    FW_K2(KIND_BRICK)
-  }
-#undef FW_K2
-  return (int)cudaErrorInvalidValue;
+template <typename T, int K1, int K2>
+int resources_kinds(const Args& A, long long* out) {
+  auto kernel = fw_search_kernel<T, K1, K2>;
+  int threads, cs;
+  geometry(A.R, A.F, A.per_cta, threads, cs);
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, smem_bytes<T>());
+  if (err != cudaSuccess) return (int)err;
+  out[0] = threads;
+  out[1] = cs;
+  out[2] = (long long)smem_bytes<T>();
+  out[3] = attr.numRegs;
+  out[4] = (long long)attr.localSizeBytes;
+  out[5] = blocks;
+  return 0;
 }
 
-template <typename T>
-int launch(int kind1, int kind2, int R, int F, int iters, int polish_iters, double eps, double tol,
-           const void* pqr, const void* consts, void* abc, void* nrm, void* p1, void* x1, void* pen,
-           void* cand, void* cmask, void* mp, void* its, void* stream) {
-#define FW_K1(K)                                                                                  \
-  case K:                                                                                         \
-    return launch_k2<T, K>(kind2, R, F, iters, polish_iters, eps, tol, pqr, consts, abc, nrm, p1, \
-                           x1, pen, cand, cmask, mp, its, stream);
+// run op<T, K1, K2>(args...) for the runtime kinds
+template <typename T, template <typename, int, int> class Op, class... X>
+int dispatch(int kind1, int kind2, X... x) {
+#define FW_K2(K1v, K2v) \
+  case K2v:             \
+    return Op<T, K1v, K2v>::run(x...);
+#define FW_K1(K1v)                    \
+  case K1v:                           \
+    switch (kind2) {                  \
+      FW_K2(K1v, KIND_SPHERE)         \
+      FW_K2(K1v, KIND_BOX)            \
+      FW_K2(K1v, KIND_ROUNDED_BOX)    \
+      FW_K2(K1v, KIND_CYLINDER)       \
+      FW_K2(K1v, KIND_BRICK)          \
+    }                                 \
+    return (int)cudaErrorInvalidValue;
   switch (kind1) {
     FW_K1(KIND_NONE)
     FW_K1(KIND_SPHERE)
@@ -388,24 +614,52 @@ int launch(int kind1, int kind2, int R, int F, int iters, int polish_iters, doub
     FW_K1(KIND_BRICK)
   }
 #undef FW_K1
+#undef FW_K2
   return (int)cudaErrorInvalidValue;
 }
+
+template <typename T, int K1, int K2>
+struct Launch {
+  static int run(const Args& A) { return launch_kinds<T, K1, K2>(A); }
+};
+template <typename T, int K1, int K2>
+struct Resources {
+  static int run(const Args& A, long long* out) { return resources_kinds<T, K1, K2>(A, out); }
+};
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. kind1 = -1 when body 1 is a plain mesh.
-// Returns cudaGetLastError() of the launch.
-int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int polish_iters,
-              double eps, double tol, const void* pqr, const void* consts, void* abc, void* nrm,
-              void* p1, void* x1, void* pen, void* cand, void* cmask, void* max_pen, void* iters_run,
+// dtype: 0 = float32, 1 = float64; kind1 = -1 when body 1 is a plain mesh
+// (c1 unused). per_cta: most faces per CTA (0: the R F faces spread over
+// the card's SMs, 64 to 256 a CTA; a pose takes a cluster of ceil(F /
+// per_cta) CTAs, at most 16). verts (V, 3) and faces (F, 3) int64 are
+// contiguous; poses:
+// q1 (R, 4), pos1 (R, 3), q2 (R, 4), pos2 (R, 3) with strides (row,
+// component) in elements, 8 values in that order; c1, c2: NBODY constants
+// per body (scale, kind parameters). out: see out_views. Returns the
+// launch's CUDA error; cudaErrorInvalidValue for F outside 1..8192.
+int fw_search(int dtype, int kind1, int kind2, int R, int F, int per_cta, int iters, int polish_iters, double eps,
+              double tol,
+              const void* verts, const void* faces, const void* q1, const void* pos1, const void* q2,
+              const void* pos2, const long long* strides, const void* c1, const void* c2, void* out,
               void* stream) {
-  if (dtype == 1)
-    return launch<double>(kind1, kind2, R, F, iters, polish_iters, eps, tol, pqr, consts, abc,
-                          nrm, p1, x1, pen, cand, cmask, max_pen, iters_run, stream);
-  return launch<float>(kind1, kind2, R, F, iters, polish_iters, eps, tol, pqr, consts, abc, nrm,
-                       p1, x1, pen, cand, cmask, max_pen, iters_run, stream);
+  if (F < 1 || F > MAX_THREADS * MAX_CS) return (int)cudaErrorInvalidValue;
+  if (R < 1) return 0;
+  Args A{R, F, per_cta, iters, polish_iters, eps, tol, verts, faces, c1, c2, {q1, pos1, q2, pos2}, {}, out, stream};
+  for (int i = 0; i < 8; ++i) A.strides[i] = strides[i];
+  return dtype == 1 ? dispatch<double, Launch>(kind1, kind2, A) : dispatch<float, Launch>(kind1, kind2, A);
+}
+
+// the launch's resources at F faces: threads per CTA, CTAs per pose
+// (cluster), shared bytes per CTA, registers and local (spill) bytes per
+// thread, CTAs per SM
+int fw_search_info(int dtype, int kind1, int kind2, int F, int per_cta, long long* out) {
+  if (F < 1 || F > MAX_THREADS * MAX_CS) return (int)cudaErrorInvalidValue;
+  Args A{1, F, per_cta, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {}, {}, nullptr, nullptr};
+  return dtype == 1 ? dispatch<double, Resources>(kind1, kind2, A, out)
+                    : dispatch<float, Resources>(kind1, kind2, A, out);
 }
 
 }  // extern "C"

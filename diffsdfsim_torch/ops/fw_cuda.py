@@ -8,6 +8,13 @@ init, up to ``fw_iters`` FW steps with the per-pair early stop, the surface
 push, the contact-point polish, the contact test, the no-grad contact
 quantities and max_pen. The source is ``ops/csrc/fw_search.cu``.
 
+The kernel forms its own inputs (body 1's corners in body 2's frame, the
+frames) from the vertices, faces and poses, so a launch runs no tensor op
+before it: the wrapper looks up the per-body constant block (scale and kind
+parameters, built once per body and cached by the shape parameters'
+storage and version), allocates one output buffer, whose views are the
+nine outputs, and calls the kernel.
+
 ``fw_search_pair`` dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version,
 ``physics/contacts.search_pair_raw_plain``. The kernel knows the analytic
@@ -18,48 +25,23 @@ takes (the JAX package's ``fw_pallas.supported_pair``).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
-from ..utils.quaternion import quat_apply, quat_invert, quat_to_matrix
-
-NCONST = 32  # packed per-pose constants: R1(9) R2(9) d21(3) s1 s2 _ prm1(4) prm2(4)
+NBODY = 8  # per-body constants: scale, kind parameters (4), padding
 NPARAMS = 4
 SUPPORTED_KINDS = (0, 1, 2, 3, 4)  # physics/shapes.py KIND_* tags; -1 is a plain mesh
 MAX_FACES = 8192
 
 
-def _params(shape, like):
-    prm = list(shape.kernel_params())
-    prm = [torch.as_tensor(v, dtype=like.dtype, device=like.device) for v in prm]
-    prm += [torch.zeros((), dtype=like.dtype, device=like.device)] * (NPARAMS - len(prm))
-    return torch.stack(prm), shape.scale().to(like.dtype)
-
-
-def pack_inputs(bd1, q1, pos1, bd2, q2, pos2):
-    """Kernel inputs for R poses: pqr (R,9,F) (triangle corners of body 1 in
-    body 2's frame, component-major) and consts (R, NCONST)."""
-    R = q1.shape[0]
-    verts_b2 = quat_apply(
-        quat_invert(q2[:, None]), quat_apply(q1[:, None], bd1.verts) + pos1[:, None] - pos2[:, None]
-    )
-    tri = verts_b2[:, bd1.faces_t]  # (R,F,3,3)
-    F = tri.shape[1]
-    pqr = tri.permute(0, 2, 3, 1).reshape(R, 9, F).contiguous()
-    R1 = quat_to_matrix(q1).reshape(R, 9)
-    R2 = quat_to_matrix(q2).reshape(R, 9)
-    d21 = pos2 - pos1
-    if bd1.is_sdf:
-        prm1, s1 = _params(bd1.shape, q1)
-    else:
-        prm1 = torch.zeros((NPARAMS,), dtype=q1.dtype, device=q1.device)
-        s1 = torch.ones((), dtype=q1.dtype, device=q1.device)
-    prm2, s2 = _params(bd2.shape, q1)
-    per_pose = torch.cat([R1, R2, d21], dim=1)  # (R,21)
-    shared = torch.cat([torch.stack([s1, s2, torch.zeros_like(s1)]), prm1, prm2])  # (11,)
-    consts = torch.cat([per_pose, shared.expand(R, -1)], dim=1)
-    consts = torch.nn.functional.pad(consts, (0, NCONST - consts.shape[1])).contiguous()
-    return pqr, consts
+def body_consts(shape, dtype, device):
+    """A body's constant block (NBODY,): its scale, then its normalized kind
+    parameters (``kernel_params``), zero-padded."""
+    prm = [torch.as_tensor(v, dtype=dtype, device=device).detach() for v in shape.kernel_params()]
+    vals = [shape.scale().detach().to(dtype=dtype, device=device)] + prm
+    vals += [torch.zeros((), dtype=dtype, device=device)] * (NBODY - len(vals))
+    return torch.stack(vals).contiguous()
 
 
 def shape_kind(shape):
@@ -86,23 +68,73 @@ def check_pair(bd1, bd2, F: int, dtype):
         raise ValueError(f"FW kernel takes 1..{MAX_FACES} faces, got {F}")
 
 
+def out_layout(R: int, F: int, esize: int):
+    """The kernel's one output buffer (fw_search.cu ``out_views``), in
+    elements of the float type: abc, normal, p1, x1 (R, 3, F), pen (R, F)
+    and max_pen (R,); then, 16-byte aligned, cand and cmask (R, F) bytes
+    and, 4-byte aligned, the FW iterations run (R,) int32. Returns (byte
+    offset of cand, byte offset of the iterations, total elements)."""
+    b_cand = ((13 * R * F + R) * esize + 15) // 16 * 16
+    b_iters = b_cand + (2 * R * F + 3) // 4 * 4
+    return b_cand, b_iters, (b_iters + 4 * R + esize - 1) // esize
+
+
 class _FwKernel:
     """Callable wrapper of the K3 launch; ``launches`` counts kernel launches."""
 
     def __init__(self):
         self.launches = 0
-        self.last_iters = None  # (R,) FW iterations of the last launch
+        self._last = None  # (buffer, byte offset, R) of the last launch's FW iteration counts
         self._fn = None
+        self._info = None
+        self.per_cta = 0  # most faces per CTA (0: the kernel's default)
+        self._consts = {}  # (kind, dtype, device, parameter storage and versions) -> (params, block)
 
     def _lib_fn(self):
         if self._fn is None:
             from ._build import load
 
-            fn = load("fw_search").fw_search
+            lib = load("fw_search")
+            fn = lib.fw_search
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 12
-            self._fn = fn
+            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
+            info = lib.fw_search_info
+            info.restype = ctypes.c_int
+            info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+            self._fn, self._info = fn, info
         return self._fn
+
+    @property
+    def last_iters(self):
+        """(R,) int32: the FW iterations each pose of the last launch ran."""
+        buf, off, R = self._last
+        return buf.view(torch.int32)[off // 4:off // 4 + R]
+
+    def consts(self, shape, dtype, device):
+        """The body's constant block, built once per shape parameters: the
+        key holds each parameter tensor's storage and version, so an in-place
+        update (an optimizer step on ``rad``) rebuilds it."""
+        params = [getattr(shape, f.name) for f in dataclasses.fields(shape)]
+        key = (shape.kind, dtype, device) + tuple((t.data_ptr(), t._version) for t in params)
+        hit = self._consts.get(key)
+        if hit is None:
+            if len(self._consts) >= 16:
+                self._consts.clear()
+            # the entry holds the parameters, so their storage is not reused under its key
+            hit = self._consts[key] = (params, body_consts(shape, dtype, device))
+        return hit[1]
+
+    def info(self, bd1, bd2, dtype, per_cta: int = 0):
+        """The launch's resources for this pair: threads per CTA, CTAs per
+        pose (cluster), shared bytes per CTA, registers and local (spill)
+        bytes per thread, CTAs per SM."""
+        self._lib_fn()
+        out = (ctypes.c_longlong * 6)()
+        err = self._info(1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, bd1.faces_t.shape[0],
+                         per_cta or self.per_cta, ctypes.addressof(out))
+        if err != 0:
+            raise RuntimeError(f"fw_search_info failed: CUDA error {err}")
+        return dict(zip(("threads", "cluster", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm"), out))
 
     def __call__(self, bd1, q1, pos1, bd2, q2, pos2, cfg):
         """One directed pair at R poses (q*/pos* (R,4)/(R,3)). Returns a
@@ -116,7 +148,8 @@ class _FwKernel:
         return self.finish(args)
 
     def prepare(self, bd1, q1, pos1, bd2, q2, pos2, cfg):
-        """Validate, pack the kernel's inputs and allocate its outputs."""
+        """Validate, look up the bodies' constant blocks and allocate the
+        output buffer."""
         R = q1.shape[0]
         F = bd1.faces_t.shape[0]
         dtype, device = q1.dtype, q1.device
@@ -124,42 +157,48 @@ class _FwKernel:
         for t in (pos1, q2, pos2, bd1.verts):
             if t.dtype != dtype or t.device != device:
                 raise TypeError(f"FW kernel: mixed inputs {t.dtype} on {t.device}")
-        pqr, consts = pack_inputs(bd1, q1, pos1, bd2, q2, pos2)
+        for t, shape in ((q1, (R, 4)), (pos1, (R, 3)), (q2, (R, 4)), (pos2, (R, 3))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"FW kernel: a pose of shape {tuple(t.shape)}, expected {shape}")
+        verts, faces = bd1.verts, bd1.faces_t
+        if not (verts.is_contiguous() and faces.is_contiguous() and faces.dtype == torch.int64
+                and faces.device == device):
+            raise ValueError("FW kernel: body 1's verts and faces_t must be contiguous, faces_t int64 on its device")
+        c1 = self.consts(bd1.shape, dtype, device) if bd1.is_sdf else None
+        c2 = self.consts(bd2.shape, dtype, device)
+        b_cand, b_iters, n = out_layout(R, F, q1.element_size())
+        buf = torch.empty((n,), dtype=dtype, device=device)
+        strides = (ctypes.c_longlong * 8)(*(s for t in (q1, pos1, q2, pos2) for s in t.stride()))
         polish = int(cfg.contact_polish_iters) if bd1.is_sdf else 0
-        f3 = lambda: torch.empty((R, 3, F), dtype=dtype, device=device)
-        outs = [
-            f3(), f3(), f3(), f3(),  # abc, normal, p1, x1
-            torch.empty((R, F), dtype=dtype, device=device),  # pen
-            torch.empty((R, F), dtype=torch.uint8, device=device),  # cand
-            torch.empty((R, F), dtype=torch.uint8, device=device),  # cmask
-            torch.empty((R,), dtype=dtype, device=device),  # max_pen
-            torch.empty((R,), dtype=torch.int32, device=device),  # FW iterations run
-        ]
-        dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, int(cfg.fw_iters), polish)
-        return dict(dims=dims, tols=(float(cfg.eps), float(cfg.tol)), ins=[pqr, consts], outs=outs,
-                    device=device)
+        dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, self.per_cta, int(cfg.fw_iters), polish)
+        ptrs = (verts.data_ptr(), faces.data_ptr(), q1.data_ptr(), pos1.data_ptr(), q2.data_ptr(),
+                pos2.data_ptr(), ctypes.addressof(strides), 0 if c1 is None else c1.data_ptr(), c2.data_ptr(),
+                buf.data_ptr())
+        return dict(dims=dims, tols=(float(cfg.eps), float(cfg.tol)), ptrs=ptrs, keep=(strides, q1, pos1, q2, pos2),
+                    buf=buf, layout=(R, F, b_cand, b_iters), device=device)
 
     def launch(self, args):
         """One kernel launch on the current stream (the only place that counts)."""
-        err = self._lib_fn()(
-            *args["dims"], *args["tols"], *[t.data_ptr() for t in args["ins"] + args["outs"]],
-            torch.cuda.current_stream(args["device"]).cuda_stream,
-        )
+        err = self._lib_fn()(*args["dims"], *args["tols"], *args["ptrs"],
+                             torch.cuda.current_stream(args["device"]).cuda_stream)
         if err != 0:
             raise RuntimeError(f"fw_search kernel launch failed: CUDA error {err}")
         self.launches += 1
 
     def finish(self, args):
+        """The nine outputs, as views into the one buffer."""
         from ..physics.contacts import RawPairSearch
 
-        abc, nrm, p1w, x1, pen, cand, cmask, max_pen, iters_run = args["outs"]
-        self.last_iters = iters_run
-        tr = lambda t: t.transpose(1, 2)  # (R,F,3)
-        # the kernel marks "no contact" with a -1e30 sentinel (fw_pallas.py:673-675)
-        max_pen = torch.where(max_pen <= -1e30, torch.full_like(max_pen, float("-inf")), max_pen)
+        R, F, b_cand, b_iters = args["layout"]
+        buf = args["buf"]
+        n3 = 3 * R * F
+        f3 = lambda i: buf.as_strided((R, F, 3), (3 * F, 1, F), i * n3)  # (R,F,3) of (R,3,F)
+        flags = buf.view(torch.bool)
+        self._last = (buf, b_iters, R)
         return RawPairSearch(
-            abc=tr(abc), n_ng=tr(nrm), p1_ng=tr(p1w), pen=pen, cand=cand.bool(),
-            cmask=cmask.bool(), max_pen=max_pen, x1=tr(x1),
+            abc=f3(0), n_ng=f3(1), p1_ng=f3(2), pen=buf.as_strided((R, F), (F, 1), 4 * n3),
+            cand=flags.as_strided((R, F), (F, 1), b_cand), cmask=flags.as_strided((R, F), (F, 1), b_cand + R * F),
+            max_pen=buf.as_strided((R,), (1,), 4 * n3 + R * F), x1=f3(3),
         )
 
 

@@ -124,3 +124,32 @@ def test_find_contacts_at_contact(bodies):
     for name in ("normal", "p1", "p2", "pen", "max_pen_all"):
         np.testing.assert_allclose(getattr(tc, name).numpy(), np.asarray(getattr(jc, name)),
                                    rtol=0, atol=ATOL, err_msg=name)
+
+
+def test_fw_kernel_body_constants_cache():
+    """K3's per-body constant block (``fw_cuda.body_consts``: the scale,
+    then the normalized kind parameters, zero-padded) is cached by the shape
+    parameters' storage and version: reused while ``rad`` is unchanged,
+    rebuilt after an in-place update (an optimizer step), and the new block
+    holds the new values."""
+    from diffsdfsim_torch.ops import fw_cuda
+    from diffsdfsim_torch.physics import SphereShape
+
+    kernel = fw_cuda._FwKernel()
+    cpu, f64 = torch.device("cpu"), torch.float64
+    rad = torch.tensor(0.5, dtype=f64, requires_grad=True)
+    sphere, box = SphereShape(rad), BoxShape(torch.tensor([20.0, 1.0, 20.0], dtype=f64))
+
+    def expected(shape):
+        vals = torch.stack([shape.scale(), *[torch.as_tensor(v, dtype=f64) for v in shape.kernel_params()]])
+        return torch.nn.functional.pad(vals.detach(), (0, fw_cuda.NBODY - vals.numel()))
+
+    c = kernel.consts(sphere, f64, cpu)
+    assert torch.equal(c, expected(sphere)) and not c.requires_grad
+    assert kernel.consts(sphere, f64, cpu) is c
+    assert torch.equal(kernel.consts(box, f64, cpu), expected(box))
+    with torch.no_grad():
+        rad.add_(0.25)
+    c_new = kernel.consts(sphere, f64, cpu)
+    assert c_new is not c and torch.equal(c_new, expected(sphere)) and float(c_new[0]) == 1.125
+    assert kernel.consts(sphere, f64, cpu) is c_new
