@@ -21,7 +21,8 @@ CUDA (float64):
 - the latent path: optim_shapespace's 36-frame drop of a shape-space body
   (the reference's IGR decoder at full width) through K4 (the fused
   decoder) and K1, then two Adam steps of the latent fit through K4, K1 and
-  K2, against the JAX golden drop, gradients and latents.
+  K2, against the JAX golden drop, gradients and latents; the drop's K4
+  launches are counted by N, and K4 is checked at the most frequent N.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every check that fails raises, so any failure exits
@@ -127,7 +128,8 @@ def device_ms(fn, kernel, n=20):
     its name; None: every kernel fn() launches) per fn() call from
     torch.profiler's CUDA trace; where the trace shows none, CUDA events
     around n back-to-back calls (an upper bound that includes host launch
-    gaps)."""
+    gaps). A named kernel's time is its traced total over the launches the
+    trace holds: on the H100 the trace has at times kept one launch of n."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -137,15 +139,18 @@ def device_ms(fn, kernel, n=20):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = 0.0
+    total_us, count = 0.0, 0
     for ev in prof.key_averages():
         if kernel is None:
             if ev.device_type == torch.autograd.DeviceType.CUDA:
                 total_us += getattr(ev, "self_device_time_total", None) or getattr(ev, "self_cuda_time_total", 0.0)
-        elif kernel in ev.key:
+        elif kernel in ev.key and ev.device_type == torch.autograd.DeviceType.CUDA:
             total_us += getattr(ev, "device_time_total", None) or getattr(ev, "cuda_time_total", 0.0)
-    if total_us > 0:
+            count += ev.count
+    if total_us > 0 and kernel is None:
         return total_us / n / 1e3, "profiler"
+    if total_us > 0 and count:
+        return total_us / count / 1e3, f"profiler, {count} of {n} launches traced"
     return cuda_ms(fn, n=n), "events"
 
 

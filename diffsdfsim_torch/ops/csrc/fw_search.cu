@@ -69,6 +69,13 @@ __device__ __forceinline__ T norm3(T a, T b, T c) { return safe_sqrt(a * a + b *
 template <typename T>
 __device__ __forceinline__ T sign_nz(T x) { return x >= 0 ? (T)1 : (T)-1; }
 
+// a / b for a positive b (a norm, a count): the same bits as a / b, but a
+// zero dividend, the common case in the box gradients, is returned as it is
+// rather than sent down the division's slow path (~440 cycles against ~130
+// on an H100)
+template <typename T>
+__device__ __forceinline__ T pdiv(T a, T b) { return a == (T)0 ? a : a / b; }
+
 // box SDF and failsafe gradient for half extents (h0, h1, h2)
 template <typename T>
 __device__ void box_sdf_grad(T h0, T h1, T h2, T x, T y, T z, T& sdf, T* g) {
@@ -78,9 +85,9 @@ __device__ void box_sdf_grad(T h0, T h1, T h2, T x, T y, T z, T& sdf, T* g) {
   const T nrm = norm3(m0, m1, m2);
   sdf = nrm + fmin(maxd, (T)0);
   const T inside = maxd <= 0 ? (T)1 : (T)0;
-  g[0] = (m0 / nrm + inside * (q0 == maxd ? (T)1 : (T)0)) * sign_nz(x);
-  g[1] = (m1 / nrm + inside * (q1 == maxd ? (T)1 : (T)0)) * sign_nz(y);
-  g[2] = (m2 / nrm + inside * (q2 == maxd ? (T)1 : (T)0)) * sign_nz(z);
+  g[0] = (pdiv(m0, nrm) + inside * (q0 == maxd ? (T)1 : (T)0)) * sign_nz(x);
+  g[1] = (pdiv(m1, nrm) + inside * (q1 == maxd ? (T)1 : (T)0)) * sign_nz(y);
+  g[2] = (pdiv(m2, nrm) + inside * (q2 == maxd ? (T)1 : (T)0)) * sign_nz(z);
 }
 
 // normalized-frame SDF + (unnormalized) gradient of one analytic primitive;
@@ -106,8 +113,8 @@ __device__ void prim_sdf_grad(const T* prm, T x, T y, T z, T& sdf, T* g) {
     const T nrm = safe_sqrt(m0 * m0 + m1 * m1);
     sdf = nrm + fmin(maxd, (T)0);
     const T inside = maxd <= 0 ? (T)1 : (T)0;
-    const T g2d0 = m0 / nrm + inside * (q0 == maxd ? (T)1 : (T)0);
-    const T g2d1 = m1 / nrm + inside * (q1 == maxd ? (T)1 : (T)0);
+    const T g2d0 = pdiv(m0, nrm) + inside * (q0 == maxd ? (T)1 : (T)0);
+    const T g2d1 = pdiv(m1, nrm) + inside * (q1 == maxd ? (T)1 : (T)0);
     const T inv_rxy = (T)1 / r_xy;
     g[0] = g2d0 * x * inv_rxy;
     g[1] = g2d0 * y * inv_rxy;
@@ -136,7 +143,7 @@ __device__ T query(T scale, const T* prm, T x, T y, T z, T* g) {
   prim_sdf_grad<T, KIND>(prm, x * inv_s, y * inv_s, z * inv_s, sdf_n, gg);
   if (g) {
     const T n = norm3(gg[0], gg[1], gg[2]);
-    for (int c = 0; c < 3; ++c) g[c] = ov ? gg[c] / n : (T)0;
+    for (int c = 0; c < 3; ++c) g[c] = ov ? pdiv(gg[c], n) : (T)0;
   }
   return (ov ? sdf_n : (T)1) * scale;
 }
@@ -148,11 +155,9 @@ __device__ T query(T scale, const T* prm, T x, T y, T z, T* g) {
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 __device__ __forceinline__ double sub_rn(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
 __device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub_rn(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
 
 // q / |q| for a wxyz quaternion at stride s. torch.linalg.norm over the 4
 // components on the card sums (q0^2 + q2^2) + (q1^2 + q3^2), each pair as
@@ -162,10 +167,10 @@ __device__ void quat_normalize(const T* q, long long s, T* out) {
   const T a = q[0], b = q[s], c = q[2 * s], d = q[3 * s];
   const T n2 = add_rn(fma(c, c, mul_rn(a, a)), fma(d, d, mul_rn(b, b)));
   const T n = sqrt(n2);
-  out[0] = div_rn(a, n);
-  out[1] = div_rn(b, n);
-  out[2] = div_rn(c, n);
-  out[3] = div_rn(d, n);
+  out[0] = pdiv(a, n);
+  out[1] = pdiv(b, n);
+  out[2] = pdiv(c, n);
+  out[3] = pdiv(d, n);
 }
 
 // one component of a x b, a1 b2 - a2 b1, as torch.linalg.cross's kernel
@@ -349,7 +354,7 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
   if (has_face) {
     for (int v = 0; v < 3; ++v) cornered(P, r, fr, vtx[v], p[v]);
     T cen[3], g[3];
-    for (int c = 0; c < 3; ++c) cen[c] = (p[0][c] + p[1][c] + p[2][c]) / (T)3;
+    for (int c = 0; c < 3; ++c) cen[c] = pdiv(p[0][c] + p[1][c] + p[2][c], (T)3);
     const T csdf = query<T, K2>(s2, prm2, cen[0], cen[1], cen[2], g);
     for (int v = 0; v < 3; ++v) rad = fmax(rad, norm3(cen[0] - p[v][0], cen[1] - p[v][1], cen[2] - p[v][2]));
     cand = csdf < rad + eps && sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]) > (T)1e-12;
@@ -432,7 +437,7 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
         for (int c = 0; c < 3; ++c) t[c] = g2[c] - dt * n1[c];
         const T tl = norm3(t[0], t[1], t[2]);
         const T eta = rad * eta_f;
-        for (int c = 0; c < 3; ++c) px[c] = xp[c] - eta * (t[c] / tl);
+        for (int c = 0; c < 3; ++c) px[c] = xp[c] - eta * pdiv(t[c], tl);
         eta_f = eta_f * (T)0.5;
       }
       fsdf = bs2;
