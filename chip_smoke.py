@@ -494,7 +494,7 @@ def phase_k3():
                 rows[(dtype, label)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                             bytes_ms=bytes_ms, ops_ms=ops_ms)
                 if label.endswith("R=3"):
-                    line += f"; {fmt_k3_info(fw_search_pair.info(bd1, bd2, dtype))}"
+                    line += f"; {fmt_k3_info(fw_search_pair.info(bd1, bd2, dtype, R))}"
             print(line)
             check(errs["max_pen"] <= atol, f"{tag}: max_pen differs by {errs['max_pen']} (atol {atol})")
             if label.startswith(("floor->sphere", "sphere->floor")):

@@ -499,15 +499,13 @@ size_t smem_bytes() {
   return (sizeof(Frames<T>) + 15) / 16 * 16 + MAX_CS * 32 * sizeof(T) + 3 * sizeof(int);
 }
 
-// threads per CTA and CTAs per pose for R poses of F faces, at most
-// `per_cta` faces per CTA (0: spread the R F faces over the card's SMs,
-// between 64 and 256 a CTA) and MAX_THREADS
-void geometry(int R, int F, int per_cta, int& threads, int& cs) {
-  if (per_cta <= 0) {
-    const long long share = ((long long)R * F + NUM_SMS - 1) / NUM_SMS;
-    per_cta = share < 64 ? 64 : (share > 256 ? 256 : (int)share);
-  }
-  per_cta = per_cta < MAX_THREADS ? per_cta : MAX_THREADS;
+// threads per CTA and CTAs per pose for R poses of F faces: the R F faces
+// spread over the card's SMs, 64 to 256 a CTA (measured on an H100: at
+// R = 3 the sphere's search takes as long on 1 to 5 CTAs a pose, the
+// floor's 15 % less on 12 than on 2; at R = 576, 256 a CTA is fastest)
+void geometry(int R, int F, int& threads, int& cs) {
+  const long long share = ((long long)R * F + NUM_SMS - 1) / NUM_SMS;
+  const int per_cta = share < 64 ? 64 : (share > 256 ? 256 : (int)share);
   cs = (F + per_cta - 1) / per_cta;
   cs = cs > MAX_CS ? MAX_CS : cs;
   threads = ((F + cs - 1) / cs + 31) / 32 * 32;
@@ -535,7 +533,7 @@ Outs<T> out_views(void* buf, int R, int F) {
 }
 
 struct Args {
-  int R, F, per_cta, iters, polish_iters;
+  int R, F, iters, polish_iters;
   double eps, tol;
   const void *verts, *faces, *c1, *c2;
   const void* poses[4];
@@ -547,7 +545,7 @@ template <typename T, int K1, int K2>
 int launch_kinds(const Args& A) {
   auto kernel = fw_search_kernel<T, K1, K2>;
   int threads, cs;
-  geometry(A.R, A.F, A.per_cta, threads, cs);
+  geometry(A.R, A.F, threads, cs);
   const size_t bytes = smem_bytes<T>();
   if (cs > 8) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -578,7 +576,7 @@ template <typename T, int K1, int K2>
 int resources_kinds(const Args& A, long long* out) {
   auto kernel = fw_search_kernel<T, K1, K2>;
   int threads, cs;
-  geometry(A.R, A.F, A.per_cta, threads, cs);
+  geometry(A.R, A.F, threads, cs);
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -637,32 +635,28 @@ struct Resources {
 extern "C" {
 
 // dtype: 0 = float32, 1 = float64; kind1 = -1 when body 1 is a plain mesh
-// (c1 unused). per_cta: most faces per CTA (0: the R F faces spread over
-// the card's SMs, 64 to 256 a CTA; a pose takes a cluster of ceil(F /
-// per_cta) CTAs, at most 16). verts (V, 3) and faces (F, 3) int64 are
-// contiguous; poses:
+// (c1 unused). verts (V, 3) and faces (F, 3) int64 are contiguous; poses:
 // q1 (R, 4), pos1 (R, 3), q2 (R, 4), pos2 (R, 3) with strides (row,
 // component) in elements, 8 values in that order; c1, c2: NBODY constants
 // per body (scale, kind parameters). out: see out_views. Returns the
 // launch's CUDA error; cudaErrorInvalidValue for F outside 1..8192.
-int fw_search(int dtype, int kind1, int kind2, int R, int F, int per_cta, int iters, int polish_iters, double eps,
-              double tol,
+int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int polish_iters, double eps, double tol,
               const void* verts, const void* faces, const void* q1, const void* pos1, const void* q2,
               const void* pos2, const long long* strides, const void* c1, const void* c2, void* out,
               void* stream) {
   if (F < 1 || F > MAX_THREADS * MAX_CS) return (int)cudaErrorInvalidValue;
   if (R < 1) return 0;
-  Args A{R, F, per_cta, iters, polish_iters, eps, tol, verts, faces, c1, c2, {q1, pos1, q2, pos2}, {}, out, stream};
+  Args A{R, F, iters, polish_iters, eps, tol, verts, faces, c1, c2, {q1, pos1, q2, pos2}, {}, out, stream};
   for (int i = 0; i < 8; ++i) A.strides[i] = strides[i];
   return dtype == 1 ? dispatch<double, Launch>(kind1, kind2, A) : dispatch<float, Launch>(kind1, kind2, A);
 }
 
-// the launch's resources at F faces: threads per CTA, CTAs per pose
-// (cluster), shared bytes per CTA, registers and local (spill) bytes per
-// thread, CTAs per SM
-int fw_search_info(int dtype, int kind1, int kind2, int F, int per_cta, long long* out) {
+// the launch's resources at R poses of F faces: threads per CTA, CTAs per
+// pose (cluster), shared bytes per CTA, registers and local (spill) bytes
+// per thread, CTAs per SM
+int fw_search_info(int dtype, int kind1, int kind2, int R, int F, long long* out) {
   if (F < 1 || F > MAX_THREADS * MAX_CS) return (int)cudaErrorInvalidValue;
-  Args A{1, F, per_cta, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {}, {}, nullptr, nullptr};
+  Args A{R, F, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {}, {}, nullptr, nullptr};
   return dtype == 1 ? dispatch<double, Resources>(kind1, kind2, A, out)
                     : dispatch<float, Resources>(kind1, kind2, A, out);
 }

@@ -87,7 +87,6 @@ class _FwKernel:
         self._last = None  # (buffer, byte offset, R) of the last launch's FW iteration counts
         self._fn = None
         self._info = None
-        self.per_cta = 0  # most faces per CTA (0: the kernel's default)
         self._consts = {}  # (kind, dtype, device, parameter storage and versions) -> (params, block)
 
     def _lib_fn(self):
@@ -97,7 +96,7 @@ class _FwKernel:
             lib = load("fw_search")
             fn = lib.fw_search
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
+            fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
             info = lib.fw_search_info
             info.restype = ctypes.c_int
             info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -124,14 +123,14 @@ class _FwKernel:
             hit = self._consts[key] = (params, body_consts(shape, dtype, device))
         return hit[1]
 
-    def info(self, bd1, bd2, dtype, per_cta: int = 0):
-        """The launch's resources for this pair: threads per CTA, CTAs per
-        pose (cluster), shared bytes per CTA, registers and local (spill)
-        bytes per thread, CTAs per SM."""
+    def info(self, bd1, bd2, dtype, R: int):
+        """The launch's resources for this pair at R poses: threads per CTA,
+        CTAs per pose (cluster), shared bytes per CTA, registers and local
+        (spill) bytes per thread, CTAs per SM."""
         self._lib_fn()
         out = (ctypes.c_longlong * 6)()
-        err = self._info(1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, bd1.faces_t.shape[0],
-                         per_cta or self.per_cta, ctypes.addressof(out))
+        err = self._info(1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, bd1.faces_t.shape[0],
+                         ctypes.addressof(out))
         if err != 0:
             raise RuntimeError(f"fw_search_info failed: CUDA error {err}")
         return dict(zip(("threads", "cluster", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm"), out))
@@ -170,7 +169,7 @@ class _FwKernel:
         buf = torch.empty((n,), dtype=dtype, device=device)
         strides = (ctypes.c_longlong * 8)(*(s for t in (q1, pos1, q2, pos2) for s in t.stride()))
         polish = int(cfg.contact_polish_iters) if bd1.is_sdf else 0
-        dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, self.per_cta, int(cfg.fw_iters), polish)
+        dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, int(cfg.fw_iters), polish)
         ptrs = (verts.data_ptr(), faces.data_ptr(), q1.data_ptr(), pos1.data_ptr(), q2.data_ptr(),
                 pos2.data_ptr(), ctypes.addressof(strides), 0 if c1 is None else c1.data_ptr(), c2.data_ptr(),
                 buf.data_ptr())

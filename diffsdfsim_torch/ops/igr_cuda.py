@@ -131,7 +131,7 @@ class _IgrKernel:
         thread, CTAs per SM, points per cluster, clusters the card runs at
         once."""
         self._lib_fn()
-        _, dims, _ = pack_params(params)
+        _, dims, _ = self._pack(params)
         out = (ctypes.c_longlong * 8)()
         err = self._info(1 if dtype == torch.float64 else 0, tile, len(params.weights), params.d_in,
                          dims.ctypes.data, ctypes.addressof(out))

@@ -147,20 +147,15 @@ inline unsigned __reduce_or_sync(unsigned, unsigned v) {
 }
 
 inline int atomicOr(int* p, int v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
-inline unsigned atomicOr(unsigned* p, unsigned v) { return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST); }
 
 inline double __drcp_rn(double x) { return 1.0 / x; }
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __dsub_rn(double a, double b) { return a - b; }
-inline double __ddiv_rn(double a, double b) { return a / b; }
-inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
-inline float __fdiv_rn(float a, float b) { return a / b; }
-inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
 
 template <typename T>
 T __ldg(const T* p) {

@@ -25,8 +25,8 @@ and 4 CTAs (the reference's (128,)*8 with its skip), 32 and 40 points per
 cluster, within 1e-12 (float64) and 1e-5 (float32) relative of
 ``implicit_net_apply``. K3 (``K3_CASES``): the bench pairs at contact, a
 tilted box, the sphere on a cylinder (the 768-face floor's poses on
-clusters of 2 CTAs), and a 3072-face floor whose poses spread over clusters
-of 6 CTAs, held against ``search_pair_raw_plain`` as
+clusters of 12 CTAs), and a 3072-face floor whose poses spread over
+clusters of 16 CTAs, held against ``search_pair_raw_plain`` as
 ``chip_smoke.py`` holds them. Takes about 40 s.
 """
 
@@ -209,7 +209,7 @@ def check_k4_case(libs, dtype, case):
 # K3 cases: labels of chip_smoke.k3_cases (the bench pairs at contact, a
 # tilted box, the sphere on a cylinder), a coarse box 1-5 cm above the
 # sphere (several Frank-Wolfe iterations on a curved SDF), and a floor of
-# 3072 faces, which a pose spreads over a cluster of 6 CTAs
+# 3072 faces, which a pose spreads over a cluster of 16 CTAs
 K3_CASES = ["sphere->floor touch R=3", "floor->sphere pen1e-3 R=3", "box->floor tilted R=6", "sphere->cylinder R=6",
             "box->sphere gap R=2", "floor3072->sphere touch R=2"]
 
@@ -255,7 +255,7 @@ def check_k3_case(libs, dtype, label):
     args["buf"].view(torch.uint8).fill_(0xFF)  # NaN bytes: an output the kernel misses shows
     fn = libs["fw_search"].fw_search
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 8 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
     err = fn(*args["dims"], *args["tols"], *args["ptrs"], None)
     assert err == 0, f"fw_search: error {err}"
     out_k = fw_search_pair.finish(args)

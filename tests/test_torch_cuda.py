@@ -93,9 +93,10 @@ def test_fw_kernel_matches_plain(cuda, direction):
 
 
 def test_fw_kernel_cluster_path(cuda):
-    """A 3072-face floor: each pose spreads over a cluster of CTAs with one
-    vote word in CTA 0; held against the plain version as above, also with
-    a pose tensor expanded from one row (stride 0) and at 512 faces per CTA."""
+    """A 3072-face floor: each pose spreads over a cluster of 16 CTAs (a
+    non-portable cluster size) with one vote word in CTA 0, a pose tensor
+    expanded from one row (stride 0); held against the plain version as
+    above."""
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
     from diffsdfsim_torch.physics import BoxShape, SphereShape, make_body
@@ -108,20 +109,15 @@ def test_fw_kernel_cluster_path(cuda):
     q = q / q.norm(dim=-1, keepdim=True)
     ps = torch.tensor([[0.0, 0.5 + 1e-6, 0.0], [0.01, 0.5 - 1e-3, 0.02]], dtype=torch.float64, device=cuda)
     fp = torch.tensor([0.0, -0.5, 0.0], dtype=torch.float64, device=cuda).expand(2, 3)
-    for per_cta in (0, 512):
-        fw_search_pair.per_cta = per_cta
-        try:
-            out_k = fw_search_pair(floor, q[:1].expand(2, 4), fp, sphere, q, ps, cfg)
-        finally:
-            fw_search_pair.per_cta = 0
-        out_p = search_pair_raw_plain(floor, q[:1].expand(2, 4), fp, sphere, q, ps, cfg)
-        assert torch.equal(out_k.cmask, out_p.cmask) and torch.equal(out_k.cand, out_p.cand)
-        for name in ("abc", "n_ng", "p1_ng", "x1", "pen", "max_pen"):
-            a, b = getattr(out_k, name), getattr(out_p, name)
-            fin = torch.isfinite(b)
-            assert torch.equal(torch.isfinite(a), fin), name
-            if bool(fin.any()):
-                assert float((a - b)[fin].abs().max()) <= 1e-9, name
+    out_k = fw_search_pair(floor, q[:1].expand(2, 4), fp, sphere, q, ps, cfg)
+    out_p = search_pair_raw_plain(floor, q[:1].expand(2, 4), fp, sphere, q, ps, cfg)
+    assert torch.equal(out_k.cmask, out_p.cmask) and torch.equal(out_k.cand, out_p.cand)
+    for name in ("abc", "n_ng", "p1_ng", "x1", "pen", "max_pen"):
+        a, b = getattr(out_k, name), getattr(out_p, name)
+        fin = torch.isfinite(b)
+        assert torch.equal(torch.isfinite(a), fin), name
+        if bool(fin.any()):
+            assert float((a - b)[fin].abs().max()) <= 1e-9, name
 
 
 def _kkt_inputs(cuda, k, B):
