@@ -36,12 +36,12 @@
 // What bounds it on an H100: latency. One launch reads 9 corners per face
 // and does ~40 iterations of a few hundred FLOPs per face: microseconds of
 // FLOPs and bytes. The critical path is one candidate face's chain: the
-// 10 polish rounds, each two SDF queries and a tangent step, ~20 dependent
-// float64 square roots and divisions (~5,500 cycles a round on an H100,
-// measured with clock64), which the rule "same arithmetic as the plain
-// version" keeps. The design takes everything else off that path (no host
-// glue, one barrier per vote, the frames formed while the vertices load)
-// and runs all rungs of a pair and stage in one launch.
+// 10 polish rounds, each two SDF queries and a tangent step, a dozen
+// dependent float64 square roots and divisions, which the rule "same
+// arithmetic as the plain version" keeps. The design takes everything else
+// off that path (no host glue, one barrier per vote, the frames formed
+// while the vertices load, no slow path for a division of zero: `pdiv`) and
+// runs all rungs of a pair and stage in one launch.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -71,8 +71,8 @@ __device__ __forceinline__ T sign_nz(T x) { return x >= 0 ? (T)1 : (T)-1; }
 
 // a / b for a positive b (a norm, a count): the same bits as a / b, but a
 // zero dividend, the common case in the box gradients, is returned as it is
-// rather than sent down the division's slow path (~440 cycles against ~130
-// on an H100)
+// rather than sent down the float64 division's slow path, several times
+// longer than its fast one
 template <typename T>
 __device__ __forceinline__ T pdiv(T a, T b) { return a == (T)0 ? a : a / b; }
 
@@ -500,9 +500,8 @@ size_t smem_bytes() {
 }
 
 // threads per CTA and CTAs per pose for R poses of F faces: the R F faces
-// spread over the card's SMs, 64 to 256 a CTA (measured on an H100: at
-// R = 3 the sphere's search takes as long on 1 to 5 CTAs a pose, the
-// floor's 15 % less on 12 than on 2; at R = 576, 256 a CTA is fastest)
+// spread over the card's SMs, 64 to 256 a CTA (a few poses take several SMs
+// each; many poses keep several CTAs on an SM)
 void geometry(int R, int F, int& threads, int& cs) {
   const long long share = ((long long)R * F + NUM_SMS - 1) / NUM_SMS;
   const int per_cta = share < 64 ? 64 : (share > 256 ? 256 : (int)share);

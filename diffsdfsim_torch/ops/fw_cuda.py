@@ -30,7 +30,6 @@ import dataclasses
 import torch
 
 NBODY = 8  # per-body constants: scale, kind parameters (4), padding
-NPARAMS = 4
 SUPPORTED_KINDS = (0, 1, 2, 3, 4)  # physics/shapes.py KIND_* tags; -1 is a plain mesh
 MAX_FACES = 8192
 

@@ -11,9 +11,12 @@ phases with their checks: the bench forward rollout (``forward``), its
 gradient (``fwd_bwd``), the grid drop (``grid``), and the latent drop and
 fit (``latent``); ``--paths`` picks some, all by default. Besides the
 paths: ``k3`` and ``k4`` run the checkout's K3 and K4 kernel phases (their
-kernel and wrapper times go to the log), and ``digest`` prints the sha256 of
-the 100-frame bench trajectory and the repr of d loss / d rad at 20, 27 and
-100 frames, to tell whether two commits compute bitwise the same. A root given
+kernel and wrapper times go to the log), ``kernel_times`` times K3's launch
+at the bench pairs (R = 3) and K4's at N = 100, 576 and 2304 with CUDA
+events around 200 back-to-back launches, the same way in every checkout
+(the profiler's trace can drop launches), and ``digest`` prints the sha256
+of the 100-frame bench trajectory and the repr of d loss / d rad at 20, 27
+and 100 frames, to tell whether two commits compute bitwise the same. A root given
 twice runs twice, so ``parent change change parent`` alternates the two.
 The processes' output goes to FILE (default ``chiprun_out/ab_paths.log``);
 the last line is one JSON object with each path's wall times in seconds,
@@ -54,9 +57,31 @@ def digest():
     print(f"digest: trajectory sha256 {h.hexdigest()}; d loss / d rad at 20, 27, {cs.N_FRAMES} frames {' '.join(grads)}")
 
 
+def kernel_times():
+    import numpy as np
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+    cfg = SimConfig(**cs.BENCH_CFG)
+    cases = {c[0]: c for c in cs.k3_cases("cuda", torch.float64)}
+    for label in ("sphere->floor touch R=3", "floor->sphere touch R=3"):
+        _, bd1, bd2, q1, p1, q2, p2 = cases[label]
+        prep = fw_search_pair.prepare(bd1, q1, p1, bd2, q2, p2, cfg)
+        ms = cs.cuda_ms(lambda: fw_search_pair.launch(prep), n=200, warm=10)
+        print(f"kernel times: K3 float64 {label}: {ms:.4f} ms (CUDA events, 200 launches)")
+    params = cs.igr_net(torch.float64).params()
+    for n in (100, 576, 2304):
+        rng = np.random.default_rng(n)
+        x = torch.tensor(np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1.0, 1.0, (n, 3))], axis=1),
+                         device="cuda")
+        ms = cs.cuda_ms(lambda: igr_mlp.run(params, x), n=200, warm=10)
+        print(f"kernel times: K4 float64 N={n}: {ms:.4f} ms (CUDA events, 200 launches)")
+
+
 for path in sys.argv[2].split(","):
     dict(forward=cs.phase_main_path, fwd_bwd=cs.phase_gradient, grid=cs.phase_grid_path,
-         latent=cs.phase_latent_path, k3=cs.phase_k3, k4=cs.phase_k4, digest=digest)[path]()
+         latent=cs.phase_latent_path, k3=cs.phase_k3, k4=cs.phase_k4, kernel_times=kernel_times,
+         digest=digest)[path]()
 """
 
 # each path's wall time, as chip_smoke.py's path phases print it
