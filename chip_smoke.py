@@ -17,7 +17,8 @@ CUDA (float64):
   K1, K3 and K2 (the LCP backward's KKT solve), held against the plain CPU
   gradient and the JAX package's committed golden gradients;
 - the grid path: a voxelized sphere on a 64^3 grid dropped for 16 frames
-  through K5 (trilinear grid sampling) and K1, against its JAX golden;
+  through K5 (one fused launch per grid-SDF query, checked by counting the
+  queries; no gradient volume built) and K1, against its JAX golden;
 - the latent path: optim_shapespace's 36-frame drop of a shape-space body
   (the reference's IGR decoder at full width) through K4 (the fused
   decoder) and K1, then two Adam steps of the latent fit through K4, K1 and
@@ -425,6 +426,28 @@ def k3_cases(device, dtype):
     return cases
 
 
+def k3_big_cases(device, dtype, R):
+    """[(label, bd1, bd2, q1, p1, q2, p2)]: the sphere at subdiv 5 (20,480
+    faces, past K3's one-face-per-thread cap of 8192) touching the floor at
+    R rung poses 0..2e-4 apart, as the bench ladder's; and, tilted, 0-1 cm
+    above the bench sphere (a curved SDF: several Frank-Wolfe iterations)."""
+    import torch
+    from diffsdfsim_torch.physics import SphereShape, make_body
+    from diffsdfsim_torch.utils.spherical import normalize
+
+    floor, small = bench_bodies(device, dtype)
+    sphere = make_body(SphereShape(torch.tensor(0.5)), subdiv=5, fric_coeff=0.25, device=device, dtype=dtype)
+    tt = lambda x: torch.tensor(x, dtype=dtype, device=device)  # noqa: E731
+    ys = 0.5 + 1e-6 - 2e-4 * np.arange(R) / max(R - 1, 1)
+    q = tt([1.0, 0, 0, 0]).expand(R, 4)
+    tilt = normalize(tt([0.95, 0.2, 0.1, 0.05])).expand(R, 4)
+    gap = 1.0 + 1e-2 * np.arange(R) / max(R - 1, 1)
+    return [(f"sphere20480->floor touch R={R}", sphere, floor, q, tt(np.stack([np.zeros(R), ys, np.zeros(R)], 1)),
+             q, tt([0.0, -0.5, 0.0]).expand(R, 3)),
+            (f"sphere20480->sphere gap R={R}", sphere, small, tilt, tt(np.stack([0.01 * gap, gap, 0.02 * gap], 1)),
+             q, tt([0.0, 0.0, 0.0]).expand(R, 3))]
+
+
 def fmt_k3_info(info):
     return (f"{info['threads']} threads x {info['cluster']} CTAs per pose, {info['smem_bytes']} B shared, "
             f"{info['regs']} registers, {info['spill_bytes']} B spilled, {info['blocks_per_sm']} CTAs/SM")
@@ -449,7 +472,8 @@ def phase_k3():
         (torch.float32, 1e-5, 1e-3, 2e-3, 0.005),
     ):
         cfg = SimConfig(**{**BENCH_CFG, "tol": tol, "eps": eps})
-        for label, bd1, bd2, q1, p1, q2, p2 in k3_cases("cuda", dtype):
+        big = [c for R in (3, 9) for c in k3_big_cases("cuda", dtype, R)] if dtype == torch.float64 else []
+        for label, bd1, bd2, q1, p1, q2, p2 in k3_cases("cuda", dtype) + big:
             out_k = fw_search_pair(bd1, q1, p1, bd2, q2, p2, cfg)
             iters_run = fw_search_pair.last_iters.clone()
             out_p = search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg)
@@ -474,7 +498,8 @@ def phase_k3():
             allowed = int(mis_frac * out_k.cand.numel())
             line = (f"{tag}: max err {err:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}), "
                     f"mask mismatches {mis} (allowed {allowed}), cmask faces {int(out_k.cmask.sum())}")
-            if "R=576" in label or any(label.startswith(f"{pair} touch R={R}") for pair in ("floor->sphere", "sphere->floor")
+            if "R=576" in label or any(label.startswith(f"{pair} touch R={R}")
+                                       for pair in ("floor->sphere", "sphere->floor", "sphere20480->floor")
                                        for R in (3, 9)):
                 R = q1.shape[0]
                 prep = fw_search_pair.prepare(bd1, q1, p1, bd2, q2, p2, cfg)
@@ -493,12 +518,13 @@ def phase_k3():
                          f"({'bytes' if bytes_ms > ops_ms else 'operations'}), FW iterations per pose {sorted(set(iters_run.tolist()))}")
                 rows[(dtype, label)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                             bytes_ms=bytes_ms, ops_ms=ops_ms)
-                if label.endswith("R=3"):
+                if label.endswith("R=3") or label.startswith("sphere20480"):
                     line += f"; {fmt_k3_info(fw_search_pair.info(bd1, bd2, dtype, R))}"
             print(line)
             check(errs["max_pen"] <= atol, f"{tag}: max_pen differs by {errs['max_pen']} (atol {atol})")
-            if label.startswith(("floor->sphere", "sphere->floor")):
-                # the bench pairs: every per-face output. Other kinds' box
+            if label.startswith(("floor->sphere", "sphere->floor", "sphere20480")):
+                # the bench pairs and the 20,480-face sphere: every per-face
+                # output. Other kinds' box
                 # and cylinder gradients have exact-tie "failsafe" branches
                 # on their template vertices, where kernel and plain version
                 # may settle on different, equally valid points (the JAX
@@ -615,13 +641,14 @@ def phase_k2():
 # ---------------------------------------------------------------- phase 3c
 
 
-def igr_net(dtype, dims=(128,) * 8, skip_in=(4,), seed=1234):
+def igr_net(dtype, dims=(128,) * 8, skip_in=(4,), seed=1234, d_in=5):
     """The shape-space decoder at the reference's width (latent size 2,
     geometric init toward radius 0.55, weights from a numpy seed as the
-    golden file's)."""
+    golden file's); d_in = 259 with dims (512,) * 8 is IGR's own shape-space
+    decoder (a 256-dim latent)."""
     from diffsdfsim_torch.models.igr import init_implicit_net
 
-    return init_implicit_net(5, dims, skip_in, radius_init=0.55, generator=np.random.default_rng(seed),
+    return init_implicit_net(d_in, dims, skip_in, radius_init=0.55, generator=np.random.default_rng(seed),
                              dtype=dtype).to("cuda")
 
 
@@ -635,7 +662,8 @@ def igr_flops(params, n):
 
 
 def fmt_k4_info(info):
-    return (f"{info['threads']} threads x cluster of {info['cluster']}, {info['tile']} points per cluster, "
+    return (f"{info['threads']} threads x cluster of {info['cluster']} ({info['slices']} column slices each), "
+            f"{info['tile']} points per cluster, "
             f"{info['smem_bytes']} B shared per CTA, {info['regs']} registers, {info['spill_bytes']} B spilled, "
             f"{info['blocks_per_sm']} CTAs/SM, {info['max_clusters']} clusters at once")
 
@@ -651,7 +679,7 @@ def k4_case(params, n, rtol, tiles=(0,)):
 
     dtype = params.weights[0].dtype
     rng = np.random.default_rng(n)
-    x = np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1.0, 1.0, (n, 3))], axis=1)
+    x = np.concatenate([rng.normal(size=(n, params.d_in - 3)) * 0.3, rng.uniform(-1.0, 1.0, (n, 3))], axis=1)
     x = torch.tensor(x, dtype=dtype, device="cuda")
     ref = implicit_net_apply(params, x)
     errs, times = [], {}
@@ -669,7 +697,8 @@ def k4_case(params, n, rtol, tiles=(0,)):
     flops = igr_flops(params, n)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / PEAK_MATMUL_FLOPS[str(dtype).split(".")[1]] * 1e3
-    tag = f"K4 {str(dtype).split('.')[1]} N={n}"
+    width = max(w.shape[0] for w in params.weights)
+    tag = f"K4 {str(dtype).split('.')[1]}{f' width {width} d_in {params.d_in}' if width != 128 else ''} N={n}"
     tiles_s = ", ".join(f"tile {t} {ms:.4f}" for t, ms in times.items() if t)
     print(f"{tag}: max abs err {err:.3e}, rel {rel:.3e} (tol {rtol:g}); kernel {times[0]:.4f} ms ({how}"
           f"{'; ' + tiles_s if tiles_s else ''}) (wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -686,9 +715,12 @@ def phase_k4():
     """K4 against implicit_net_apply at N = 100 (template projection),
     2304 (a 3-rung Frank-Wolfe step over the 768-face floor) and 65536, at
     the reference's width, each at 32 and 40 points per cluster besides the
-    wrapper's choice. Tolerance: 1e-12 (float64) and 1e-5 (float32)
-    relative to the largest value (the kernel sums each dot product in its
-    own order, the plain version in cuBLAS's)."""
+    wrapper's choice; and IGR's shape-space decoder ((512,) * 8, a 256-dim
+    latent: d_in 259) at the latent drop's two most frequent N, 576 and
+    2304, at the wrapper's choice (16 points per cluster in float64) and 8.
+    Tolerance: 1e-12 (float64) and 1e-5 (float32) relative to the largest
+    value (the kernel sums each dot product in its own order, the plain
+    version in cuBLAS's)."""
     import torch
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
 
@@ -699,6 +731,11 @@ def phase_k4():
             print(f"K4 {str(dtype).split('.')[1]} resources, tile {tile}: {fmt_k4_info(igr_mlp.info(params, dtype, tile))}")
         for n in (100, 2304, 65536):
             rows[(dtype, n)] = k4_case(params, n, K4_RTOL[str(dtype).split(".")[1]], tiles=(0, 32, 40))
+        wide = igr_net(dtype, (512,) * 8, (4,), d_in=259).params()
+        print(f"K4 {str(dtype).split('.')[1]} width 512 d_in 259 resources, wrapper's choice: "
+              f"{fmt_k4_info(igr_mlp.info(wide, dtype, 0, 2304))}")
+        for n in (576, 2304):
+            rows[(dtype, "512", n)] = k4_case(wide, n, K4_RTOL[str(dtype).split(".")[1]], tiles=(0, 8))
     return rows
 
 
@@ -730,17 +767,94 @@ def grid_sample_fn(grid, inds):
     return run
 
 
-def phase_k5():
-    """K5 against sdf.grid_interp on 33^3, 64^3 and 128^3 grids, C = 1 (the
-    SDF value) and 3 (the gradient volume), N = 10^3 and 10^5 fractional
-    voxel coordinates, ~4 % of them outside the grid (extrapolated by the
-    clamped base corner) and some exactly on the upper faces. Tolerance 0:
-    the kernel repeats the plain version's products in the same order. The
-    library column times grid_sample on the same inputs (it agrees at the
-    in-bounds points; outside it clamps)."""
+def k5_query_points(res, scale, n, seed):
+    """n metric points for a query of a res^3 grid at this scale: ~85 %
+    inside the grid, 5 % on its faces (one axis or several), the rest out
+    to 1.2 scale, some just outside the faces (numpy)."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-1.2 * scale, 1.2 * scale, (n, 3))
+    k = int(0.85 * n)
+    pts[:k] = rng.uniform(-scale, scale, (k, 3))
+    for i in range(k, k + n // 20):
+        axes = rng.choice(3, size=1 + i % 3, replace=False)
+        pts[i, axes] = scale * rng.choice([-1.0, 1.0], size=len(axes))
+    pts[-(n // 50):] = scale * (1.0 + 1e-15 * rng.uniform(1, 8, (n // 50, 3)))
+    return pts
+
+
+def k5_query_plain(pts, grid, scale):
+    """The plain version's (sdf, grad, grad_in, grad_raw) of a fused query
+    (grid_interp.cu ``grid_query``): the query's value and gradient (with a
+    scale), grid_sdf_grad of the normalized points, and the interpolated
+    central differences before normalize and masks."""
     import torch
     from diffsdfsim_torch.ops import sdf
-    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+
+    pts_in = pts if scale is None else pts / scale
+    inds, valid = sdf._grid_inds(pts_in, grid.shape)
+    safe = torch.where(valid[:, None], inds, torch.zeros_like(inds))
+    raw = sdf.grid_interp(sdf.grid_grad_volume(grid), safe).T
+    if scale is None:
+        return sdf.grid_sdf_raw(pts, grid), None, sdf.grid_sdf_grad(pts, grid), raw
+    sdfs, grads = sdf.grid_query(pts, grid, scale)
+    return sdfs, grads, sdf.grid_sdf_grad(pts_in, grid), raw
+
+
+def ulps(a, b):
+    """The largest distance between a and b in units in the last place of
+    the larger (0 where they are equal, NaN with NaN)."""
+    a, b = a.detach().cpu().numpy(), b.detach().cpu().numpy()
+    if a.shape != b.shape:
+        return float("inf")
+    same = (a == b) | (np.isnan(a) & np.isnan(b))
+    with np.errstate(invalid="ignore"):
+        d = np.where(same, 0.0, np.abs(a - b) / np.spacing(np.maximum(np.abs(a), np.abs(b))))
+    return float(np.nan_to_num(d, nan=np.inf).max()) if d.size else 0.0
+
+
+# How the fused query is held against its plain version on the card:
+# bitwise, every output. The value and the interpolated gradient take the
+# same correctly rounded operations in the same order; normalize's sum of
+# squares is a reduction, whose order is torch's choice: on an H100 it is
+# (a^2 + b^2) + c^2 for both of the query's normalizes
+# (tools/normalize_rounding_check.py), as the kernel adds them.
+K5_ULPS = 0
+
+
+def k5_query_errors(outs, ref, max_ulps=K5_ULPS):
+    """{output: ulps} of the kernel's (sdf, grad, grad_in, grad_raw) against
+    k5_query_plain's, for the outputs the kernel wrote, and whether they
+    pass: the value and the interpolated gradient bitwise, the normalized
+    gradients within max_ulps units in the last place."""
+    errs = {name: ulps(o, r) for name, o, r in zip(("value", "grad", "grad_in", "grad_raw"), outs, ref)
+            if o is not None}
+    ok = all(v == 0.0 if name in ("value", "grad_raw") else v <= max_ulps for name, v in errs.items())
+    return errs, ok
+
+
+def phase_k5():
+    """K5's two entry points against their plain versions.
+
+    The sampler against sdf.grid_interp on 33^3, 64^3 and 128^3 grids, C = 1
+    and 3, N = 10^3 and 10^5 fractional voxel coordinates, ~4 % of them
+    outside the grid (extrapolated by the clamped base corner) and some
+    exactly on the upper faces. Tolerance 0: the kernel repeats the plain
+    version's products in the same order.
+
+    The fused query (a GridShape's whole query_sdfs in one launch) against
+    k5_query_plain on the same grids, float64 and float32, at the grid drop's
+    most frequent N (960: a 3-rung search over the ball's 320 faces) and at
+    10^5, with every output and value only, held as k5_query_errors says;
+    one GridShape query through the public path makes exactly one launch and
+    no synchronizing host copy. Its time: kernel (device), the public query's
+    wrapper (CUDA events), the plain composition, and grid_sample on a
+    4-channel (value and gradient) volume as the library column; the bound
+    counts min(32 N, X Y Z) grid values, the points and the outputs."""
+    import torch
+    from diffsdfsim_torch.ops import sdf
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel
+    from diffsdfsim_torch.physics import GridShape
+    from diffsdfsim_torch.physics.shapes import query_sdfs
 
     rows = {}
     for dtype in (torch.float64, torch.float32):
@@ -757,27 +871,58 @@ def phase_k5():
                     ref = sdf.grid_interp(grid, inds)
                     torch.cuda.synchronize()
                     err = float((out - ref).abs().max())
-                    inside = torch.all((inds >= 0) & (inds <= res - 1), dim=-1)
-                    lib = grid_sample_fn(grid, inds)
-                    lib_err = float((lib().reshape(out.shape) - out).abs()[..., inside].max())
                     ms, how = device_ms(lambda: grid_interp.run(grid, inds), "grid_interp_kernel")
-                    wrapper_ms = cuda_ms(lambda: grid_interp(grid, inds))
-                    plain_ms = cuda_ms(lambda: sdf.grid_interp(grid, inds))
-                    library_ms = cuda_ms(lib)
-                    esize = grid.element_size()
-                    # the gather touches at most 8 corners per point and channel
-                    nbytes = (min(8 * n * C, grid.numel()) + inds.numel() + out.numel()) * esize
-                    flops = 30 * n * C
-                    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                    ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
-                    tag = f"K5 {str(dtype).split('.')[1]} {res}^3 C={C} N={n}"
-                    print(f"{tag}: max abs err {err:.3e} (tol 0), grid_sample at in-bounds points {lib_err:.1e}; "
-                          f"kernel {ms:.4f} ms ({how}) (wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-                          f"grid_sample {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
-                          f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
+                    tag = f"K5 sampler {str(dtype).split('.')[1]} {res}^3 C={C} N={n}"
+                    print(f"{tag}: max abs err {err:.3e} (tol 0); kernel {ms:.4f} ms ({how})")
                     check(err == 0.0, f"{tag}: kernel differs from the plain version by {err}")
-                    rows[(dtype, res, C, n)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                                                    library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+            for n in (960, 100000):
+                grid = torch.tensor(sphere_grid(res), dtype=dtype, device="cuda")
+                scale = torch.tensor(0.75, dtype=dtype, device="cuda")
+                pts = torch.tensor(k5_query_points(res, 0.75, n, seed=res + n), dtype=dtype, device="cuda")
+                ref = k5_query_plain(pts, grid, scale)
+                outs = grid_query_kernel.run(pts, grid, scale, True, True, True)
+                errs, ok = k5_query_errors(outs, ref)
+                abs_err = max(float((o - r).abs().max()) for o, r in zip(outs, ref))
+                errs_v, ok_v = k5_query_errors(grid_query_kernel.run(pts, grid, scale), ref)
+                pin = pts / scale
+                errs_n, ok_n = k5_query_errors(grid_query_kernel.run(pin, grid, None, grad_in=True, grad_raw=True),
+                                               k5_query_plain(pin, grid, None))
+                torch.cuda.synchronize()
+                tag = f"K5 query {str(dtype).split('.')[1]} {res}^3 N={n}"
+                line = (f"{tag}: max abs err {abs_err:.3e}; ulps " + ", ".join(f"{k} {v:g}" for k, v in errs.items())
+                        + f"; value only {errs_v['value']:g}; normalized frame "
+                        + ", ".join(f"{k} {v:g}" for k, v in errs_n.items()))
+                check(ok and ok_v and ok_n, f"{tag}: the fused query differs from the plain version: {line}")
+                shape = GridShape(grid=grid, scale_=scale)
+                # one public query: one launch, no synchronizing operation
+                before = grid_query_kernel.launches
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    query_sdfs(shape, pts)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                check(grid_query_kernel.launches == before + 1, f"{tag}: a GridShape query made "
+                      f"{grid_query_kernel.launches - before} launches")
+                ms, how = device_ms(lambda: grid_query_kernel.run(pts, grid, scale, grad=True), "grid_query_kernel")
+                wrapper_ms = cuda_ms(lambda: query_sdfs(shape, pts))
+                plain_ms = cuda_ms(lambda: sdf.grid_query(pts, grid, scale))
+                vol4 = torch.cat([grid[None], sdf.grid_grad_volume(grid)])
+                inds, valid = sdf._grid_inds(pin, grid.shape)
+                lib = grid_sample_fn(vol4, torch.where(valid[:, None], inds, torch.zeros_like(inds)))
+                library_ms = cuda_ms(lib)
+                esize = grid.element_size()
+                # the grid values the points' corners and stencils touch, the
+                # points, the scale, the value and gradient written
+                nbytes = (min(32 * n, grid.numel()) + 3 * n + 1 + 4 * n) * esize
+                flops = 240 * n  # per point: value 30, 24 differences and 3 blends 114, two normalizes 24, masks
+                bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+                print(f"{line}; one query: 1 launch, no sync; kernel {ms:.4f} ms ({how}) (wrapper {wrapper_ms:.4f} ms), "
+                      f"plain {plain_ms:.4f} ms, grid_sample C=4 {library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} "
+                      f"ms ({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
+                rows[(dtype, res, n)] = dict(err=abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                             library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
     return rows
 
 
@@ -1015,22 +1160,23 @@ def phase_gradient():
 
 def reset_counts():
     from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
-    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
 
-    for k in (pdipm_fric, fw_search_pair, kkt_grad_fric, igr_mlp, grid_interp):
+    for k in (pdipm_fric, fw_search_pair, kkt_grad_fric, igr_mlp, grid_interp, grid_query_kernel):
         k.launches = 0
 
 
 def read_counts():
     from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
-    from diffsdfsim_torch.ops.grid_cuda import grid_interp
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
 
     return {"pdipm_fwd": pdipm_fric.launches, "fw_search": fw_search_pair.launches,
-            "kkt_bwd": kkt_grad_fric.launches, "igr_mlp": igr_mlp.launches, "grid_interp": grid_interp.launches}
+            "kkt_bwd": kkt_grad_fric.launches, "igr_mlp": igr_mlp.launches, "grid_query": grid_query_kernel.launches,
+            "grid_interp": grid_interp.launches}
 
 
 def synced(fn):
@@ -1088,11 +1234,14 @@ def compare_shape_traj(traj, ref, label, atol):
 def phase_grid_path():
     """The voxel-grid body on CUDA: the 16-frame drop of a voxelized sphere
     on a 64^3 float64 grid (tests/test_world_extra.py:53-67 at a voxel-SDF
-    user's size) through K5 (every SDF value and gradient of the grid body)
-    and K1, against the JAX golden file; K3 is never launched (no pair of
-    this scene is one of its analytic kinds)."""
+    user's size) through K5 (every query of the grid body, template
+    projection included, is one fused-query launch: checked by counting the
+    queries, and no gradient volume is built) and K1, against the JAX golden
+    file; K3 is never launched (no pair of this scene is one of its
+    analytic kinds)."""
     import torch
     from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops import grid_cuda, sdf
     from diffsdfsim_torch.physics import (BoxShape, Gravity3D, GridShape, TotalConstraint3D, make_body,
                                           make_world, rollout)
 
@@ -1111,17 +1260,36 @@ def phase_grid_path():
         return ball, rollout(spec, state, n_frames)[1]
 
     run(2)  # warm-up
-    reset_counts()
-    (ball, traj), wall, syncs = synced(lambda: run(int(golden["frames"])))
-    launches = read_counts()
-    check(launches["grid_interp"] > 0 and launches["fw_search"] == 0,
-          f"the grid path must launch K5 and not K3: {launches}")
+    queries, volumes = [0], [0]
+    query, volume = grid_cuda.grid_query, sdf.grid_grad_volume
+
+    def counted_query(*args, **kwargs):
+        queries[0] += 1
+        return query(*args, **kwargs)
+
+    def counted_volume(grid):
+        volumes[0] += 1
+        return volume(grid)
+
+    grid_cuda.grid_query, sdf.grid_grad_volume = counted_query, counted_volume
+    try:
+        reset_counts()
+        (ball, traj), wall, syncs = synced(lambda: run(int(golden["frames"])))
+        launches = read_counts()
+    finally:
+        grid_cuda.grid_query, sdf.grid_grad_volume = query, volume
+    check(launches["grid_query"] > 0 and launches["fw_search"] == 0 and launches["grid_interp"] == 0,
+          f"the grid path must launch K5's query and not K3 or the sampler: {launches}")
+    check(launches["grid_query"] == queries[0] and volumes[0] == 0,
+          f"the grid path made {launches['grid_query']} K5 launches for {queries[0]} grid queries and built "
+          f"{volumes[0]} gradient volumes")
     check(float((ball.verts.cpu() - torch.tensor(golden["verts"])).abs().max()) <= 1e-12, "grid body verts differ")
     _, errs = compare_shape_traj(traj, golden, "grid path vs JAX golden", ATOL_SHAPE_PATH)
     n_sub = int(traj.valid.sum())
     pwall, busy, kern = busy_share(lambda: run(int(golden["frames"])))
     print(f"grid path: {int(golden['frames'])} frames on a {int(golden['res'])}^3 grid in {wall:.3f} s wall "
-          f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads; launches {launches}; "
+          f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads; {queries[0]} grid queries, "
+          f"{volumes[0]} gradient volumes; launches {launches}; "
           f"vs JAX golden " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f"; profiled: wall {pwall:.1f} ms, device busy {busy:.1f} ms (idle {100 - 100 * busy / pwall:.1f}%)")
     return launches
@@ -1234,7 +1402,7 @@ def main():
     k3r = k3[(f64, "sphere->floor touch R=3")]  # the pair that finds the contacts
     k2r = k2[(f64, 4, 1)]  # one problem per contacting substep on the main path
     k4r = k4[(f64, 2304)]  # a 3-rung Frank-Wolfe step over the floor's 768 faces
-    k5r = k5[(f64, 64, 1, 1000)]  # the grid path's grid, ~10^3 SDF queries per call
+    k5r = k5[(f64, 64, 960)]  # the grid path's grid at its most frequent query size
     kernels = [
         dict(name="pdipm_fwd", route="cuda", source="diffsdfsim_torch/ops/csrc/pdipm_fwd.cu",
              replaces="diffsdfsim_tpu/ops/qp_pallas.py:247", launches=launches["pdipm_fwd"],
@@ -1253,11 +1421,11 @@ def main():
              bound_by="bytes" if k2r["bytes_ms"] > k2r["ops_ms"] else "operations", library_ms=k2r["library_ms"]),
         dict(name="igr_mlp", route="cuda", source="diffsdfsim_torch/ops/csrc/igr_mlp.cu",
              replaces="diffsdfsim_tpu/ops/pallas_kernels.py:40", launches=latent_launches["igr_mlp"],
-             max_abs_err=max(r["err"] for (dt, _), r in k4.items() if dt == f64), ms=k4r["ms"],
+             max_abs_err=max(r["err"] for (dt, *_), r in k4.items() if dt == f64), ms=k4r["ms"],
              plain_ms=k4r["plain_ms"], bound_ms=max(k4r["bytes_ms"], k4r["ops_ms"]),
              bound_by="bytes" if k4r["bytes_ms"] > k4r["ops_ms"] else "operations", library_ms=None),
-        dict(name="grid_interp", route="cuda", source="diffsdfsim_torch/ops/csrc/grid_interp.cu",
-             replaces="diffsdfsim_tpu/ops/pallas_kernels.py:106", launches=grid_launches["grid_interp"],
+        dict(name="grid_query", route="cuda", source="diffsdfsim_torch/ops/csrc/grid_interp.cu",
+             replaces="diffsdfsim_tpu/ops/pallas_kernels.py:106", launches=grid_launches["grid_query"],
              max_abs_err=max(r["err"] for (dt, *_), r in k5.items() if dt == f64), ms=k5r["ms"],
              plain_ms=k5r["plain_ms"], bound_ms=max(k5r["bytes_ms"], k5r["ops_ms"]),
              bound_by="bytes" if k5r["bytes_ms"] > k5r["ops_ms"] else "operations", library_ms=k5r["library_ms"]),

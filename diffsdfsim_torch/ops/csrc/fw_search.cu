@@ -22,12 +22,16 @@
 // and quat_to_matrix run on the card (each tensor op rounded on its own;
 // `cornered` below), so the outputs are those of the plain glue's inputs.
 //
-// Layout: one face per thread. The R F faces are spread over the card's
-// SMs, 64 to 256 a CTA (at most 512): a pose takes a thread-block cluster
-// of up to 16 CTAs (MAX_FACES = 8192; at the bench's R = 3 the sphere's 320
-// faces take 5 CTAs, the floor's 768 faces 12). Each thread keeps its
-// face's corners, Frank-Wolfe point and barycentrics in registers for the
-// whole search. A Frank-Wolfe iteration ends in one barrier: each warp ORs
+// Layout: one face per thread up to FACE_CAP = 8192 faces. The R F faces
+// are spread over the card's SMs, 64 to 256 a CTA (at most 512): a pose
+// takes a thread-block cluster of up to 16 CTAs (at the bench's R = 3 the
+// sphere's 320 faces take 5 CTAs, the floor's 768 faces 12). Each thread
+// keeps its face's corners, Frank-Wolfe point and barycentrics in registers
+// for the whole search. Past FACE_CAP faces (an icosphere at subdiv 5 has
+// 20,480) a pose takes 16 CTAs of 512 threads and each thread loops over
+// several faces, whose state waits in a scratch buffer between the phases
+// (written and read back in whole warps, so L2 traffic, not registers,
+// grows with F); the vote stays one per iteration for the whole pose. A Frank-Wolfe iteration ends in one barrier: each warp ORs
 // "penetration found" and "still improving" into a flag word (a ring of
 // three, so no second barrier clears it; in CTA 0's shared memory), and
 // every thread then updates its own face. A non-candidate face skips the
@@ -55,7 +59,8 @@ namespace {
 
 constexpr int NBODY = 8;  // per-body constants: scale, prm[4], padding
 constexpr int MAX_THREADS = 512;  // up to 128 registers a thread
-constexpr int MAX_CS = 16;        // MAX_FACES = 8192; past 8 CTAs a non-portable cluster size
+constexpr int MAX_CS = 16;        // past 8 CTAs a non-portable cluster size
+constexpr int FACE_CAP = MAX_THREADS * MAX_CS;  // faces a pose runs one per thread
 constexpr int NUM_SMS = 132;  // H100 SXM
 constexpr int KIND_NONE = -1, KIND_SPHERE = 0, KIND_BOX = 1, KIND_ROUNDED_BOX = 2,
               KIND_CYLINDER = 3, KIND_BRICK = 4;
@@ -306,18 +311,217 @@ __device__ __forceinline__ T pick(int m, T a, T b, T c) {
   return m == 0 ? a : (m == 1 ? b : c);
 }
 
+// one face's search state: corners in body 2's frame, Frank-Wolfe point and
+// barycentrics, circumradius, candidate flag
+template <typename T>
+struct Face {
+  T p[3][3], x[3], a[3], rad;
+  bool cand;
+};
+
+// the shape constants of both bodies
+template <typename T, int K1>
+struct Bodies {
+  T s1, s2, prm1[4], prm2[4];
+  __device__ Bodies(const T* c1, const T* c2) {
+    constexpr bool b1_sdf = K1 != KIND_NONE;
+    s1 = b1_sdf ? c1[0] : (T)1;
+    s2 = c2[0];
+    for (int i = 0; i < 4; ++i) {
+      prm1[i] = b1_sdf ? c1[1 + i] : (T)0;
+      prm2[i] = c2[1 + i];
+    }
+  }
+};
+
+// face f's vertices in body 1's frame
+template <typename T>
+__device__ __forceinline__ void load_vertices(const T* verts, const int64_t* faces, int f, T (&vtx)[3][3]) {
+  for (int v = 0; v < 3; ++v) {
+    const T* src = verts + 3 * faces[3 * f + v];
+    for (int c = 0; c < 3; ++c) vtx[v][c] = src[c];
+  }
+}
+
+// corners, candidate gate (contacts.py:44-52) and min-corner init (:57-61)
 template <typename T, int K1, int K2>
+__device__ void face_init(const Poses<T>& P, int r, const Frames<T>& fr, const T (&vtx)[3][3], const Bodies<T, K1>& B,
+                          T eps, Face<T>& st) {
+  for (int v = 0; v < 3; ++v) cornered(P, r, fr, vtx[v], st.p[v]);
+  const T(&p)[3][3] = st.p;
+  T cen[3], g[3];
+  for (int c = 0; c < 3; ++c) cen[c] = pdiv(p[0][c] + p[1][c] + p[2][c], (T)3);
+  const T csdf = query<T, K2>(B.s2, B.prm2, cen[0], cen[1], cen[2], g);
+  T rad = 0;
+  for (int v = 0; v < 3; ++v) rad = fmax(rad, norm3(cen[0] - p[v][0], cen[1] - p[v][1], cen[2] - p[v][2]));
+  st.rad = rad;
+  st.cand = csdf < rad + eps && sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]) > (T)1e-12;
+  T cs3[3];
+  for (int v = 0; v < 3; ++v) cs3[v] = query<T, K2>(B.s2, B.prm2, p[v][0], p[v][1], p[v][2], nullptr);
+  const int i0 = (cs3[0] <= cs3[1] && cs3[0] <= cs3[2]) ? 0 : (cs3[1] <= cs3[2] ? 1 : 2);
+  for (int c = 0; c < 3; ++c) {
+    st.x[c] = pick(i0, p[0][c], p[1][c], p[2][c]);
+    st.a[c] = i0 == c ? (T)1 : (T)0;
+  }
+}
+
+// one Frank-Wolfe evaluation of a face (contacts.py:63-78): the LMO corner
+// m, the step gam and the face's vote bits
+template <typename T, int K1, int K2>
+__device__ int face_eval(const Face<T>& st, int it, const Bodies<T, K1>& B, T tol, int& m, T& gam) {
+  const T(&p)[3][3] = st.p;
+  const T gamma = (T)2 / ((T)it + (T)2);
+  T g[3];
+  const T sdf = query<T, K2>(B.s2, B.prm2, st.x[0], st.x[1], st.x[2], g);
+  T dv[3];
+  for (int v = 0; v < 3; ++v) dv[v] = p[v][0] * g[0] + p[v][1] * g[1] + p[v][2] * g[2];
+  m = (dv[0] <= dv[1] && dv[0] <= dv[2]) ? 0 : (dv[1] <= dv[2] ? 1 : 2);
+  T impr = 0;
+  for (int c = 0; c < 3; ++c) impr += (st.x[c] - pick(m, p[0][c], p[1][c], p[2][c])) * g[c];
+  gam = (st.cand && fabs(impr) > tol) ? gamma : (T)0;
+  return (st.cand && sdf < -tol ? VOTE_PEN : 0) | (gam != (T)0 ? VOTE_IMPROVING : 0);
+}
+
+template <typename T>
+__device__ __forceinline__ void face_step(Face<T>& st, int m, T gam) {
+  for (int c = 0; c < 3; ++c) {
+    st.x[c] = ((T)1 - gam) * st.x[c] + gam * pick(m, st.p[0][c], st.p[1][c], st.p[2][c]);
+    st.a[c] = st.a[c] * ((T)1 - gam) + gam * (m == c ? (T)1 : (T)0);
+  }
+}
+
+// push, polish, contact test and contact quantities of face f (contacts.py
+// :84-94, ops/polish.py); writes its outputs and returns its contact mask,
+// its penetration in `pen`
+template <typename T, int K1, int K2>
+__device__ bool face_finish(const Face<T>& st, int f, int r, int F, bool any_cand, const Frames<T>& fr,
+                            const Bodies<T, K1>& B, T eps, int polish_iters, const Outs<T>& O, T& pen) {
+  constexpr bool b1_sdf = K1 != KIND_NONE;
+  const bool polish = b1_sdf && polish_iters > 0;
+  const T(&x)[3] = st.x;
+  const T rad = st.rad;
+  const bool cand = st.cand;
+  T xf[3] = {x[0], x[1], x[2]};
+  T g[3], tmp[3], tmp2[3];
+  if (b1_sdf) {
+    fr.to_b1(x, tmp);
+    const T s1v = query<T, K1>(B.s1, B.prm1, tmp[0], tmp[1], tmp[2], g);
+    fr.dir_to_b2(g, tmp2);
+    for (int c = 0; c < 3; ++c) xf[c] = x[c] - s1v * tmp2[c];
+  }
+  T cb1[3], bx[3] = {0, 0, 0}, fsdf;
+  if (polish) {
+    T xb1[3];
+    fr.to_b1(xf, xb1);
+    const T s1b = query<T, K1>(B.s1, B.prm1, xb1[0], xb1[1], xb1[2], g);
+    for (int c = 0; c < 3; ++c) bx[c] = xb1[c] - s1b * g[c];
+    fr.to_b2(bx, tmp);
+    T bs2 = query<T, K2>(B.s2, B.prm2, tmp[0], tmp[1], tmp[2], nullptr);
+    T px[3] = {xf[0], xf[1], xf[2]};
+    T eta_f = 1;
+    // a non-candidate face's rounds change neither bx nor bs2: skip them
+    for (int k = 0; cand && k < polish_iters; ++k) {
+      T x1c[3], g1[3], x1p[3], xp[3], g2[3], n1[3];
+      fr.to_b1(px, x1c);
+      const T s1v = query<T, K1>(B.s1, B.prm1, x1c[0], x1c[1], x1c[2], g1);
+      for (int c = 0; c < 3; ++c) x1p[c] = x1c[c] - s1v * g1[c];
+      fr.to_b2(x1p, xp);
+      const T s2v = query<T, K2>(B.s2, B.prm2, xp[0], xp[1], xp[2], g2);
+      if (s2v < bs2) {
+        for (int c = 0; c < 3; ++c) bx[c] = x1p[c];
+        bs2 = s2v;
+      }
+      fr.dir_to_b2(g1, n1);
+      const T dt = g2[0] * n1[0] + g2[1] * n1[1] + g2[2] * n1[2];
+      T t[3];
+      for (int c = 0; c < 3; ++c) t[c] = g2[c] - dt * n1[c];
+      const T tl = norm3(t[0], t[1], t[2]);
+      const T eta = rad * eta_f;
+      for (int c = 0; c < 3; ++c) px[c] = xp[c] - eta * pdiv(t[c], tl);
+      eta_f = eta_f * (T)0.5;
+    }
+    fsdf = bs2;
+    const T pd1 = query<T, K1>(B.s1, B.prm1, bx[0], bx[1], bx[2], g);
+    for (int c = 0; c < 3; ++c) cb1[c] = bx[c] - pd1 * g[c];
+  } else {
+    fsdf = query<T, K2>(B.s2, B.prm2, xf[0], xf[1], xf[2], nullptr);
+    fr.to_b1(x, cb1);
+    if (b1_sdf) {
+      const T pd1 = query<T, K1>(B.s1, B.prm1, cb1[0], cb1[1], cb1[2], g);
+      for (int c = 0; c < 3; ++c) cb1[c] = cb1[c] - pd1 * g[c];
+    }
+  }
+  const bool cmask = any_cand && cand && fsdf <= eps;
+  // p1 world offset = R1 cb1; contact point in body 2: R2' (p1w - d21)
+  T p1w[3], w[3], cb2[3], n2[3], nrm[3];
+  for (int i = 0; i < 3; ++i) p1w[i] = fr.R1[3 * i] * cb1[0] + fr.R1[3 * i + 1] * cb1[1] + fr.R1[3 * i + 2] * cb1[2];
+  for (int i = 0; i < 3; ++i) w[i] = p1w[i] - fr.d21[i];
+  for (int i = 0; i < 3; ++i) cb2[i] = fr.R2[i] * w[0] + fr.R2[3 + i] * w[1] + fr.R2[6 + i] * w[2];
+  const T d2v = query<T, K2>(B.s2, B.prm2, cb2[0], cb2[1], cb2[2], n2);
+  for (int i = 0; i < 3; ++i) nrm[i] = fr.R2[3 * i] * n2[0] + fr.R2[3 * i + 1] * n2[1] + fr.R2[3 * i + 2] * n2[2];
+  pen = -d2v;
+
+  const size_t o3 = (size_t)r * 3 * F, o1 = (size_t)r * F;
+  for (int c = 0; c < 3; ++c) {
+    // a pose without any candidate reports all zeros (contacts.py:292-301)
+    O.abc[o3 + c * F + f] = any_cand ? st.a[c] : (T)0;
+    O.nrm[o3 + c * F + f] = cmask ? nrm[c] : (T)0;
+    O.p1[o3 + c * F + f] = cmask ? p1w[c] : (T)0;
+    O.x1[o3 + c * F + f] = (polish && any_cand) ? bx[c] : (T)0;
+  }
+  O.pen[o1 + f] = cmask ? pen : (T)-1;
+  O.cand[o1 + f] = cand;
+  O.cmask[o1 + f] = cmask;
+  return cmask;
+}
+
+// The state of faces beyond one a thread (F > FACE_CAP) between the phases:
+// NSTATE arrays of R F values (corners, point, barycentrics, radius,
+// candidate flag, the iteration's LMO corner and step), one value of a face
+// after another, so a warp's faces are contiguous
+constexpr int NSTATE = 19;
+template <typename T>
+struct Store {
+  T* s;
+  size_t n;  // R F
+  __device__ void put(size_t i, const Face<T>& st) const {
+    for (int v = 0; v < 3; ++v)
+      for (int c = 0; c < 3; ++c) s[(3 * v + c) * n + i] = st.p[v][c];
+    for (int c = 0; c < 3; ++c) {
+      s[(9 + c) * n + i] = st.x[c];
+      s[(12 + c) * n + i] = st.a[c];
+    }
+    s[15 * n + i] = st.rad;
+    s[16 * n + i] = st.cand ? (T)1 : (T)0;
+  }
+  __device__ void get(size_t i, Face<T>& st) const {
+    for (int v = 0; v < 3; ++v)
+      for (int c = 0; c < 3; ++c) st.p[v][c] = s[(3 * v + c) * n + i];
+    for (int c = 0; c < 3; ++c) {
+      st.x[c] = s[(9 + c) * n + i];
+      st.a[c] = s[(12 + c) * n + i];
+    }
+    st.rad = s[15 * n + i];
+    st.cand = s[16 * n + i] != (T)0;
+  }
+};
+
+// MULTI = false: one face per thread, its state in registers for the whole
+// search. MULTI = true (F > FACE_CAP): a pose's cluster of MAX_CS CTAs of
+// MAX_THREADS threads loops over its faces, thread t taking faces t, t +
+// MAX_CS MAX_THREADS, ...; their state lives in `state` between the phases,
+// and each Frank-Wolfe iteration is still one vote of the whole pose.
+template <typename T, int K1, int K2, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
 fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __restrict__ verts,
                  const int64_t* __restrict__ faces, Poses<T> P, const T* __restrict__ c1,
-                 const T* __restrict__ c2, Outs<T> O) {
-  constexpr bool b1_sdf = K1 != KIND_NONE;
+                 const T* __restrict__ c2, Outs<T> O, T* __restrict__ state) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int r = blockIdx.x / cs;
-  const int f = rank * blockDim.x + threadIdx.x;
-  const bool has_face = f < F;
+  const int f0 = rank * blockDim.x + threadIdx.x, stride = cs * blockDim.x;
+  const bool has_face = f0 < F;
   Frames<T>& fr = *reinterpret_cast<Frames<T>*>(smem_raw);
   T* red = reinterpret_cast<T*>(smem_raw + (sizeof(Frames<T>) + 15) / 16 * 16);  // cs x 32 warp maxima
   int* flags_local = reinterpret_cast<int*>(red + MAX_CS * 32);
@@ -326,11 +530,7 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
 
   // the face's vertices (body 1's frame), loaded while thread 0 forms the frames
   T vtx[3][3];
-  if (has_face)
-    for (int v = 0; v < 3; ++v) {
-      const T* src = verts + 3 * faces[3 * f + v];
-      for (int c = 0; c < 3; ++c) vtx[v][c] = src[c];
-    }
+  if (!MULTI && has_face) load_vertices(verts, faces, f0, vtx);
   if (threadIdx.x == 0) {
     make_frames(P, r, fr);
     if (rank == 0)
@@ -341,32 +541,25 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
   else
     __syncthreads();
 
-  const T s1 = b1_sdf ? c1[0] : (T)1, s2 = c2[0];
-  T prm1[4], prm2[4];
-  for (int i = 0; i < 4; ++i) {
-    prm1[i] = b1_sdf ? c1[1 + i] : (T)0;
-    prm2[i] = c2[1 + i];
-  }
-
-  // corners, candidate gate + min-corner init
-  T p[3][3], x[3], a[3], rad = 0;
-  bool cand = false;
-  if (has_face) {
-    for (int v = 0; v < 3; ++v) cornered(P, r, fr, vtx[v], p[v]);
-    T cen[3], g[3];
-    for (int c = 0; c < 3; ++c) cen[c] = pdiv(p[0][c] + p[1][c] + p[2][c], (T)3);
-    const T csdf = query<T, K2>(s2, prm2, cen[0], cen[1], cen[2], g);
-    for (int v = 0; v < 3; ++v) rad = fmax(rad, norm3(cen[0] - p[v][0], cen[1] - p[v][1], cen[2] - p[v][2]));
-    cand = csdf < rad + eps && sqrt(g[0] * g[0] + g[1] * g[1] + g[2] * g[2]) > (T)1e-12;
-    T cs3[3];
-    for (int v = 0; v < 3; ++v) cs3[v] = query<T, K2>(s2, prm2, p[v][0], p[v][1], p[v][2], nullptr);
-    const int i0 = (cs3[0] <= cs3[1] && cs3[0] <= cs3[2]) ? 0 : (cs3[1] <= cs3[2] ? 1 : 2);
-    for (int c = 0; c < 3; ++c) {
-      x[c] = pick(i0, p[0][c], p[1][c], p[2][c]);
-      a[c] = i0 == c ? (T)1 : (T)0;
+  const Bodies<T, K1> B(c1, c2);
+  const Store<T> S{state, (size_t)gridDim.x / cs * F};
+  const size_t base = (size_t)r * F;
+  Face<T> st;
+  bool cand_any = false;
+  if (!MULTI) {
+    if (has_face) {
+      face_init<T, K1, K2>(P, r, fr, vtx, B, eps, st);
+      cand_any = st.cand;
+    }
+  } else {
+    for (int f = f0; f < F; f += stride) {
+      load_vertices(verts, faces, f, vtx);
+      face_init<T, K1, K2>(P, r, fr, vtx, B, eps, st);
+      S.put(base + f, st);
+      cand_any = cand_any || st.cand;
     }
   }
-  const bool any_cand = vote(cand ? 1 : 0, cluster) != 0;
+  const bool any_cand = vote(cand_any ? 1 : 0, cluster) != 0;
 
   // Frank-Wolfe loop (contacts.py:63-82): per-face LMO step, stopped for the
   // whole pair when no face improves or a penetration is found
@@ -375,104 +568,40 @@ fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __re
     evaluated = it + 1;
     int bits = 0, m = 0;
     T gam = 0;
-    if (has_face) {
-      const T gamma = (T)2 / ((T)it + (T)2);
-      T g[3];
-      const T sdf = query<T, K2>(s2, prm2, x[0], x[1], x[2], g);
-      T dv[3];
-      for (int v = 0; v < 3; ++v) dv[v] = p[v][0] * g[0] + p[v][1] * g[1] + p[v][2] * g[2];
-      m = (dv[0] <= dv[1] && dv[0] <= dv[2]) ? 0 : (dv[1] <= dv[2] ? 1 : 2);
-      T impr = 0;
-      for (int c = 0; c < 3; ++c) impr += (x[c] - pick(m, p[0][c], p[1][c], p[2][c])) * g[c];
-      gam = (cand && fabs(impr) > tol) ? gamma : (T)0;
-      bits = (cand && sdf < -tol ? VOTE_PEN : 0) | (gam != (T)0 ? VOTE_IMPROVING : 0);
+    if (!MULTI) {
+      if (has_face) bits = face_eval<T, K1, K2>(st, it, B, tol, m, gam);
+    } else {
+      for (int f = f0; f < F; f += stride) {
+        S.get(base + f, st);
+        bits |= face_eval<T, K1, K2>(st, it, B, tol, m, gam);
+        S.s[17 * S.n + base + f] = (T)m;
+        S.s[18 * S.n + base + f] = gam;
+      }
     }
     bits = vote(bits, cluster);
     if ((bits & VOTE_PEN) || !(bits & VOTE_IMPROVING)) break;
-    if (has_face) {
-      for (int c = 0; c < 3; ++c) {
-        x[c] = ((T)1 - gam) * x[c] + gam * pick(m, p[0][c], p[1][c], p[2][c]);
-        a[c] = a[c] * ((T)1 - gam) + gam * (m == c ? (T)1 : (T)0);
+    if (!MULTI) {
+      if (has_face) face_step(st, m, gam);
+    } else {
+      for (int f = f0; f < F; f += stride) {
+        S.get(base + f, st);
+        face_step(st, (int)S.s[17 * S.n + base + f], S.s[18 * S.n + base + f]);
+        S.put(base + f, st);
       }
     }
   }
 
   // push, polish, contact test, contact quantities (per face)
-  T local_max = -(T)INFINITY;
-  const bool polish = b1_sdf && polish_iters > 0;
-  if (has_face) {
-    T xf[3] = {x[0], x[1], x[2]};
-    T g[3], tmp[3], tmp2[3];
-    if (b1_sdf) {
-      fr.to_b1(x, tmp);
-      const T s1v = query<T, K1>(s1, prm1, tmp[0], tmp[1], tmp[2], g);
-      fr.dir_to_b2(g, tmp2);
-      for (int c = 0; c < 3; ++c) xf[c] = x[c] - s1v * tmp2[c];
+  T local_max = -(T)INFINITY, pen;
+  if (!MULTI) {
+    if (has_face && face_finish<T, K1, K2>(st, f0, r, F, any_cand, fr, B, eps, polish_iters, O, pen))
+      local_max = fmax(local_max, pen);
+  } else {
+    for (int f = f0; f < F; f += stride) {
+      S.get(base + f, st);
+      if (face_finish<T, K1, K2>(st, f, r, F, any_cand, fr, B, eps, polish_iters, O, pen))
+        local_max = fmax(local_max, pen);
     }
-    T cb1[3], bx[3] = {0, 0, 0}, fsdf;
-    if (polish) {
-      T xb1[3];
-      fr.to_b1(xf, xb1);
-      const T s1b = query<T, K1>(s1, prm1, xb1[0], xb1[1], xb1[2], g);
-      for (int c = 0; c < 3; ++c) bx[c] = xb1[c] - s1b * g[c];
-      fr.to_b2(bx, tmp);
-      T bs2 = query<T, K2>(s2, prm2, tmp[0], tmp[1], tmp[2], nullptr);
-      T px[3] = {xf[0], xf[1], xf[2]};
-      T eta_f = 1;
-      // a non-candidate face's rounds change neither bx nor bs2: skip them
-      for (int k = 0; cand && k < polish_iters; ++k) {
-        T x1c[3], g1[3], x1p[3], xp[3], g2[3], n1[3];
-        fr.to_b1(px, x1c);
-        const T s1v = query<T, K1>(s1, prm1, x1c[0], x1c[1], x1c[2], g1);
-        for (int c = 0; c < 3; ++c) x1p[c] = x1c[c] - s1v * g1[c];
-        fr.to_b2(x1p, xp);
-        const T s2v = query<T, K2>(s2, prm2, xp[0], xp[1], xp[2], g2);
-        if (s2v < bs2) {
-          for (int c = 0; c < 3; ++c) bx[c] = x1p[c];
-          bs2 = s2v;
-        }
-        fr.dir_to_b2(g1, n1);
-        const T dt = g2[0] * n1[0] + g2[1] * n1[1] + g2[2] * n1[2];
-        T t[3];
-        for (int c = 0; c < 3; ++c) t[c] = g2[c] - dt * n1[c];
-        const T tl = norm3(t[0], t[1], t[2]);
-        const T eta = rad * eta_f;
-        for (int c = 0; c < 3; ++c) px[c] = xp[c] - eta * pdiv(t[c], tl);
-        eta_f = eta_f * (T)0.5;
-      }
-      fsdf = bs2;
-      const T pd1 = query<T, K1>(s1, prm1, bx[0], bx[1], bx[2], g);
-      for (int c = 0; c < 3; ++c) cb1[c] = bx[c] - pd1 * g[c];
-    } else {
-      fsdf = query<T, K2>(s2, prm2, xf[0], xf[1], xf[2], nullptr);
-      fr.to_b1(x, cb1);
-      if (b1_sdf) {
-        const T pd1 = query<T, K1>(s1, prm1, cb1[0], cb1[1], cb1[2], g);
-        for (int c = 0; c < 3; ++c) cb1[c] = cb1[c] - pd1 * g[c];
-      }
-    }
-    const bool cmask = any_cand && cand && fsdf <= eps;
-    // p1 world offset = R1 cb1; contact point in body 2: R2' (p1w - d21)
-    T p1w[3], w[3], cb2[3], n2[3], nrm[3];
-    for (int i = 0; i < 3; ++i) p1w[i] = fr.R1[3 * i] * cb1[0] + fr.R1[3 * i + 1] * cb1[1] + fr.R1[3 * i + 2] * cb1[2];
-    for (int i = 0; i < 3; ++i) w[i] = p1w[i] - fr.d21[i];
-    for (int i = 0; i < 3; ++i) cb2[i] = fr.R2[i] * w[0] + fr.R2[3 + i] * w[1] + fr.R2[6 + i] * w[2];
-    const T d2v = query<T, K2>(s2, prm2, cb2[0], cb2[1], cb2[2], n2);
-    for (int i = 0; i < 3; ++i) nrm[i] = fr.R2[3 * i] * n2[0] + fr.R2[3 * i + 1] * n2[1] + fr.R2[3 * i + 2] * n2[2];
-    const T pen = -d2v;
-
-    const size_t o3 = (size_t)r * 3 * F, o1 = (size_t)r * F;
-    for (int c = 0; c < 3; ++c) {
-      // a pose without any candidate reports all zeros (contacts.py:292-301)
-      O.abc[o3 + c * F + f] = any_cand ? a[c] : (T)0;
-      O.nrm[o3 + c * F + f] = cmask ? nrm[c] : (T)0;
-      O.p1[o3 + c * F + f] = cmask ? p1w[c] : (T)0;
-      O.x1[o3 + c * F + f] = (polish && any_cand) ? bx[c] : (T)0;
-    }
-    O.pen[o1 + f] = cmask ? pen : (T)-1;
-    O.cand[o1 + f] = cand;
-    O.cmask[o1 + f] = cmask;
-    if (cmask) local_max = fmax(local_max, pen);
   }
 
   // max_pen: warp maxima into CTA 0, one barrier, CTA 0's thread 0 reduces
@@ -501,8 +630,15 @@ size_t smem_bytes() {
 
 // threads per CTA and CTAs per pose for R poses of F faces: the R F faces
 // spread over the card's SMs, 64 to 256 a CTA (a few poses take several SMs
-// each; many poses keep several CTAs on an SM)
+// each; many poses keep several CTAs on an SM); past FACE_CAP faces a pose
+// takes the largest cluster, MAX_CS CTAs of MAX_THREADS, each thread
+// several faces
 void geometry(int R, int F, int& threads, int& cs) {
+  if (F > FACE_CAP) {
+    threads = MAX_THREADS;
+    cs = MAX_CS;
+    return;
+  }
   const long long share = ((long long)R * F + NUM_SMS - 1) / NUM_SMS;
   const int per_cta = share < 64 ? 64 : (share > 256 ? 256 : (int)share);
   cs = (F + per_cta - 1) / per_cta;
@@ -537,14 +673,12 @@ struct Args {
   const void *verts, *faces, *c1, *c2;
   const void* poses[4];
   long long strides[8];
-  void *out, *stream;
+  void *out, *state, *stream;
 };
 
-template <typename T, int K1, int K2>
-int launch_kinds(const Args& A) {
-  auto kernel = fw_search_kernel<T, K1, K2>;
-  int threads, cs;
-  geometry(A.R, A.F, threads, cs);
+template <typename T, int K1, int K2, bool MULTI>
+int launch_kernel(const Args& A, int threads, int cs) {
+  auto kernel = fw_search_kernel<T, K1, K2, MULTI>;
   const size_t bytes = smem_bytes<T>();
   if (cs > 8) {
     const cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -566,16 +700,22 @@ int launch_kinds(const Args& A) {
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, A.F, A.iters, A.polish_iters, (T)A.eps, (T)A.tol,
                                        (const T*)A.verts, (const int64_t*)A.faces, P, (const T*)A.c1,
-                                       (const T*)A.c2, out_views<T>(A.out, A.R, A.F));
+                                       (const T*)A.c2, out_views<T>(A.out, A.R, A.F), (T*)A.state);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <typename T, int K1, int K2>
-int resources_kinds(const Args& A, long long* out) {
-  auto kernel = fw_search_kernel<T, K1, K2>;
+int launch_kinds(const Args& A) {
   int threads, cs;
   geometry(A.R, A.F, threads, cs);
+  return A.F > FACE_CAP ? launch_kernel<T, K1, K2, true>(A, threads, cs)
+                        : launch_kernel<T, K1, K2, false>(A, threads, cs);
+}
+
+template <typename T, int K1, int K2, bool MULTI>
+int resources_kernel(int threads, int cs, long long* out) {
+  auto kernel = fw_search_kernel<T, K1, K2, MULTI>;
   cudaFuncAttributes attr;
   cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess) return (int)err;
@@ -589,6 +729,14 @@ int resources_kinds(const Args& A, long long* out) {
   out[4] = (long long)attr.localSizeBytes;
   out[5] = blocks;
   return 0;
+}
+
+template <typename T, int K1, int K2>
+int resources_kinds(const Args& A, long long* out) {
+  int threads, cs;
+  geometry(A.R, A.F, threads, cs);
+  return A.F > FACE_CAP ? resources_kernel<T, K1, K2, true>(threads, cs, out)
+                        : resources_kernel<T, K1, K2, false>(threads, cs, out);
 }
 
 // run op<T, K1, K2>(args...) for the runtime kinds
@@ -637,15 +785,17 @@ extern "C" {
 // (c1 unused). verts (V, 3) and faces (F, 3) int64 are contiguous; poses:
 // q1 (R, 4), pos1 (R, 3), q2 (R, 4), pos2 (R, 3) with strides (row,
 // component) in elements, 8 values in that order; c1, c2: NBODY constants
-// per body (scale, kind parameters). out: see out_views. Returns the
-// launch's CUDA error; cudaErrorInvalidValue for F outside 1..8192.
+// per body (scale, kind parameters). out: see out_views. state: scratch of
+// NSTATE R F values when F > FACE_CAP (unused, may be null, below). Returns
+// the launch's CUDA error; cudaErrorInvalidValue for F < 1 or a missing
+// state.
 int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int polish_iters, double eps, double tol,
               const void* verts, const void* faces, const void* q1, const void* pos1, const void* q2,
-              const void* pos2, const long long* strides, const void* c1, const void* c2, void* out,
+              const void* pos2, const long long* strides, const void* c1, const void* c2, void* out, void* state,
               void* stream) {
-  if (F < 1 || F > MAX_THREADS * MAX_CS) return (int)cudaErrorInvalidValue;
+  if (F < 1 || (F > FACE_CAP && !state)) return (int)cudaErrorInvalidValue;
   if (R < 1) return 0;
-  Args A{R, F, iters, polish_iters, eps, tol, verts, faces, c1, c2, {q1, pos1, q2, pos2}, {}, out, stream};
+  Args A{R, F, iters, polish_iters, eps, tol, verts, faces, c1, c2, {q1, pos1, q2, pos2}, {}, out, state, stream};
   for (int i = 0; i < 8; ++i) A.strides[i] = strides[i];
   return dtype == 1 ? dispatch<double, Launch>(kind1, kind2, A) : dispatch<float, Launch>(kind1, kind2, A);
 }
@@ -654,8 +804,8 @@ int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int poli
 // pose (cluster), shared bytes per CTA, registers and local (spill) bytes
 // per thread, CTAs per SM
 int fw_search_info(int dtype, int kind1, int kind2, int R, int F, long long* out) {
-  if (F < 1 || F > MAX_THREADS * MAX_CS) return (int)cudaErrorInvalidValue;
-  Args A{R, F, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {}, {}, nullptr, nullptr};
+  if (F < 1) return (int)cudaErrorInvalidValue;
+  Args A{R, F, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {}, {}, nullptr, nullptr, nullptr};
   return dtype == 1 ? dispatch<double, Resources>(kind1, kind2, A, out)
                     : dispatch<float, Resources>(kind1, kind2, A, out);
 }

@@ -25,6 +25,16 @@
 //   32), 4 at the reference's width 128, so a tile runs on 4 SMs and each
 //   CTA streams a quarter of every layer's weights. Warps w and w + 4 share
 //   the 8-column output tile w % 4: each sums over alternate input chunks.
+// - Layers wider than 8 x 32 = 256 (IGR's shape-space decoders are 512
+//   wide): the cluster stays at 8 CTAs (a portable size) and CTA `rank`
+//   computes the 32-column slices rank, rank + 8, ... of each layer, one
+//   after the other, with an exchange buffer of its own for the epilogue
+//   (the layer's input is still needed by the next slice). Two TILE-row
+//   activation buffers of a 512-wide layer fill a block's shared memory at
+//   32 points, so the tile shrinks to 16 (or 8) points. Each tile then
+//   streams all the net's weights from L2 for fewer points (14.7 MB per 16
+//   points at 512 wide, float64), which bounds this path. A net whose
+//   8-point tile does not fit (float64: ~1,500 wide) is refused.
 // - Products: float64 on the FP64 tensor cores through
 //   mma.sync.aligned.m8n8k4.row.col.f64 (DMMA), two accumulator chains per
 //   m-tile (even and odd steps of k); float32 on FFMA (no TF32, as the
@@ -78,10 +88,12 @@ constexpr int KC = 16;                // inputs per weight chunk
 constexpr int WS = KC + 4;            // a chunk row in shared memory (padded against bank conflicts)
 constexpr int STAGES = 2;             // chunks in each warp's ring
 constexpr int SS = WARPS * 8 * WS;    // elements of one ring stage
-constexpr int MAX_CS = 8;      // portable cluster size: layers up to 8 * NS = 256 wide
+constexpr int MAX_CS = 8;      // portable cluster size; a wider layer gives each CTA several NS-column slices
+constexpr size_t MAX_SMEM = 232448;  // shared bytes a block can use
 
 struct Net {
   int n_layers, d_in, cs, aw;  // aw: activation row stride (widest padded input + 4)
+  int ns;                      // NS-column slices per CTA of the widest layer: rank, rank + cs, ...
   int in[MAXL], out[MAXL], kp[MAXL], np[MAXL], skip[MAXL];  // kp, np: padded inputs, outputs
   long long w_off[MAXL], b_off[MAXL];
   double beta;
@@ -153,19 +165,21 @@ __device__ __forceinline__ void softplus(float (&v)[n], double beta) {
 // ---------------------------------------------------------------- weight stream
 
 // The chunks a warp reads, in order: layer by layer (the last layer, a dot
-// product, reads its weights from global memory), chunks kh, kh + KH, ...
-// of KC inputs each, skipping layers where the rank has no output columns
-// or the warp no chunk.
+// product, reads its weights from global memory), slice by slice of the
+// rank's output columns (rank, rank + cs, ...), chunks kh, kh + KH, ... of
+// KC inputs each, skipping layers where the rank has no output columns or
+// the warp no chunk.
 struct Cursor {
-  int L, j;
+  int L, sl, j;
 };
 
-__device__ __forceinline__ bool has_cols(const Net& net, int rank, int L) { return rank * NS < net.np[L]; }
+__device__ __forceinline__ bool has_cols(const Net& net, int sl, int L) { return sl * NS < net.np[L]; }
 
 __device__ __forceinline__ void next_layer(const Net& net, int rank, int kh, Cursor& c) {
   do {
     ++c.L;
   } while (c.L < net.n_layers - 1 && (!has_cols(net, rank, c.L) || kh >= net.kp[c.L] / KC));
+  c.sl = rank;
   c.j = kh;
 }
 
@@ -178,13 +192,16 @@ __device__ void issue_chunk(const Net& net, int rank, int nt, int kh, Cursor& c,
                             T* buf) {
   if (c.L < net.n_layers - 1) {
     const int nchunk = net.kp[c.L] / KC;
-    const T* src = prm + net.w_off[c.L] + (((size_t)rank * nchunk + c.j) * NS + 8 * nt) * KC;
+    const T* src = prm + net.w_off[c.L] + (((size_t)c.sl * nchunk + c.j) * NS + 8 * nt) * KC;
     constexpr int SEG = 16 / sizeof(T);  // elements per 16-byte copy
     for (int s = threadIdx.x & 31; s < 8 * KC / SEG; s += 32) {
       const int n = s / (KC / SEG), k = (s % (KC / SEG)) * SEG;
       cp_async16(buf + n * WS + k, src + n * KC + k);
     }
-    if ((c.j += KH) >= nchunk) next_layer(net, rank, kh, c);
+    if ((c.j += KH) >= nchunk) {
+      c.j = kh;
+      if (!has_cols(net, c.sl += net.cs, c.L)) next_layer(net, rank, kh, c);
+    }
   }
   cp_async_commit();
 }
@@ -247,10 +264,15 @@ struct Vec2<float> {
 
 // ---------------------------------------------------------------- the kernel
 
+// the epilogue's exchange of partial sums, [warp][m][lane][2]: in the
+// layer's input buffer, which every warp has read by then, unless the CTA
+// has another slice of the layer still to compute from it
+size_t xch_elems(int mt, int ns) { return ns > 1 ? (size_t)WARPS * mt * 64 : 0; }
+
 template <typename T>
-size_t smem_elems(int mt, int aw, int d_in) {
+size_t smem_elems(int mt, int aw, int d_in, int ns) {
   const int tile = 8 * mt;
-  return (size_t)tile * (2 * aw + d_in) + (size_t)STAGES * SS;
+  return (size_t)tile * (2 * aw + d_in) + (size_t)STAGES * SS + xch_elems(mt, ns);
 }
 
 template <typename T, int MT>
@@ -266,12 +288,13 @@ __global__ void __launch_bounds__(THREADS) igr_mlp_kernel(Net net, int N, const 
   T* a = reinterpret_cast<T*>(smem_raw);  // this layer's input, TILE x aw
   T* b = a + TILE * aw;                    // its output, TILE x aw
   T* inp = b + TILE * aw;                  // the network input, TILE x d_in
-  T* ring = inp + TILE * d_in;  // 16-byte aligned: TILE is a multiple of 32
+  T* ring = inp + TILE * d_in;  // 16-byte aligned: TILE is a multiple of 8
+  T* xch_own = ring + STAGES * SS;  // the exchange buffer when ns > 1
   const int p0 = (blockIdx.x / cs) * TILE;
   const int np = min(TILE, N - p0);
 
   // start the weight stream, then load the tile (zero past N and d_in)
-  Cursor cur{-1, 0};
+  Cursor cur{-1, rank, 0};
   next_layer(net, rank, kh, cur);
   T* wring = ring + warp * 8 * WS;  // this warp's part of each stage
   for (int s = 0; s < STAGES - 1; ++s) issue_chunk(net, rank, nt, kh, cur, prm, wring + s * SS);
@@ -302,7 +325,7 @@ __global__ void __launch_bounds__(THREADS) igr_mlp_kernel(Net net, int N, const 
       __syncthreads();
     }
     if (L == net.n_layers - 1) break;
-    if (has_cols(net, rank, L)) {
+    for (int sl = rank; has_cols(net, sl, L); sl += cs) {
       T acc[2][MT][2];
 #pragma unroll
       for (int m = 0; m < MT; ++m) acc[0][m][0] = acc[0][m][1] = acc[1][m][0] = acc[1][m][1] = (T)0;
@@ -316,8 +339,9 @@ __global__ void __launch_bounds__(THREADS) igr_mlp_kernel(Net net, int N, const 
       // epilogue. The KH = 2 warps of an output tile hold partial sums over
       // alternate chunks; each finishes half of the m-tiles: it hands the
       // partials of the other half over through `a` (every warp is done
-      // reading it), adds the partner's, then bias, softplus (zero in padded
-      // columns) and the store to every CTA's b
+      // reading it; or the own exchange buffer, if a slice of this layer is
+      // still to come), adds the partner's, then bias, softplus (zero in
+      // padded columns) and the store to every CTA's b
       constexpr int MH = (MT + 1) / 2;
       T part[MT][2];
 #pragma unroll
@@ -325,14 +349,14 @@ __global__ void __launch_bounds__(THREADS) igr_mlp_kernel(Net net, int N, const 
         for (int i = 0; i < 2; ++i) part[m][i] = acc[0][m][i] + acc[1][m][i];
       const int m0 = kh == 0 ? 0 : MH, m1 = kh == 0 ? MH : MT;
       __syncthreads();
-      T* xch = a;  // [warp][m][lane][2]
+      T* xch = net.ns > 1 ? xch_own : a;  // [warp][m][lane][2]
 #pragma unroll
       for (int m = 0; m < MT; ++m)
         if (m < m0 || m >= m1)
           for (int i = 0; i < 2; ++i) xch[((warp * MT + m) * 32 + lane) * 2 + i] = part[m][i];
       __syncthreads();
       const int partner = warp ^ NTILES;
-      const int col = rank * NS + 8 * nt + 2 * (lane & 3);
+      const int col = sl * NS + 8 * nt + 2 * (lane & 3);
       const T* bias = prm + net.b_off[L];
       const T b0 = bias[col], b1 = bias[col + 1];
       T v[2 * MH];
@@ -377,8 +401,8 @@ __global__ void __launch_bounds__(THREADS) igr_mlp_kernel(Net net, int N, const 
 
 int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// fill the padded sizes and the cluster size from (in, out, skip, offsets);
-// false on a net the kernel does not take
+// fill the padded sizes, the cluster size and the slices per CTA from (in,
+// out, skip, offsets); false on a net the kernel does not take
 bool plan(Net& net) {
   int widest = 0, aw = 0;
   for (int L = 0; L < net.n_layers; ++L) {
@@ -387,16 +411,23 @@ bool plan(Net& net) {
     aw = aw > net.kp[L] ? aw : net.kp[L];
     if (L < net.n_layers - 1) widest = widest > net.np[L] ? widest : net.np[L];
   }
-  net.cs = widest / NS > 0 ? widest / NS : 1;
-  net.aw = (aw > 64 ? aw : 64) + 4;  // at least 64 wide: the epilogue's exchange lives in a tile of it
-  return net.out[net.n_layers - 1] == 1 && net.cs <= MAX_CS;
+  const int slices = widest / NS > 0 ? widest / NS : 1;
+  net.cs = slices < MAX_CS ? slices : MAX_CS;
+  net.ns = (slices + net.cs - 1) / net.cs;
+  net.aw = (aw > 64 ? aw : 64) + 4;  // at least 64 wide: the epilogue's exchange may live in a tile of it
+  return net.out[net.n_layers - 1] == 1;
+}
+
+template <typename T>
+size_t smem_bytes(const Net& net, int mt) {
+  return smem_elems<T>(mt, net.aw, net.d_in, net.ns) * sizeof(T);
 }
 
 // the launch configuration of a cluster per 8 MT points (attr: its cluster
 // dimension); sets the kernel's shared-memory limit
 template <typename T, int MT>
 cudaError_t configure(const Net& net, int N, cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr) {
-  const size_t bytes = smem_elems<T>(MT, net.aw, net.d_in) * sizeof(T);
+  const size_t bytes = smem_bytes<T>(net, MT);
   cudaError_t err = cudaFuncSetAttribute(igr_mlp_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   cfg = {};
@@ -443,19 +474,40 @@ int launch(const Net& net, int N, const void* x, const void* prm, void* out, voi
   return (int)cudaGetLastError();
 }
 
-// points per cluster: 40 where that takes fewer waves of clusters than 32
-// (at N = 2304: 58 clusters, one wave, against 72), else 32
+// points per cluster: 32 or 40 where a tile of 32 fits a block's shared
+// memory, 40 where that takes fewer waves of clusters than 32 (at N = 2304:
+// 58 clusters, one wave, against 72); else 16, else 8 (wide layers: their
+// activations fill a block's shared memory at fewer points); 0 where not
+// even 8 fit
 template <typename T>
 int auto_tile(const Net& net, int N) {
+  if (smem_bytes<T>(net, 4) > MAX_SMEM) return smem_bytes<T>(net, 2) <= MAX_SMEM ? 16 : smem_bytes<T>(net, 1) <= MAX_SMEM ? 8 : 0;
+  if (smem_bytes<T>(net, 5) > MAX_SMEM) return 32;
   const int c32 = max_clusters<T, 4>(net), c40 = max_clusters<T, 5>(net);
   if (c32 <= 0 || c40 <= 0) return 32;
   const int w32 = ((N + 31) / 32 + c32 - 1) / c32, w40 = ((N + 39) / 40 + c40 - 1) / c40;
   return w40 < w32 ? 40 : 32;
 }
 
+// run op<T, MT>(x...) for a tile of 8, 16, 32 or 40 points
+template <typename T, template <typename, int> class Op, class... X>
+int by_tile(int tile, X... x) {
+  switch (tile) {
+    case 8:
+      return Op<T, 1>::run(x...);
+    case 16:
+      return Op<T, 2>::run(x...);
+    case 32:
+      return Op<T, 4>::run(x...);
+    case 40:
+      return Op<T, 5>::run(x...);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T, int MT>
 int resources(const Net& net, long long* out) {
-  const size_t bytes = smem_elems<T>(MT, net.aw, net.d_in) * sizeof(T);
+  const size_t bytes = smem_bytes<T>(net, MT);
   cudaError_t err = cudaFuncSetAttribute(igr_mlp_kernel<T, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)bytes);
   if (err != cudaSuccess) return (int)err;
@@ -473,8 +525,20 @@ int resources(const Net& net, long long* out) {
   out[5] = blocks;
   out[6] = 8 * MT;
   out[7] = max_clusters<T, MT>(net);
+  out[8] = net.ns;
   return 0;
 }
+
+template <typename T, int MT>
+struct Launch {
+  static int run(const Net& net, int N, const void* x, const void* prm, void* out, void* stream) {
+    return smem_bytes<T>(net, MT) > MAX_SMEM ? (int)cudaErrorInvalidValue : launch<T, MT>(net, N, x, prm, out, stream);
+  }
+};
+template <typename T, int MT>
+struct Resources {
+  static int run(const Net& net, long long* out) { return resources<T, MT>(net, out); }
+};
 
 bool make_net(Net& net, int n_layers, int d_in, double beta, const int* dims, const long long* offs) {
   if (n_layers < 1 || n_layers > MAXL) return false;
@@ -495,36 +559,36 @@ bool make_net(Net& net, int n_layers, int d_in, double beta, const int* dims, co
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = float64. tile: points per cluster, 32 or 40 (0:
-// the one that takes fewer waves of clusters).
-// dims: per layer (in, out, skip) triples; offs: per layer (w_off, b_off)
-// into prm, laid out by ops/igr_cuda.pack_params. Returns the launch's
-// CUDA error, or cudaErrorInvalidValue on a net the kernel does not take
-// (layers wider than 256, a last layer with more than one output).
+// dtype: 0 = float32, 1 = float64. tile: points per cluster, 8, 16, 32 or
+// 40 (0: auto_tile's choice). dims: per layer (in, out, skip) triples; offs:
+// per layer (w_off, b_off) into prm, laid out by ops/igr_cuda.pack_params.
+// Returns the launch's CUDA error, or cudaErrorInvalidValue on a net the
+// kernel does not take (a last layer with more than one output, more than
+// MAXL layers) or a tile whose activations do not fit a block's shared
+// memory (float64: hidden layers up to ~1,500 wide at 8 points).
 int igr_mlp(int dtype, int tile, int N, int n_layers, int d_in, double beta, const int* dims,
             const long long* offs, const void* x, const void* prm, void* out, void* stream) {
   Net net;
-  if (!make_net(net, n_layers, d_in, beta, dims, offs) || (tile != 0 && tile != 32 && tile != 40))
-    return (int)cudaErrorInvalidValue;
+  if (!make_net(net, n_layers, d_in, beta, dims, offs)) return (int)cudaErrorInvalidValue;
   if (N <= 0) return 0;
   if (dtype == 1) {
     if (tile == 0) tile = auto_tile<double>(net, N);
-    return tile == 40 ? launch<double, 5>(net, N, x, prm, out, stream) : launch<double, 4>(net, N, x, prm, out, stream);
+    return by_tile<double, Launch>(tile, net, N, x, prm, out, stream);
   }
   if (tile == 0) tile = auto_tile<float>(net, N);
-  return tile == 40 ? launch<float, 5>(net, N, x, prm, out, stream) : launch<float, 4>(net, N, x, prm, out, stream);
+  return by_tile<float, Launch>(tile, net, N, x, prm, out, stream);
 }
 
 // the launch's resources: threads per CTA, cluster size, shared bytes per
 // CTA, registers and local (spill) bytes per thread, CTAs per SM, points per
-// cluster, clusters the card runs at once
-int igr_mlp_info(int dtype, int tile, int n_layers, int d_in, const int* dims, long long* out) {
+// cluster, clusters the card runs at once, column slices per CTA. tile 0:
+// auto_tile's choice at N.
+int igr_mlp_info(int dtype, int tile, int N, int n_layers, int d_in, const int* dims, long long* out) {
   Net net;
   long long offs[2 * MAXL] = {0};
-  if (!make_net(net, n_layers, d_in, 100.0, dims, offs) || (tile != 32 && tile != 40))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == 1) return tile == 40 ? resources<double, 5>(net, out) : resources<double, 4>(net, out);
-  return tile == 40 ? resources<float, 5>(net, out) : resources<float, 4>(net, out);
+  if (!make_net(net, n_layers, d_in, 100.0, dims, offs)) return (int)cudaErrorInvalidValue;
+  if (dtype == 1) return by_tile<double, Resources>(tile ? tile : auto_tile<double>(net, N), net, out);
+  return by_tile<float, Resources>(tile ? tile : auto_tile<float>(net, N), net, out);
 }
 
 }  // extern "C"

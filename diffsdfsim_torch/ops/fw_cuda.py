@@ -31,7 +31,8 @@ import torch
 
 NBODY = 8  # per-body constants: scale, kind parameters (4), padding
 SUPPORTED_KINDS = (0, 1, 2, 3, 4)  # physics/shapes.py KIND_* tags; -1 is a plain mesh
-MAX_FACES = 8192
+FACE_CAP = 8192  # faces a pose runs one per thread (fw_search.cu FACE_CAP); past it, a scratch state
+NSTATE = 19  # per-face state values in that scratch (fw_search.cu NSTATE)
 
 
 def body_consts(shape, dtype, device):
@@ -63,8 +64,8 @@ def check_pair(bd1, bd2, F: int, dtype):
         raise ValueError(f"FW kernel: unsupported pair {type(bd1.shape).__name__} -> {type(bd2.shape).__name__}")
     if dtype not in (torch.float32, torch.float64):
         raise TypeError(f"FW kernel takes float32 or float64, not {dtype}")
-    if not 0 < F <= MAX_FACES:
-        raise ValueError(f"FW kernel takes 1..{MAX_FACES} faces, got {F}")
+    if F < 1:
+        raise ValueError(f"FW kernel takes a body with faces, got {F}")
 
 
 def out_layout(R: int, F: int, esize: int):
@@ -95,7 +96,7 @@ class _FwKernel:
             lib = load("fw_search")
             fn = lib.fw_search
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
+            fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 12
             info = lib.fw_search_info
             info.restype = ctypes.c_int
             info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -147,7 +148,8 @@ class _FwKernel:
 
     def prepare(self, bd1, q1, pos1, bd2, q2, pos2, cfg):
         """Validate, look up the bodies' constant blocks and allocate the
-        output buffer."""
+        output buffer (and, past FACE_CAP faces, the search's scratch
+        state)."""
         R = q1.shape[0]
         F = bd1.faces_t.shape[0]
         dtype, device = q1.dtype, q1.device
@@ -166,13 +168,15 @@ class _FwKernel:
         c2 = self.consts(bd2.shape, dtype, device)
         b_cand, b_iters, n = out_layout(R, F, q1.element_size())
         buf = torch.empty((n,), dtype=dtype, device=device)
+        state = torch.empty((NSTATE * R * F,), dtype=dtype, device=device) if F > FACE_CAP else None
         strides = (ctypes.c_longlong * 8)(*(s for t in (q1, pos1, q2, pos2) for s in t.stride()))
         polish = int(cfg.contact_polish_iters) if bd1.is_sdf else 0
         dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, int(cfg.fw_iters), polish)
         ptrs = (verts.data_ptr(), faces.data_ptr(), q1.data_ptr(), pos1.data_ptr(), q2.data_ptr(),
                 pos2.data_ptr(), ctypes.addressof(strides), 0 if c1 is None else c1.data_ptr(), c2.data_ptr(),
-                buf.data_ptr())
-        return dict(dims=dims, tols=(float(cfg.eps), float(cfg.tol)), ptrs=ptrs, keep=(strides, q1, pos1, q2, pos2),
+                buf.data_ptr(), 0 if state is None else state.data_ptr())
+        return dict(dims=dims, tols=(float(cfg.eps), float(cfg.tol)), ptrs=ptrs,
+                    keep=(strides, q1, pos1, q2, pos2, state),
                     buf=buf, layout=(R, F, b_cand, b_iters), device=device)
 
     def launch(self, args):

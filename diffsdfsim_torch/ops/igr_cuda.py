@@ -23,9 +23,9 @@ from torch.autograd.function import once_differentiable
 from ..models.igr import ImplicitNetParams, implicit_net_apply
 
 MAX_LAYERS = 32
-NS = 32  # output columns per CTA of a cluster (igr_mlp.cu NS)
+NS = 32  # output columns of a slice, a CTA computes one or several (igr_mlp.cu NS)
 KC = 16  # inputs per weight chunk (igr_mlp.cu KC)
-MAX_WIDTH = 8 * NS  # widest hidden layer: a cluster has at most 8 CTAs
+TILES = (0, 8, 16, 32, 40)  # points per cluster; 0: the kernel's choice
 
 
 def _round_up(v: int, m: int) -> int:
@@ -36,10 +36,11 @@ def pack_params(params: ImplicitNetParams):
     """The kernel's weight buffer, its per-layer (in, out, skip) dims and
     (w, b) offsets. A hidden layer's weight (out, in) is zero-padded to
     (round_up(out, NS), round_up(in, KC)) and cut into chunks of NS output
-    rows by KC inputs, stored [rank][chunk][row][input]: the chunks CTA
-    ``rank`` of a cluster streams, in order, each contiguous. Its bias is
-    zero-padded to round_up(out, NS). The last layer (one output) is its
-    weight row zero-padded to round_up(in, KC), then its bias."""
+    rows by KC inputs, stored [slice][chunk][row][input]: the chunks of
+    output slice ``sl``, which CTA ``sl % cluster size`` streams, in order,
+    each contiguous. Its bias is zero-padded to round_up(out, NS). The last
+    layer (one output) is its weight row zero-padded to round_up(in, KC),
+    then its bias."""
     parts, dims, offs = [], [], []
     off = 0
     n_layers = len(params.weights)
@@ -82,8 +83,6 @@ def check_params(params: ImplicitNetParams, x):
         if w.dtype != x.dtype or w.device != x.device:
             raise TypeError(f"IGR kernel: weights {w.dtype} on {w.device}, x {x.dtype} on {x.device}")
         width = w.shape[0]
-        if i < len(params.weights) - 1 and width > MAX_WIDTH:
-            raise ValueError(f"IGR kernel takes hidden layers up to {MAX_WIDTH} wide, layer {i} has {width}")
 
 
 class _IgrKernel:
@@ -105,7 +104,7 @@ class _IgrKernel:
             fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 6
             info = lib.igr_mlp_info
             info.restype = ctypes.c_int
-            info.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+            info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2
             self._fn, self._info = fn, info
         return self._fn
 
@@ -125,26 +124,32 @@ class _IgrKernel:
             self._packed[key] = (tensors, pack_params(params))
         return self._packed[key][1]
 
-    def info(self, params: ImplicitNetParams, dtype, tile: int = 32):
+    def info(self, params: ImplicitNetParams, dtype, tile: int = 0, n: int = 1):
         """The launch's resources for this net: threads per CTA, cluster
         size, shared bytes per CTA, registers and local (spill) bytes per
-        thread, CTAs per SM, points per cluster, clusters the card runs at
-        once."""
+        thread, CTAs per SM, points per cluster (``tile``; 0: the kernel's
+        choice at n points), clusters the card runs at once, column slices
+        per CTA."""
         self._lib_fn()
         _, dims, _ = self._pack(params)
-        out = (ctypes.c_longlong * 8)()
-        err = self._info(1 if dtype == torch.float64 else 0, tile, len(params.weights), params.d_in,
+        out = (ctypes.c_longlong * 9)()
+        err = self._info(1 if dtype == torch.float64 else 0, tile, n, len(params.weights), params.d_in,
                          dims.ctypes.data, ctypes.addressof(out))
         if err != 0:
             raise RuntimeError(f"igr_mlp_info failed: CUDA error {err}")
-        keys = ("threads", "cluster", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm", "tile", "max_clusters")
+        keys = ("threads", "cluster", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm", "tile", "max_clusters",
+                "slices")
         return dict(zip(keys, out))
 
     def run(self, params: ImplicitNetParams, x, tile: int = 0):
         """Validate, launch once on the current stream and return (N,).
-        ``tile``: points per cluster, 32 or 40 (0: the kernel picks the one
-        that takes fewer waves of clusters at this N)."""
+        ``tile``: points per cluster, 8, 16, 32 or 40 (0: the kernel picks:
+        32 or 40, whichever takes fewer waves of clusters at this N, where
+        the net's activations fit a block's shared memory at 32 points; else
+        16 or 8)."""
         check_params(params, x)
+        if tile not in TILES:
+            raise ValueError(f"IGR kernel: tile {tile} not one of {TILES}")
         x = x.detach().contiguous()
         prm, dims, offs = self._pack(params)
         n = x.shape[0]
@@ -155,7 +160,8 @@ class _IgrKernel:
             out.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream,
         )
         if err != 0:
-            raise RuntimeError(f"igr_mlp kernel launch failed: CUDA error {err}")
+            raise RuntimeError(f"igr_mlp kernel launch failed: CUDA error {err} (a net whose activations do not "
+                               f"fit a block's shared memory at 8 points is refused)")
         self.launches += 1
         return out
 

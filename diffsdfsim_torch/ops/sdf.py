@@ -1,10 +1,11 @@
 """Analytic signed distance functions and their gradients.
 
-PyTorch counterpart of the analytic half of ``diffsdfsim_tpu/ops/sdf.py``
-(reference ``sdf_physics/physics3d/bodies.py:38-201``). Points and shape
-parameters are in the normalized local frame (metric / body scale). Each
-primitive has a hand-derived gradient with the reference's diagonal
-"failsafe" at edges and corners. The voxel-grid SDF waits for a later slice.
+PyTorch counterpart of the analytic and voxel-grid SDFs of
+``diffsdfsim_tpu/ops/sdf.py`` (reference
+``sdf_physics/physics3d/bodies.py:38-257``). Points and shape parameters
+are in the normalized local frame (metric / body scale). Each primitive has
+a hand-derived gradient with the reference's diagonal "failsafe" at edges
+and corners.
 """
 
 from __future__ import annotations
@@ -105,16 +106,16 @@ def brick_sdf(pts, dims, r):
 
 
 # --------------------------------------------------------------------------
-# voxel-grid SDF (reference bodies.py:203-257). The functions below take the
-# trilinear sampler as ``interp``: the plain ``grid_interp`` by default, the
-# kernel K5 (ops/grid_cuda.py) from GridShape.
+# voxel-grid SDF (reference bodies.py:203-257), the plain version of kernel
+# K5 (ops/grid_cuda.py): ``grid_interp`` of its sampler, ``grid_query`` of
+# its whole query.
 # --------------------------------------------------------------------------
 
 
 def grid_interp(grid, inds):
     """Trilinear interpolation of ``grid`` ((C,) X, Y, Z) at fractional voxel
     indices ``inds`` (N, 3), the base corner clamped to [0, dim - 2]; returns
-    (N,) or (C, N). Plain version of kernel K5."""
+    (N,) or (C, N)."""
     shape = torch.tensor(grid.shape[-3:], dtype=inds.dtype, device=inds.device)
     i0 = torch.clamp(torch.floor(inds), min=torch.zeros_like(shape), max=shape - 2.0)
     frac = inds - i0
@@ -141,11 +142,11 @@ def _grid_inds(pts, res):
     return inds, valid
 
 
-def grid_sdf_raw(pts, grid, interp=grid_interp):
+def grid_sdf_raw(pts, grid):
     """Trilinear SDF sample at pts (..., 3); out-of-bounds points get sdf = 1
     (reference :203-211)."""
     inds, valid = _grid_inds(pts.reshape(-1, 3), grid.shape)
-    vals = interp(grid, torch.where(valid[..., None], inds, torch.zeros_like(inds)))
+    vals = grid_interp(grid, torch.where(valid[..., None], inds, torch.zeros_like(inds)))
     return torch.where(valid, vals, torch.ones_like(vals)).reshape(pts.shape[:-1])
 
 
@@ -162,12 +163,12 @@ def grid_grad_volume(grid):
     return torch.stack([diff(0), diff(1), diff(2)], dim=0)
 
 
-def grid_sdf_grad(pts, grid, interp=grid_interp):
+def grid_sdf_grad(pts, grid):
     """Normalized trilinear sample of the gradient volume (reference
     :214-243); out-of-bounds points get zero gradient."""
     inds, valid = _grid_inds(pts.reshape(-1, 3), grid.shape)
     safe = torch.where(valid[..., None], inds, torch.zeros_like(inds))
-    g = normalize(interp(grid_grad_volume(grid), safe).T)
+    g = normalize(grid_interp(grid_grad_volume(grid), safe).T)
     return torch.where(valid[..., None], g, torch.zeros_like(g)).reshape(pts.shape)
 
 
@@ -179,18 +180,37 @@ class GridSdf(torch.autograd.Function):
     package's ``grid_sdf`` custom_vjp."""
 
     @staticmethod
-    def forward(ctx, pts, grid, interp):
+    def forward(ctx, pts, grid):
         ctx.save_for_backward(pts, grid)
-        ctx.interp = interp
-        return grid_sdf_raw(pts, grid, interp)
+        return grid_sdf_raw(pts, grid)
 
     @staticmethod
     def backward(ctx, d_sdf):
         pts, grid = ctx.saved_tensors
-        d_pts = grid_sdf_grad(pts, grid, ctx.interp) * d_sdf[..., None]
+        d_pts = grid_sdf_grad(pts, grid) * d_sdf[..., None]
         d_grid = torch.zeros_like(grid) if ctx.needs_input_grad[1] else None
-        return d_pts, d_grid, None
+        return d_pts, d_grid
 
 
-def grid_sdf(pts, grid, interp=grid_interp):
-    return GridSdf.apply(pts, grid, interp)
+def grid_sdf(pts, grid):
+    return GridSdf.apply(pts, grid)
+
+
+def grid_query(pts, grid, scale=None, return_grads=True):
+    """One grid-SDF query, the plain version of kernel K5's ``grid_query``.
+    With ``scale`` (a 0-dim tensor): ``query_sdfs`` of a GridShape at metric
+    local points (physics/shapes.py), the bounding-scale mask, the metric
+    value and the normalized, masked ``grid_sdf_grad``, as ``sdfs`` or
+    ``(sdfs, grads)``. Without: ``grid_sdf`` of normalized-frame points, or
+    ``(grid_sdf, grid_sdf_grad)``."""
+    if scale is None:
+        sdfs = grid_sdf(pts, grid)
+        return (sdfs, grid_sdf_grad(pts, grid)) if return_grads else sdfs
+    overlap = torch.all(torch.abs(pts) <= scale, dim=-1)
+    pts_in = pts / scale
+    sdfs_n = grid_sdf(pts_in, grid)
+    sdfs = torch.where(overlap, sdfs_n, torch.ones_like(sdfs_n)) * scale
+    if not return_grads:
+        return sdfs
+    grads = normalize(grid_sdf_grad(pts_in, grid))
+    return sdfs, torch.where(overlap[..., None], grads, torch.zeros_like(grads))

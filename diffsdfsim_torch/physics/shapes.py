@@ -4,7 +4,8 @@ PyTorch counterpart of the analytic kinds in
 ``diffsdfsim_tpu/physics/shapes.py`` (reference SDF body subclasses,
 ``sdf_physics/physics3d/bodies.py:763-1060``): sphere, box, rounded box,
 cylinder and brick, the kinds the Frank-Wolfe kernel K3 knows; the voxel-grid
-shape, whose samples are kernel K5 (``ops/grid_cuda.py``) on CUDA tensors;
+shape, whose every query is one launch of kernel K5 (``ops/grid_cuda.py``)
+on CUDA tensors;
 and the shape-space shape, an IGR decoder whose values are kernel K4
 (``ops/igr_cuda.py``) on CUDA tensors. The bowl waits for a later slice.
 
@@ -24,7 +25,7 @@ import torch
 from ..models import igr
 from ..ops import inertia as inertia_ops
 from ..ops import sdf as sdf_ops
-from ..ops.grid_cuda import grid_interp
+from ..ops import grid_cuda
 from ..utils.spherical import normalize
 
 # shape-kind tags shared with the Frank-Wolfe kernel (ops/fw_cuda.py); a
@@ -191,7 +192,10 @@ class CylinderShape(ShapeBase):
 class GridShape(ShapeBase):
     """Voxel-grid SDF body (reference SDFGrid3D, bodies.py:763-775): ``grid``
     holds normalized-frame distances on a regular lattice over [-1, 1]^3,
-    ``scale_`` is the metric half-extent. The grid takes no gradient."""
+    ``scale_`` is the metric half-extent. The grid takes no gradient. Its
+    queries (``sdf``, ``sdf_grad`` and ``query_sdfs``) go through
+    ``grid_cuda.grid_query``: one K5 launch each on CUDA, the plain
+    ``ops/sdf.grid_query`` on the CPU."""
 
     grid: torch.Tensor  # (X, Y, Z)
     scale_: torch.Tensor  # ()
@@ -200,10 +204,10 @@ class GridShape(ShapeBase):
         return self.scale_
 
     def sdf(self, pts):
-        return sdf_ops.grid_sdf(pts, self.grid, grid_interp)
+        return grid_cuda.grid_query(pts, self.grid, return_grads=False)
 
     def sdf_grad(self, pts):
-        return sdf_ops.grid_sdf_grad(pts, self.grid, grid_interp)
+        return grid_cuda.grid_query(pts, self.grid)[1]
 
 
 @dataclasses.dataclass
@@ -228,6 +232,8 @@ class LatentShape(ShapeBase):
 
 def query_sdfs(shape: ShapeBase, pts_loc, return_grads: bool = True):
     """Metric local-frame SDF query (reference SDF3D.query_sdfs)."""
+    if isinstance(shape, GridShape):
+        return grid_cuda.grid_query(pts_loc, shape.grid, shape.scale_, return_grads)
     scale = shape.scale()
     overlap = torch.all(torch.abs(pts_loc) <= scale, dim=-1)
     pts_in = pts_loc / scale

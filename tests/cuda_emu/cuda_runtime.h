@@ -111,7 +111,7 @@ inline void warp_sync() { blk->warp_bars[warp()]->arrive_and_wait(); }
 #define threadIdx emu::thread_idx
 #define blockIdx emu::block_idx
 // a variable, not a macro: cudaLaunchConfig_t has a member of that name
-inline thread_local emu::Idx blockDim;
+inline thread_local emu::Idx blockDim, gridDim;
 
 inline void __syncthreads() { emu::blk->bar->arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { emu::warp_sync(); }
@@ -156,6 +156,10 @@ inline double __dsub_rn(double a, double b) { return a - b; }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
+inline float __fsqrt_rn(float a) { return std::sqrt(a); }
 
 template <typename T>
 T __ldg(const T* p) {
@@ -245,6 +249,7 @@ void launch_clusters(int grid, int block, size_t bytes, int cs, K kernel, A... a
           thread_idx = {(unsigned)t, 0, 0};
           block_idx = {(unsigned)(c0 + r), 0, 0};
           ::blockDim = {(unsigned)block, 1, 1};
+          ::gridDim = {(unsigned)grid, 1, 1};
           blk = cl.blocks[r].get();
           clu = &cl;
           rank = (unsigned)r;

@@ -107,7 +107,7 @@ CASES = [("bench k=4", 3, 4, None), ("bench k=8", 2, 8, None), ("neq=3 k=2 fd=4"
 
 def build_libs(out_dir):
     """The kernels compiled for the CPU into out_dir."""
-    return {n: build(n, out_dir) for n in ("pdipm_fwd", "kkt_bwd", "igr_mlp", "fw_search")}
+    return {n: build(n, out_dir) for n in ("pdipm_fwd", "kkt_bwd", "igr_mlp", "fw_search", "grid_interp")}
 
 
 def check_case(libs, dtype, case):
@@ -169,14 +169,19 @@ def check_case(libs, dtype, case):
     return out
 
 
-# (label, hidden widths, skip layers, points, points per cluster): a cluster
-# of 2 CTAs with a partial last tile; 3 CTAs (an output count that is no
-# multiple of 32 and an uneven split of the last layer's rows) at 40 points
-# per cluster; the reference's (128,)*8 net with its skip at layer 4 (a
-# cluster of 4, layer 3's 123 outputs padded to 128) at 32 points per
-# cluster and at the kernel's own choice
-K4_CASES = [("K4 width 64 x 4", (64,) * 4, (2,), 40, 32), ("K4 width 90 x 3", (90,) * 3, (1,), 70, 40),
-            ("K4 reference net", (128,) * 8, (4,), 36, 32), ("K4 reference net, tile by waves", (128,) * 8, (4,), 45, 0)]
+# (label, hidden widths, skip layers, points, points per cluster, input
+# size): a cluster of 2 CTAs with a partial last tile; 3 CTAs (an output
+# count that is no multiple of 32 and an uneven split of the last layer's
+# rows) at 40 points per cluster; the reference's (128,)*8 net with its skip
+# at layer 4 (a cluster of 4, layer 3's 123 outputs padded to 128) at 32
+# points per cluster and at the kernel's own choice; IGR's shape-space
+# decoder, (512,)*8 with a 256-dim latent (8 CTAs of two 32-column slices
+# each, 16 points per cluster in float64, 32 in float32); and a 320-wide net
+# (slices 8, 9 of 10 on CTAs 0 and 1 only) at 8 points
+K4_CASES = [("K4 width 64 x 4", (64,) * 4, (2,), 40, 32, 5), ("K4 width 90 x 3", (90,) * 3, (1,), 70, 40, 5),
+            ("K4 reference net", (128,) * 8, (4,), 36, 32, 5),
+            ("K4 reference net, tile by waves", (128,) * 8, (4,), 45, 0, 5),
+            ("K4 shape-space decoder 512", (512,) * 8, (4,), 20, 0, 259), ("K4 width 320 x 3", (320,) * 3, (1,), 11, 8, 7)]
 
 
 def check_k4_case(libs, dtype, case):
@@ -184,20 +189,21 @@ def check_k4_case(libs, dtype, case):
     from diffsdfsim_torch.models.igr import implicit_net_apply, init_implicit_net
     from diffsdfsim_torch.ops import igr_cuda
 
-    label, dims, skip_in, n, tile = case
+    label, dims, skip_in, n, tile, d_in = case
     rng = np.random.default_rng(len(dims) * 100 + n)
-    params = init_implicit_net(5, dims, skip_in, radius_init=0.55, generator=rng, dtype=dtype).params()
+    params = init_implicit_net(d_in, dims, skip_in, radius_init=0.55, generator=rng, dtype=dtype).params()
     # the geometric init keeps the net near a sphere; perturb the biases so
     # that softplus sees both of its branches
     params = params._replace(biases=tuple(b + torch.tensor(rng.normal(size=b.shape) * 0.05, dtype=dtype)
                                           for b in params.biases))
-    x = torch.tensor(np.concatenate([rng.normal(size=(n, 2)) * 0.3, rng.uniform(-1, 1, (n, 3))], 1), dtype=dtype)
+    x = torch.tensor(np.concatenate([rng.normal(size=(n, d_in - 3)) * 0.3, rng.uniform(-1, 1, (n, 3))], 1),
+                     dtype=dtype)
     prm, dims_a, offs = igr_cuda.pack_params(params)
     out = torch.full((n,), float("nan"), dtype=dtype)
     fn = libs["igr_mlp"].igr_mlp
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_double] + [ctypes.c_void_p] * 6
-    err = fn(1 if dtype == torch.float64 else 0, tile, n, len(params.weights), 5, params.beta, dims_a.ctypes.data,
+    err = fn(1 if dtype == torch.float64 else 0, tile, n, len(params.weights), d_in, params.beta, dims_a.ctypes.data,
              offs.ctypes.data, x.data_ptr(), prm.data_ptr(), out.data_ptr(), None)
     assert err == 0, f"igr_mlp: error {err}"
     ref = implicit_net_apply(params, x)
@@ -208,10 +214,14 @@ def check_k4_case(libs, dtype, case):
 
 # K3 cases: labels of chip_smoke.k3_cases (the bench pairs at contact, a
 # tilted box, the sphere on a cylinder), a coarse box 1-5 cm above the
-# sphere (several Frank-Wolfe iterations on a curved SDF), and a floor of
-# 3072 faces, which a pose spreads over a cluster of 16 CTAs
+# sphere (several Frank-Wolfe iterations on a curved SDF), a floor of 3072
+# faces, which a pose spreads over a cluster of 16 CTAs, and the sphere at
+# subdiv 5 (20,480 faces, past the one-face-per-thread cap: 16 CTAs of 512
+# threads loop over 2-3 faces each) touching the floor and above the bench
+# sphere (chip_smoke.k3_big_cases)
 K3_CASES = ["sphere->floor touch R=3", "floor->sphere pen1e-3 R=3", "box->floor tilted R=6", "sphere->cylinder R=6",
-            "box->sphere gap R=2", "floor3072->sphere touch R=2"]
+            "box->sphere gap R=2", "floor3072->sphere touch R=2", "sphere20480->floor touch R=2",
+            "sphere20480->sphere gap R=2"]
 
 
 def k3_case(label, dtype):
@@ -219,6 +229,8 @@ def k3_case(label, dtype):
     import chip_smoke
     from diffsdfsim_torch.physics import BoxShape, make_body
 
+    if label.startswith("sphere20480"):
+        return next(c[1:] for c in chip_smoke.k3_big_cases("cpu", dtype, 2) if c[0] == label)
     if label.startswith("floor3072"):
         floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=4, device="cpu", dtype=dtype)
         _, sphere = chip_smoke.bench_bodies("cpu", dtype)
@@ -255,7 +267,7 @@ def check_k3_case(libs, dtype, label):
     args["buf"].view(torch.uint8).fill_(0xFF)  # NaN bytes: an output the kernel misses shows
     fn = libs["fw_search"].fw_search
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 11
+    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 12
     err = fn(*args["dims"], *args["tols"], *args["ptrs"], None)
     assert err == 0, f"fw_search: error {err}"
     out_k = fw_search_pair.finish(args)
@@ -271,11 +283,68 @@ def check_k3_case(libs, dtype, label):
     atol, allowed = (1e-6, 0) if f64 else (2e-3, int(0.005 * out_k.cand.numel()))
     # as on the card: the bench pairs are held on every output, the other
     # kinds on max_pen (exact-tie failsafe gradients, chip_smoke.phase_k3)
-    bench = label.startswith(("floor", "sphere->floor"))
+    bench = label.startswith(("floor", "sphere->floor", "sphere20480"))
     ok = same_inf and errs["max_pen"] <= atol and (not bench or (mis <= allowed and max(errs.values()) <= atol))
     return [(f"K3 {str(dtype)[6:]} {label}: errs " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
              + f", mask mismatches {mis} (allowed {allowed}), cmask faces {int(out_k.cmask.sum())}, "
              f"FW iterations {fw_search_pair.last_iters.tolist()}", ok)]
+
+
+# K5 cases: (label, grid shape, scaled, gradient outputs): the fused query
+# of a 33^3 sphere grid at scale 0.75 with every output, value only, and in
+# the normalized frame (no scale); an uneven random grid; and the sampler
+# on a 3-channel stack
+K5_CASES = [("K5 query 33^3", (33, 33, 33), True, True), ("K5 query 33^3 value only", (33, 33, 33), True, False),
+            ("K5 query 33^3 normalized frame", (33, 33, 33), False, True), ("K5 query 9x7x8", (9, 7, 8), True, True),
+            ("K5 sampler C=3 9x7x8", (9, 7, 8), None, None)]
+
+
+def check_k5_case(libs, dtype, case):
+    """K5 on one case against its plain version (chip_smoke.k5_query_plain,
+    sdf.grid_interp): the value and the interpolated gradient bitwise, the
+    normalized gradients within 2 ulps; outputs not asked for stay
+    untouched. [(report line, passed)]"""
+    import chip_smoke
+    from diffsdfsim_torch.ops import sdf
+
+    label, res, scaled, grads = case
+    rng = np.random.default_rng(sum(res))
+    grid = chip_smoke.sphere_grid(res[0]) if res[0] == res[1] == res[2] else rng.normal(size=res)
+    lib = libs["grid_interp"]
+    f64 = 1 if dtype == torch.float64 else 0
+    if scaled is None:
+        stack = torch.tensor(np.stack([grid, 2 * grid, -grid]), dtype=dtype)
+        inds = torch.tensor(rng.uniform(-0.05, 1.05, (300, 3)) * (np.array(res) - 1), dtype=dtype)
+        out = torch.full((3, 300), float("nan"), dtype=dtype)
+        fn = lib.grid_interp
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 4
+        assert fn(f64, 3, *res, 300, stack.data_ptr(), inds.data_ptr(), out.data_ptr(), None) == 0
+        err = float((out - sdf.grid_interp(stack, inds)).abs().max())
+        return [(f"{label} {str(dtype)[6:]}: max abs err {err:.1e} (tol 0)", err == 0.0)]
+    grid = torch.tensor(grid, dtype=dtype)
+    scale = torch.tensor(0.75, dtype=dtype) if scaled else None
+    pts = torch.tensor(chip_smoke.k5_query_points(res[0], 0.75, 400, seed=len(label)), dtype=dtype)
+    if not scaled:
+        pts = pts / 0.75
+    n = pts.shape[0]
+    outs = [torch.full((n,), float("nan"), dtype=dtype)] + [torch.full((n, 3), float("nan"), dtype=dtype)
+                                                           for _ in range(3)]
+    asked = [True, bool(grads and scaled), bool(grads), bool(grads)]
+    fn = lib.grid_query
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
+    err = fn(f64, *res, n, grid.data_ptr(), pts.data_ptr(), scale.data_ptr() if scaled else None,
+             *[o.data_ptr() if a else None for o, a in zip(outs, asked)], None)
+    assert err == 0, f"grid_query: error {err}"
+    untouched = all(bool(torch.isnan(o).all()) for o, a in zip(outs, asked) if not a)
+    # the normalized gradients within 2 units in the last place: the plain
+    # version on the CPU sums normalize's three squares in another order
+    # than torch on the card, whose order the kernel takes
+    errs, ok = chip_smoke.k5_query_errors([o if a else None for o, a in zip(outs, asked)],
+                                          chip_smoke.k5_query_plain(pts, grid, scale), max_ulps=2)
+    return [(f"{label} {str(dtype)[6:]}: ulps " + ", ".join(f"{k} {v:g}" for k, v in errs.items())
+             + f"; outputs not asked for untouched {untouched}", ok and untouched)]
 
 
 def main():
@@ -283,8 +352,9 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         libs = build_libs(tmp)
         for dtype in (torch.float64, torch.float32):
-            for case in CASES + K4_CASES + K3_CASES:
-                check = check_k4_case if case in K4_CASES else check_k3_case if case in K3_CASES else check_case
+            for case in CASES + K4_CASES + K3_CASES + K5_CASES:
+                check = (check_k4_case if case in K4_CASES else check_k3_case if case in K3_CASES
+                         else check_k5_case if case in K5_CASES else check_case)
                 for line, ok in check(libs, dtype, case):
                     print(f"{line}: {'ok' if ok else 'FAIL'}")
                     if not ok:

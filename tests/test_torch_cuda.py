@@ -12,8 +12,10 @@ Shapes are the main path's: the bench scene's LCPs (nz 12, neq 6, k 4,
 fd 8) at D = 3 and 6 rungs and a 576-problem seed sweep (K1), 1, 6 and 576
 problems (K2), and the shape-space scene's k = 8 contact buffer (K1 at 4
 rungs, K2 at 1 problem); both bench directed pairs (768-face floor,
-320-face sphere) at three rung poses, and a 3072-face floor (K3 on a
-cluster per pose); float64. Tolerances: PDIPM x within
+320-face sphere) at three rung poses, a 3072-face floor (K3 on a cluster
+per pose) and a 20,480-face sphere (past K3's one-face-per-thread cap);
+K4 at the reference's width and at IGR's 512-wide shape-space decoder;
+K5's fused grid query at 33^3, 64^3 and 128^3; float64. Tolerances: PDIPM x within
 1e-8 (Gauss-Jordan vs Cholesky rounding), KKT residuals no worse than 10x
 the plain version's; FW search outputs within 1e-9 and masks equal; the
 backward KKT solve within 1e-9 relative, of the plain version and of the
@@ -33,14 +35,18 @@ def cuda():
     return torch.device("cuda")
 
 
-def _lcps(B, device, k=4):
+def _chip_smoke():
     import os
     import sys
 
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     import chip_smoke
 
-    return chip_smoke.physics_lcps(B, seed=B, device=device, dtype=torch.float64, k=k)
+    return chip_smoke
+
+
+def _lcps(B, device, k=4):
+    return _chip_smoke().physics_lcps(B, seed=B, device=device, dtype=torch.float64, k=k)
 
 
 @pytest.mark.parametrize("k,B", [(4, 3), (4, 6), (4, 576), (8, 4)])
@@ -118,6 +124,36 @@ def test_fw_kernel_cluster_path(cuda):
         assert torch.equal(torch.isfinite(a), fin), name
         if bool(fin.any()):
             assert float((a - b)[fin].abs().max()) <= 1e-9, name
+
+
+@pytest.mark.parametrize("R", [3, 9])
+@pytest.mark.parametrize("case", ["sphere20480->floor touch", "sphere20480->sphere gap"])
+def test_fw_kernel_past_the_face_cap(cuda, case, R):
+    """The sphere at subdiv 5 (20,480 faces: 16 CTAs of 512 threads per
+    pose, each thread looping over 2-3 faces) touching the floor and tilted
+    0-1 cm above the bench sphere, in one launch, held against the plain
+    version as test_fw_kernel_matches_plain holds the bench pairs."""
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
+
+    cfg = SimConfig(fric_dirs=8, max_contacts_per_pair=4, max_contacts_total=4, tol=1e-8)
+    _, bd1, bd2, q1, p1, q2, p2 = next(c for c in _chip_smoke().k3_big_cases(cuda, torch.float64, R)
+                                       if c[0].startswith(case))
+    before = fw_search_pair.launches
+    out_k = fw_search_pair(bd1, q1, p1, bd2, q2, p2, cfg)
+    torch.cuda.synchronize()
+    assert fw_search_pair.launches == before + 1 and bd1.faces_t.shape[0] == 20480
+    out_p = search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg)
+    assert torch.equal(out_k.cmask, out_p.cmask) and torch.equal(out_k.cand, out_p.cand)
+    assert bool(out_k.cmask.any())
+    for name in ("abc", "n_ng", "p1_ng", "x1", "pen"):
+        a, b = getattr(out_k, name), getattr(out_p, name)
+        assert float((a - b).abs().max()) <= 1e-9, name
+    fin = torch.isfinite(out_p.max_pen)
+    assert torch.equal(torch.isfinite(out_k.max_pen), fin)
+    if bool(fin.any()):
+        assert float((out_k.max_pen - out_p.max_pen)[fin].abs().max()) <= 1e-9
 
 
 def _kkt_inputs(cuda, k, B):
@@ -213,6 +249,31 @@ def test_igr_kernel_matches_plain(cuda, dtype, rtol, n):
     assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
 
 
+@pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("n", [7, 576, 2304])
+def test_igr_kernel_wide_decoder(cuda, dtype, rtol, n):
+    """K4 on IGR's shape-space decoder ((512,)*8, skip at 4, a 256-dim
+    latent: d_in 259; each CTA of a cluster of 8 computes two 32-column
+    slices, 16 points per cluster in float64) against implicit_net_apply,
+    at the 128-wide case's tolerance."""
+    import numpy as np
+
+    from diffsdfsim_torch.models.igr import implicit_net_apply, init_implicit_net
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    net = init_implicit_net(259, (512,) * 8, (4,), radius_init=0.55, generator=np.random.default_rng(512),
+                            dtype=dtype).to(cuda)
+    g = torch.Generator(device=cuda).manual_seed(n)
+    x = torch.rand((n, 259), generator=g, device=cuda, dtype=dtype) * 2 - 1
+    x[:, :256] *= 0.3
+    before = igr_mlp.launches
+    out = igr_mlp(net.params(), x)
+    torch.cuda.synchronize()
+    assert igr_mlp.launches == before + 1
+    ref = implicit_net_apply(net.params(), x)
+    assert float((out - ref).abs().max()) <= rtol * float(ref.abs().max())
+
+
 def test_igr_kernel_backward_gradcheck(cuda):
     """The K4 Function's backward (the plain version's VJP) against finite
     differences of the kernel's forward, float64, a narrow net."""
@@ -244,3 +305,60 @@ def test_grid_kernel_matches_plain(cuda, dtype, channels):
     torch.cuda.synchronize()
     assert grid_interp.launches == before + 1
     assert torch.equal(out, sdf.grid_interp(grid, inds))
+
+
+def _grid_query_inputs(cuda, res, dtype, n=2000):
+    cs = _chip_smoke()
+    grid = torch.tensor(cs.sphere_grid(res), dtype=dtype, device=cuda)
+    scale = torch.tensor(0.75, dtype=dtype, device=cuda)
+    pts = torch.tensor(cs.k5_query_points(res, 0.75, n, seed=res), dtype=dtype, device=cuda)
+    return cs, grid, scale, pts
+
+
+@pytest.mark.parametrize("grads", [True, False], ids=["value+gradient", "value"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("res", [33, 64, 128])
+def test_grid_query_kernel_matches_plain(cuda, res, dtype, grads):
+    """K5's fused query against its plain version (chip_smoke.k5_query_plain)
+    on a sphere grid, points inside, on, just outside and outside the grid:
+    every output bitwise (chip_smoke.K5_ULPS = 0: the kernel sums
+    normalize's squares in the order torch's CUDA sum takes); a GridShape
+    query through the public path is one launch."""
+    from diffsdfsim_torch.ops.grid_cuda import grid_query_kernel
+    from diffsdfsim_torch.physics import GridShape
+    from diffsdfsim_torch.physics.shapes import query_sdfs
+
+    cs, grid, scale, pts = _grid_query_inputs(cuda, res, dtype)
+    outs = grid_query_kernel.run(pts, grid, scale, grad=grads, grad_in=grads, grad_raw=grads)
+    errs, ok = cs.k5_query_errors(outs, cs.k5_query_plain(pts, grid, scale))
+    assert ok, errs
+    before = grid_query_kernel.launches
+    got = query_sdfs(GridShape(grid=grid, scale_=scale), pts, return_grads=grads)
+    torch.cuda.synchronize()
+    assert grid_query_kernel.launches == before + 1
+    assert torch.equal(got[0] if grads else got, outs[0])
+    if grads:
+        assert torch.equal(got[1], outs[1])
+
+
+@pytest.mark.parametrize("output", ["value", "gradient", "both", "scale"])
+def test_grid_query_kernel_vjp(cuda, output):
+    """The fused query's vector-Jacobian products with respect to the points
+    (and the scale) against autograd of the plain composition, float64: the
+    value's is GridSdf's saved-gradient product, the gradient output's and
+    the scale's the plain composition's own."""
+    from diffsdfsim_torch.ops import grid_cuda, sdf
+
+    cs, grid, scale, pts = _grid_query_inputs(cuda, 64, torch.float64, n=500)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    cot_s = torch.randn(pts.shape[0], generator=g, device=cuda, dtype=torch.float64)
+    cot_g = torch.randn(pts.shape, generator=g, device=cuda, dtype=torch.float64)
+    grads = []
+    for fn in (grid_cuda.grid_query, sdf.grid_query):
+        p = pts.clone().requires_grad_(True)
+        s = scale.clone().requires_grad_(output == "scale")
+        sdfs, gr = fn(p, grid, s)
+        loss = (sdfs * cot_s).sum() * (output != "gradient") + (gr * cot_g).sum() * (output != "value")
+        grads.append(torch.autograd.grad(loss, [p, s] if output == "scale" else [p]))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1.0)

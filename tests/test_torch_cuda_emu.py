@@ -1,4 +1,4 @@
-"""K1, K2, K3 and K4's CUDA sources run on the CPU (tests/cuda_emu: g++,
+"""K1, K2, K3, K4 and K5's CUDA sources run on the CPU (tests/cuda_emu: g++,
 one OS thread per CUDA thread, clusters, distributed shared memory and the
 DMMA fragment layout emulated) and held against their plain versions, case
 by case (see tests/cuda_emu/emu_check.py). Slow: it compiles the sources
@@ -41,4 +41,11 @@ def test_igr_kernel_matches_plain_emulated(libs, case, dtype):
 @pytest.mark.parametrize("case", emu_check.K3_CASES, ids=[c.replace(" ", "-") for c in emu_check.K3_CASES])
 def test_fw_kernel_matches_plain_emulated(libs, case, dtype):
     for line, ok in emu_check.check_k3_case(libs, dtype, case):
+        assert ok, line
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+@pytest.mark.parametrize("case", emu_check.K5_CASES, ids=[c[0].replace(" ", "-") for c in emu_check.K5_CASES])
+def test_grid_kernel_matches_plain_emulated(libs, case, dtype):
+    for line, ok in emu_check.check_k5_case(libs, dtype, case):
         assert ok, line

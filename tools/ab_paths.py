@@ -14,7 +14,11 @@ paths: ``k3`` and ``k4`` run the checkout's K3 and K4 kernel phases (their
 kernel and wrapper times go to the log), ``kernel_times`` times K3's launch
 at the bench pairs (R = 3) and K4's at N = 100, 576 and 2304 with CUDA
 events around 200 back-to-back launches, the same way in every checkout
-(the profiler's trace can drop launches), and ``digest`` prints the sha256
+(the profiler's trace can drop launches), ``grid_query`` times one
+``GridShape`` query (``query_sdfs`` with its gradient, float64, a 64^3
+sphere grid, 960 points: the grid drop's most frequent query) by CUDA events
+around each synchronized call and by the host clock, median and mean of 200,
+and ``digest`` prints the sha256
 of the 100-frame bench trajectory and the repr of d loss / d rad at 20, 27
 and 100 frames, to tell whether two commits compute bitwise the same. A root given
 twice runs twice, so ``parent change change parent`` alternates the two.
@@ -78,10 +82,35 @@ def kernel_times():
         print(f"kernel times: K4 float64 N={n}: {ms:.4f} ms (CUDA events, 200 launches)")
 
 
+def grid_query():
+    import time
+    import numpy as np
+    from diffsdfsim_torch.physics import GridShape
+    from diffsdfsim_torch.physics.shapes import query_sdfs
+    grid = torch.tensor(cs.sphere_grid(64), device="cuda")
+    shape = GridShape(grid=grid, scale_=torch.tensor(0.75, dtype=torch.float64, device="cuda"))
+    pts = torch.tensor(np.random.default_rng(960).uniform(-0.8, 0.8, (960, 3)), device="cuda")
+    for _ in range(20):
+        query_sdfs(shape, pts)
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ev, host = [], []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        e0.record()
+        query_sdfs(shape, pts)
+        e1.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+        ev.append(e0.elapsed_time(e1))
+    print(f"grid query: N=960 on 64^3, CUDA events around a synchronized call median {np.median(ev):.4f} ms, "
+          f"mean {np.mean(ev):.4f} ms; host clock median {np.median(host):.4f} ms, mean {np.mean(host):.4f} ms")
+
+
 for path in sys.argv[2].split(","):
     dict(forward=cs.phase_main_path, fwd_bwd=cs.phase_gradient, grid=cs.phase_grid_path,
          latent=cs.phase_latent_path, k3=cs.phase_k3, k4=cs.phase_k4, kernel_times=kernel_times,
-         digest=digest)[path]()
+         grid_query=grid_query, digest=digest)[path]()
 """
 
 # each path's wall time, as chip_smoke.py's path phases print it
