@@ -7,7 +7,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the hand-written CUDA kernels from ``diffsdfsim_torch/ops/csrc``
 (one nvcc per source, all started together), holds each kernel against its
-plain PyTorch version on the card, then drives four paths of the port on
+plain PyTorch version on the card (K3 also with a sphere of another radius
+in each lane, at a sweep's probe stage of 48 and 192 poses), then drives five paths of the port on
 CUDA (float64):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
@@ -16,6 +17,12 @@ CUDA (float64):
 - the gradient path: d loss / d rad of bench.py's 100-frame loss through
   K1, K3 and K2 (the LCP backward's KKT solve), held against the plain CPU
   gradient and the JAX package's committed golden gradients;
+- the batched path: bench.py's seed sweep (``--batch=B``), the bench world
+  at B radii in one batched-native rollout, B = 16 and 64, 100 frames
+  forward and fwd+bwd through K1, K3 and K2: one K1 launch and one K3
+  launch per directed pair for each probe stage of the whole batch, one
+  host read per whole-batch decision, and lanes held against the single
+  path;
 - the grid path: a voxelized sphere on a 64^3 grid dropped for 16 frames
   through K5 (one fused launch per grid-SDF query, checked by counting the
   queries; no gradient volume built) and K1, against its JAX golden;
@@ -51,6 +58,8 @@ BENCH_CFG = dict(
     max_substeps=4, max_bisect=8, tol=1e-8,
 )
 N_FRAMES = 100
+# the seed sweep's batch sizes (bench.py's batch16 / batch64)
+SWEEP_B = (16, 64)
 # How the rollout is held against a reference. The discrete decisions
 # (valid substeps, accepted rungs, bisection failures, truncated frames)
 # must be identical. At a touchdown the sphere's polished candidate points
@@ -448,6 +457,33 @@ def k3_big_cases(device, dtype, R):
              q, tt([0.0, 0.0, 0.0]).expand(R, 3))]
 
 
+def lane_rads(B):
+    """bench.py's sweep radii for B lanes."""
+    return np.linspace(0.42, 0.58, B)
+
+
+def k3_lane_cases(device, dtype, B, D):
+    """[(label, bd1, bd2, q1, p1, q2, p2)] at R = B D poses: a sphere of
+    another radius in each lane (``lane_rads``), D rung poses per lane
+    0..2e-4 apart from touching the floor, both directed pairs, as a sweep's
+    probe stage searches them."""
+    import torch
+    from diffsdfsim_torch.physics import SphereShape, make_body
+    from diffsdfsim_torch.physics.bodies import stack_lanes
+
+    floor, _ = bench_bodies(device, dtype)
+    rads = lane_rads(B)
+    sph = stack_lanes([make_body(SphereShape(torch.tensor(float(r))), subdiv=2, fric_coeff=0.25, device=device,
+                                 dtype=dtype) for r in rads])
+    ys = np.repeat(rads, D) + 1e-6 - 2e-4 * np.tile(np.arange(D), B) / max(D - 1, 1)
+    R = B * D
+    q = torch.tensor([1.0, 0, 0, 0], dtype=dtype, device=device).expand(R, 4)
+    ps = torch.tensor(np.stack([np.zeros(R), ys, np.zeros(R)], 1), dtype=dtype, device=device)
+    fp = torch.tensor([0.0, -0.5, 0.0], dtype=dtype, device=device).expand(R, 3)
+    return [(f"lanes sphere->floor B={B} D={D}", sph, floor, q, ps, q, fp),
+            (f"lanes floor->sphere B={B} D={D}", floor, sph, q, fp, q, ps)]
+
+
 def fmt_k3_info(info):
     return (f"{info['threads']} threads x {info['cluster']} CTAs per pose, {info['smem_bytes']} B shared, "
             f"{info['regs']} registers, {info['spill_bytes']} B spilled, {info['blocks_per_sm']} CTAs/SM")
@@ -463,7 +499,7 @@ def k3_flops(F, R, iters_run, polish):
 def phase_k3():
     import torch
     from diffsdfsim_torch.config import SimConfig
-    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.ops.fw_cuda import NBODY, fw_search_pair
     from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
 
     rows = {}
@@ -473,7 +509,8 @@ def phase_k3():
     ):
         cfg = SimConfig(**{**BENCH_CFG, "tol": tol, "eps": eps})
         big = [c for R in (3, 9) for c in k3_big_cases("cuda", dtype, R)] if dtype == torch.float64 else []
-        for label, bd1, bd2, q1, p1, q2, p2 in k3_cases("cuda", dtype) + big:
+        lanes = [c for B in SWEEP_B for c in k3_lane_cases("cuda", dtype, B, 3)] if dtype == torch.float64 else []
+        for label, bd1, bd2, q1, p1, q2, p2 in k3_cases("cuda", dtype) + big + lanes:
             out_k = fw_search_pair(bd1, q1, p1, bd2, q2, p2, cfg)
             iters_run = fw_search_pair.last_iters.clone()
             out_p = search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg)
@@ -498,18 +535,19 @@ def phase_k3():
             allowed = int(mis_frac * out_k.cand.numel())
             line = (f"{tag}: max err {err:.3e} ({', '.join(f'{k} {v:.1e}' for k, v in errs.items())}), "
                     f"mask mismatches {mis} (allowed {allowed}), cmask faces {int(out_k.cmask.sum())}")
-            if "R=576" in label or any(label.startswith(f"{pair} touch R={R}")
-                                       for pair in ("floor->sphere", "sphere->floor", "sphere20480->floor")
-                                       for R in (3, 9)):
+            if "R=576" in label or label.startswith("lanes") or any(
+                    label.startswith(f"{pair} touch R={R}")
+                    for pair in ("floor->sphere", "sphere->floor", "sphere20480->floor") for R in (3, 9)):
                 R = q1.shape[0]
                 prep = fw_search_pair.prepare(bd1, q1, p1, bd2, q2, p2, cfg)
                 ms, how = device_ms(lambda: fw_search_pair.launch(prep), "fw_search_kernel")
                 wrapper_ms = cuda_ms(lambda: fw_search_pair(bd1, q1, p1, bd2, q2, p2, cfg))
                 plain_ms = cuda_ms(lambda: search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg), n=3, warm=1)
-                # each input read once (verts, faces, the poses, two constant
-                # blocks), each output written once
+                # each input read once (verts, faces, the poses, the constant
+                # blocks, one per lane of a lane body), each output written once
                 es = q1.element_size()
-                nbytes = (bd1.verts.numel() + 14 * R + 16) * es + 8 * bd1.faces_t.numel() + R * F * (
+                n_consts = NBODY * (max(bd1.lanes, 1) + max(bd2.lanes, 1))
+                nbytes = (bd1.verts.numel() + 14 * R + n_consts) * es + 8 * bd1.faces_t.numel() + R * F * (
                     13 * es + 2) + R * (es + 4)
                 flops = k3_flops(F, R, iters_run, cfg.contact_polish_iters if bd1.is_sdf else 0)
                 bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -518,11 +556,11 @@ def phase_k3():
                          f"({'bytes' if bytes_ms > ops_ms else 'operations'}), FW iterations per pose {sorted(set(iters_run.tolist()))}")
                 rows[(dtype, label)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                             bytes_ms=bytes_ms, ops_ms=ops_ms)
-                if label.endswith("R=3") or label.startswith("sphere20480"):
+                if label.endswith("R=3") or label.startswith(("sphere20480", "lanes")):
                     line += f"; {fmt_k3_info(fw_search_pair.info(bd1, bd2, dtype, R))}"
             print(line)
             check(errs["max_pen"] <= atol, f"{tag}: max_pen differs by {errs['max_pen']} (atol {atol})")
-            if label.startswith(("floor->sphere", "sphere->floor", "sphere20480")):
+            if label.startswith(("floor->sphere", "sphere->floor", "sphere20480", "lanes")):
                 # the bench pairs and the 20,480-face sphere: every per-face
                 # output. Other kinds' box
                 # and cylinder gradients have exact-tie "failsafe" branches
@@ -1155,6 +1193,295 @@ def phase_gradient():
     return launches
 
 
+# ---------------------------------------------------------------- phase 5b
+
+
+_FLOORS = {}
+
+
+def sweep_world(rad, device="cuda"):
+    """bench.py's world of one sweep lane: the bench scene at radius ``rad``
+    (a tensor), built on ``device``; the floor, the same in every lane and
+    requiring no grad, is built once per device."""
+    import torch
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.physics import BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body, make_world
+
+    if device not in _FLOORS:
+        _FLOORS[device] = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25,
+                                    device=device)
+    floor = _FLOORS[device]
+    sphere = make_body(SphereShape(rad), subdiv=2, fric_coeff=0.25, device=device)
+    poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]]
+    return make_world([floor, sphere], poses, np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
+                      forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**BENCH_CFG), device=device)
+
+
+def lane_losses(traj, n):
+    """bench.py's loss of each lane over the first n frames of a
+    ``rollout_batched`` trajectory ((T, S, B, ...) leaves)."""
+    import torch
+
+    return torch.sum(traj.pos[:n, :, :, 1, :] ** 2 * traj.valid[:n, :, :, None], dim=(0, 1, 3))
+
+
+def single_reference(rad, n_frames):
+    """The single path at one radius on CUDA (n_frames >= 27): its trajectory
+    (numpy), d loss / d rad over its first 20, 27 and n_frames frames, and
+    the fwd+bwd wall of its n_frames-frame loss. The 20- and 27-frame
+    gradients come from a 27-frame rollout: a loss over the first frames of
+    a longer rollout back-propagates zeros through the rest of its tape."""
+    import torch
+    from diffsdfsim_torch.physics import rollout
+
+    def run(n, ns):
+        r = torch.tensor(float(rad), dtype=torch.float64, device="cuda", requires_grad=True)
+        spec, state = sweep_world(r)
+        _, traj = rollout(spec, state, n)
+        return traj, {m: float(torch.autograd.grad(torch.sum(traj.pos[:m, :, 1, :] ** 2 * traj.valid[:m, :, None]),
+                                                   r, retain_graph=True)[0]) for m in ns}
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    traj, grads = run(n_frames, (n_frames,) if n_frames > 27 else (27, 20))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if n_frames > 27:
+        grads.update(run(27, (27, 20))[1])
+    return {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}, grads, wall
+
+
+def lane_traj(tr, i):
+    """Lane i of a batched trajectory (numpy (T, S, B, ...) leaves, truncated (T, B))."""
+    return {k: v[:, i] if k == "truncated" else v[:, :, i] for k, v in tr.items()}
+
+
+def phase_batched():
+    """The seed sweep (``physics/batched.py``, bench.py's ``--batch=B``):
+    the bench world at B radii ``lane_rads(B)`` for B = 16 and 64, 100
+    frames forward and fwd+bwd through K1, K3 and K2. Each probe stage of the
+    batch is one K1 launch (when some lane starts with a contact) and one
+    K3 launch per directed pair, each whole-batch decision one host read;
+    lanes against the single path (all 16 lanes at 27 frames; lanes 0, 21,
+    42 and 63 of 64 over the 100 frames): identical decisions, the bounce
+    as the single path is held against its golden, d loss / d rad at 20
+    and 27 frames within RTOL_GRAD_SHORT (the 100-frame gradient, decided
+    by rounding at the touchdowns, is reported). Where the host time of 20
+    frames fwd+bwd goes at B = 64: ``batched_regions``."""
+    import torch
+    from diffsdfsim_torch.physics import make_world_batched, rollout_batched
+
+    rows = {}
+    for B in SWEEP_B:
+        rads = lane_rads(B)
+        parts, mark = {}, [time.perf_counter()]
+
+        def part(name):
+            # the phase's wall by part, for the time budget of the script
+            now = time.perf_counter()
+            parts[name] = parts.get(name, 0.0) + now - mark[0]
+            mark[0] = now
+
+        def build(grad):
+            t = time.perf_counter()
+            r = torch.tensor(rads, dtype=torch.float64, device="cuda", requires_grad=grad)
+            spec, bodies_b, state_b = make_world_batched(sweep_world, r)
+            torch.cuda.synchronize()
+            spent = time.perf_counter() - t
+            parts["build"] = parts.get("build", 0.0) + spent
+            mark[0] += spent
+            return r, spec, bodies_b, state_b
+
+        # warm-up at this batch size: fwd+bwd through every lane's first touchdown
+        r, spec, bodies_b, state_b = build(True)
+        _, traj = rollout_batched(spec, bodies_b, state_b, 14)
+        torch.autograd.grad(lane_losses(traj, 14).sum(), r)
+        part("warm-up")
+
+        # forward, in grad mode with nothing requiring grad
+        _, spec, bodies_b, state_b = build(False)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, traj_f = rollout_batched(spec, bodies_b, state_b, N_FRAMES)
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - t0
+        fwd_launches = read_counts()
+        check(traj_f.pos.grad_fn is None, f"B={B}: the forward recorded a tape with nothing requiring grad")
+        fwd_stages, fwd_reads = dict(spec.stages), dict(spec.host_reads)
+        part("forward")
+
+        # fwd+bwd of the sum of the lanes' losses
+        r, spec, bodies_b, state_b = build(True)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, traj = rollout_batched(spec, bodies_b, state_b, N_FRAMES)
+        loss = lane_losses(traj, N_FRAMES)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        (g100,) = torch.autograd.grad(loss.sum(), r)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        launches = read_counts()
+        wall = t2 - t0
+        part("fwd+bwd")
+        # the 20- and 27-frame gradients from a 27-frame rollout (see single_reference)
+        r27, spec27, bodies27, state27 = build(True)
+        _, traj27 = rollout_batched(spec27, bodies27, state27, 27)
+        grads = {n: torch.autograd.grad(lane_losses(traj27, n).sum(), r27, retain_graph=True)[0].cpu().numpy()
+                 for n in (20, 27)}
+        grads[N_FRAMES] = g100.cpu().numpy()
+        part("20- and 27-frame gradients")
+        check(bool(np.isfinite(grads[N_FRAMES]).all()), f"B={B}: a lane's gradient is not finite")
+        tr = {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
+        trf = {k: v.cpu().numpy() for k, v in traj_f._asdict().items()}
+        tr27 = {k: v.detach().cpu().numpy() for k, v in traj27._asdict().items()}
+        for key in ("valid", "n_halvings", "bisect_failed", "truncated"):
+            check(np.array_equal(tr[key], trf[key]), f"B={B}: the taped run's {key} differs from the forward's")
+            check(np.array_equal(tr[key][:27], tr27[key]), f"B={B}: the 27-frame run's {key} differs")
+
+        # one launch per probe stage, one host read per decision
+        st, reads = spec.stages, spec.host_reads
+        stages = st["shallow"] + st["deep"]
+        n_pairs = len(spec.directed_pairs)
+        for tag, lc, sg, rd in (("forward", fwd_launches, fwd_stages, fwd_reads),
+                                ("fwd+bwd", launches, dict(st), dict(reads))):
+            n_st = sg["shallow"] + sg.get("deep", 0)
+            check(lc["pdipm_fwd"] == sg["lcp"] > 0, f"B={B} {tag}: {lc['pdipm_fwd']} K1 launches for "
+                  f"{sg['lcp']} probe stages that solve the LCP")
+            check(lc["fw_search"] == n_pairs * n_st, f"B={B} {tag}: {lc['fw_search']} K3 launches for {n_st} probe "
+                  f"stages of {n_pairs} directed pairs")
+            check(rd["contact"] == rd["deep"] == sg["shallow"] == sg["substep"] == rd["recompute"],
+                  f"B={B} {tag}: host reads {rd} for stages {sg}")
+            check(sg["substep"] <= rd["substep"] <= sg["substep"] + N_FRAMES, f"B={B} {tag}: substep reads {rd}")
+        check(launches["kkt_bwd"] == st["replay_lcp"] > 0,
+              f"B={B}: {launches['kkt_bwd']} K2 launches for {st['replay_lcp']} taped LCP replays")
+        check(sum(reads.values()) == spec.host_syncs, f"B={B}: {spec.host_syncs} host reads, {dict(reads)} by kind")
+
+        # lanes against the single path
+        n_chk, lanes = (27, range(B)) if B == 16 else (N_FRAMES, (0, 21, 42, 63))
+        errs, gerr, single_walls = {}, {20: 0.0, 27: 0.0, N_FRAMES: 0.0}, []
+        for i in lanes:
+            ref, g_ref, w = single_reference(rads[i], n_chk)
+            single_walls += [w] if n_chk == N_FRAMES else []
+            lt = lane_traj(tr, i)
+            e = compare_traj({k: v[:n_chk] for k, v in lt.items()}, ref, f"B={B} lane {i} vs the single path")
+            for k, v in e.items():
+                errs[k] = max(errs.get(k, 0), v) if k != "first_frame_over_1e-7" else min(errs.get(k, n_chk), v)
+            for n in (20, 27) + ((N_FRAMES,) if n_chk == N_FRAMES else ()):
+                rel = abs(float(grads[n][i]) - g_ref[n]) / abs(g_ref[n])
+                gerr[n] = max(gerr[n], rel)
+                tol = RTOL_GRAD_SHORT.get(n, np.inf)
+                check(rel <= tol, f"B={B} lane {i}: d loss / d rad over {n} frames {float(grads[n][i])!r} vs the "
+                      f"single path's {g_ref[n]!r}: rel {rel:.2e} (tol {tol:g})")
+
+        part("single path")
+
+        # device busy share of 20 profiled frames fwd+bwd (the worlds built before)
+        def twenty():
+            r20, s20, b20, st20 = build(True)
+
+            def run():
+                _, tr20 = rollout_batched(s20, b20, st20, 20)
+                torch.autograd.grad(lane_losses(tr20, 20).sum(), r20)
+            return run
+
+        pwall, busy, kern = busy_share(twenty(), cpu=False)
+        part("profile")
+        top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
+        valid = tr["valid"]
+        hist = np.bincount(tr["n_halvings"][valid], minlength=BENCH_CFG["max_bisect"] + 1).tolist()
+        rate, fwd_rate = B * N_FRAMES / wall, B * N_FRAMES / fwd_wall
+        print(f"batched B={B}: forward {N_FRAMES} frames in {fwd_wall:.3f} s wall = {fwd_rate:.2f} lane-steps/s; "
+              f"fwd+bwd in {wall:.3f} s wall = {rate:.2f} lane-steps/s (forward {t1 - t0:.3f} s, backward "
+              f"{t2 - t1:.3f} s, backward share {(t2 - t1) / wall:.3f})")
+        print(f"batched B={B}: {st['substep']} whole-batch substeps ({int(valid.sum())} lane substeps, accepted-rung "
+              f"histogram {hist}); probe stages shallow {st['shallow']}, deep {st['deep']}, solving the LCP "
+              f"{st['lcp']}; host reads by decision kind {dict(sorted(reads.items()))} ({spec.host_syncs} in all, "
+              f"{spec.host_syncs / st['substep']:.2f} per substep); launches forward {fwd_launches}, fwd+bwd "
+              f"{launches}: K1 {launches['pdipm_fwd'] / max(st['lcp'], 1):.2f} per LCP stage, K3 "
+              f"{launches['fw_search'] / stages:.2f} per stage, K2 {launches['kkt_bwd']} for {st['replay_lcp']} "
+              f"taped LCP replays")
+        fmt = lambda e: ", ".join(f"{k} {v:.2e}" if isinstance(v, float) else f"{k} {v}" for k, v in e.items())  # noqa: E731
+        print(f"batched B={B}: lanes {list(lanes)} vs the single path over {n_chk} frames: decisions identical; "
+              f"{fmt(errs)}; d loss / d rad max rel " + ", ".join(f"{n} frames {v:.2e}" for n, v in gerr.items()
+                                                                  if n <= n_chk))
+        if single_walls:
+            single_rate = N_FRAMES / np.mean(single_walls)
+            print(f"batched B={B}: single path fwd+bwd in this run {single_rate:.2f} steps/s (lanes {list(lanes)}: "
+                  + ", ".join(f"{w:.3f}" for w in single_walls) + f" s); the batch {rate / single_rate:.1f}x that "
+                  f"in lane-steps/s")
+        print(f"batched B={B}, 20 profiled frames fwd+bwd (device activity traced alone): wall {pwall:.1f} ms, "
+              f"device busy {busy:.1f} ms ({100 * busy / pwall:.1f}%, idle {100 - 100 * busy / pwall:.1f}%); top kernels (ms): "
+              + "; ".join(f"{k[:48]} {v:.2f}" for k, v in top) + f"; {len(kern)} distinct kernels")
+        if B == SWEEP_B[-1]:
+            regions, total = batched_regions(twenty())
+            print(f"batched B={B}, 20 frames fwd+bwd by region (host wall, synchronized at each region's ends): "
+                  f"{total:.3f} s; " + "; ".join(f"{k} {v:.3f} s ({100 * v / total:.1f}%)"
+                                               for k, v in regions.items()))
+            part("regions")
+        print(f"batched B={B}: phase wall by part (s): " + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+        rows[B] = dict(launches=launches, rate=rate, fwd_rate=fwd_rate, stages=dict(st), reads=dict(reads))
+    return rows
+
+
+def batched_regions(fn):
+    """({region: seconds}, total seconds) of fn() (a batched rollout and its
+    backward), the batched path's stages wrapped with a device
+    synchronization at each end: the probe's dynamics (K1 and its
+    assembly), search (K3) and filter, the replay's dynamics, contact
+    recompute and TOC block, the per-lane selects, the backward, and the
+    rest of the forward."""
+    import torch
+    from diffsdfsim_torch.physics import batched
+
+    names = ("probe_dynamics_lanes", "search_contacts_raw", "finish_contacts_lanes", "replay_dynamics_lanes",
+             "find_contacts_lanes", "_toc_recompute", "_select_lanes")
+    spent = dict.fromkeys(names + ("backward", "rest of the forward"), 0.0)
+    saved = {name: getattr(batched, name) for name in names}
+    depth = [0]
+
+    def timed(name, f):
+        def g(*a, **k):
+            if depth[0]:
+                return f(*a, **k)
+            depth[0] += 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                depth[0] -= 1
+        return g
+
+    grad = torch.autograd.grad
+
+    def backward(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = grad(*a, **k)
+        torch.cuda.synchronize()
+        spent["backward"] += time.perf_counter() - t0
+        return out
+
+    for name in names:
+        setattr(batched, name, timed(name, saved[name]))
+    torch.autograd.grad = backward
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for name in names:
+            setattr(batched, name, saved[name])
+        torch.autograd.grad = grad
+    spent["rest of the forward"] = total - sum(spent.values())
+    return spent, total
+
+
 # ---------------------------------------------------------------- phase 6
 
 
@@ -1200,13 +1527,16 @@ def synced(fn):
     return out, wall, sum("synchroniz" in str(w.message) for w in caught)
 
 
-def busy_share(fn):
-    """(wall ms, device busy ms, distinct kernels) of fn() under torch.profiler."""
+def busy_share(fn, cpu=True):
+    """(wall ms, device busy ms, distinct kernels) of fn() under torch.profiler;
+    ``cpu=False`` traces the device's activity alone (a trace of every host op
+    of a seed sweep's frames takes minutes to process)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True) as prof:
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    with profile(activities=activities, acc_events=True) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1386,16 +1716,25 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    name, smi = phase_device_and_build()
-    k1 = phase_k1()
-    k3 = phase_k3()
-    k2 = phase_k2()
-    k4 = phase_k4()
-    k5 = phase_k5()
-    launches, wall, n_sub = phase_main_path()  # in grad mode, as a forward-only caller runs it
-    grad_launches = phase_gradient()
-    grid_launches = phase_grid_path()
-    latent_launches, _ = phase_latent_path()
+    t_start = time.perf_counter()
+
+    def timed(phase):
+        t0 = time.perf_counter()
+        out = phase()
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s (script so far {time.perf_counter() - t_start:.1f} s)")
+        return out
+
+    name, smi = timed(phase_device_and_build)
+    k1 = timed(phase_k1)
+    k3 = timed(phase_k3)
+    k2 = timed(phase_k2)
+    k4 = timed(phase_k4)
+    k5 = timed(phase_k5)
+    launches, wall, n_sub = timed(phase_main_path)  # in grad mode, as a forward-only caller runs it
+    grad_launches = timed(phase_gradient)
+    timed(phase_batched)
+    grid_launches = timed(phase_grid_path)
+    latent_launches, _ = timed(phase_latent_path)
 
     f64 = torch.float64
     k1r = k1[(f64, 4, 3)]

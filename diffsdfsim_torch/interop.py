@@ -13,11 +13,14 @@ Layouts:
   is carried as ``weights`` and ``biases`` (lists of (out, in) and (out,)
   arrays) and ``skip_in``), ``verts`` (V,3),
   ``faces`` (F,3), ``mass``, ``ang_inertia`` (3,3), ``restitution``,
-  ``fric_coeff``, ``is_sdf``;
+  ``fric_coeff``, ``is_sdf``, and ``lanes`` for a seed sweep's lane body
+  (every array but ``faces`` then carries the lane axis first; 0 or absent
+  for one body);
 - contacts: ``normal``, ``p1``, ``p2`` (K,3), ``pen``, ``valid``, ``i1``,
   ``i2``, ``pair_id`` (K,), ``max_pen_all`` (), ``pair_active`` (P,);
 - state: ``quat`` (B,4), ``pos`` (B,3), ``v`` (B,6), ``t``, ``last_dt``,
-  ``had_toc`` and ``contacts`` (a contacts dict).
+  ``had_toc`` and ``contacts`` (a contacts dict); a seed sweep's state has
+  the lane axis first on every array (the dicts carry any shape).
 """
 
 from __future__ import annotations
@@ -67,11 +70,12 @@ def body_from_numpy(d: dict, device=None, dtype=torch.float64) -> BodyDef:
         restitution=_t(d["restitution"], device, dtype),
         fric_coeff=_t(d["fric_coeff"], device, dtype),
         is_sdf=bool(d["is_sdf"]),
+        lanes=int(d.get("lanes", 0)),
     )
 
 
 def body_to_numpy(bd: BodyDef) -> dict:
-    out = {"shape": type(bd.shape).__name__, "faces": np.asarray(bd.faces), "is_sdf": bd.is_sdf}
+    out = {"shape": type(bd.shape).__name__, "faces": np.asarray(bd.faces), "is_sdf": bd.is_sdf, "lanes": bd.lanes}
     for f in dataclasses.fields(bd.shape):
         value = getattr(bd.shape, f.name)
         if isinstance(value, ImplicitNet):

@@ -47,6 +47,13 @@
 // while the vertices load, no slow path for a division of zero: `pdiv`) and
 // runs all rungs of a pair and stage in one launch.
 //
+// Lanes: a seed sweep runs B worlds whose bodies differ (the bench sweep
+// varies the sphere's radius). Its probe stage searches B D poses in one
+// launch, lane-major: pose r belongs to lane r / lane_div, and body 1's
+// vertices and both constant blocks are read at that lane's offset (`Lanes`;
+// an offset of 0 means a body shared by every lane, which is every call of a
+// single world). It is a per-CTA pointer offset: nothing else changes.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include <cooperative_groups.h>
@@ -506,6 +513,13 @@ struct Store {
   }
 };
 
+// per-lane strides of body 1's vertices and the two constant blocks, in
+// elements; pose r reads lane r / div (div = R and strides 0: one world)
+struct Lanes {
+  int div;
+  long long verts, c1, c2;
+};
+
 // MULTI = false: one face per thread, its state in registers for the whole
 // search. MULTI = true (F > FACE_CAP): a pose's cluster of MAX_CS CTAs of
 // MAX_THREADS threads loops over its faces, thread t taking faces t, t +
@@ -515,13 +529,17 @@ template <typename T, int K1, int K2, bool MULTI>
 __global__ void __launch_bounds__(MAX_THREADS)
 fw_search_kernel(int F, int iters, int polish_iters, T eps, T tol, const T* __restrict__ verts,
                  const int64_t* __restrict__ faces, Poses<T> P, const T* __restrict__ c1,
-                 const T* __restrict__ c2, Outs<T> O, T* __restrict__ state) {
+                 const T* __restrict__ c2, Lanes L, Outs<T> O, T* __restrict__ state) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int cs = (int)cluster.num_blocks(), rank = (int)cluster.block_rank();
   const int r = blockIdx.x / cs;
   const int f0 = rank * blockDim.x + threadIdx.x, stride = cs * blockDim.x;
   const bool has_face = f0 < F;
+  const long long lane = r / L.div;
+  verts += lane * L.verts;
+  c1 += lane * L.c1;
+  c2 += lane * L.c2;
   Frames<T>& fr = *reinterpret_cast<Frames<T>*>(smem_raw);
   T* red = reinterpret_cast<T*>(smem_raw + (sizeof(Frames<T>) + 15) / 16 * 16);  // cs x 32 warp maxima
   int* flags_local = reinterpret_cast<int*>(red + MAX_CS * 32);
@@ -671,6 +689,7 @@ struct Args {
   int R, F, iters, polish_iters;
   double eps, tol;
   const void *verts, *faces, *c1, *c2;
+  Lanes lanes;
   const void* poses[4];
   long long strides[8];
   void *out, *state, *stream;
@@ -700,7 +719,7 @@ int launch_kernel(const Args& A, int threads, int cs) {
   cfg.numAttrs = 1;
   cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, A.F, A.iters, A.polish_iters, (T)A.eps, (T)A.tol,
                                        (const T*)A.verts, (const int64_t*)A.faces, P, (const T*)A.c1,
-                                       (const T*)A.c2, out_views<T>(A.out, A.R, A.F), (T*)A.state);
+                                       (const T*)A.c2, A.lanes, out_views<T>(A.out, A.R, A.F), (T*)A.state);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -785,17 +804,20 @@ extern "C" {
 // (c1 unused). verts (V, 3) and faces (F, 3) int64 are contiguous; poses:
 // q1 (R, 4), pos1 (R, 3), q2 (R, 4), pos2 (R, 3) with strides (row,
 // component) in elements, 8 values in that order; c1, c2: NBODY constants
-// per body (scale, kind parameters). out: see out_views. state: scratch of
-// NSTATE R F values when F > FACE_CAP (unused, may be null, below). Returns
-// the launch's CUDA error; cudaErrorInvalidValue for F < 1 or a missing
-// state.
-int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int polish_iters, double eps, double tol,
-              const void* verts, const void* faces, const void* q1, const void* pos1, const void* q2,
-              const void* pos2, const long long* strides, const void* c1, const void* c2, void* out, void* state,
-              void* stream) {
-  if (F < 1 || (F > FACE_CAP && !state)) return (int)cudaErrorInvalidValue;
+// per body (scale, kind parameters). Lanes: pose r reads lane r / lane_div
+// of body 1's vertices and of c1 and c2, at the element strides lane_strides
+// (3 values: vertices, c1, c2; 0 for a body every lane shares). out: see
+// out_views. state: scratch of NSTATE R F values when F > FACE_CAP (unused,
+// may be null, below). Returns the launch's CUDA error;
+// cudaErrorInvalidValue for F < 1, lane_div < 1 or a missing state.
+int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int polish_iters, int lane_div, double eps,
+              double tol, const void* verts, const void* faces, const void* q1, const void* pos1, const void* q2,
+              const void* pos2, const long long* strides, const long long* lane_strides, const void* c1,
+              const void* c2, void* out, void* state, void* stream) {
+  if (F < 1 || lane_div < 1 || (F > FACE_CAP && !state)) return (int)cudaErrorInvalidValue;
   if (R < 1) return 0;
-  Args A{R, F, iters, polish_iters, eps, tol, verts, faces, c1, c2, {q1, pos1, q2, pos2}, {}, out, state, stream};
+  const Lanes L{lane_div, lane_strides[0], lane_strides[1], lane_strides[2]};
+  Args A{R, F, iters, polish_iters, eps, tol, verts, faces, c1, c2, L, {q1, pos1, q2, pos2}, {}, out, state, stream};
   for (int i = 0; i < 8; ++i) A.strides[i] = strides[i];
   return dtype == 1 ? dispatch<double, Launch>(kind1, kind2, A) : dispatch<float, Launch>(kind1, kind2, A);
 }
@@ -805,7 +827,7 @@ int fw_search(int dtype, int kind1, int kind2, int R, int F, int iters, int poli
 // per thread, CTAs per SM
 int fw_search_info(int dtype, int kind1, int kind2, int R, int F, long long* out) {
   if (F < 1) return (int)cudaErrorInvalidValue;
-  Args A{R, F, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {}, {}, nullptr, nullptr, nullptr};
+  Args A{R, F, 0, 0, 0.0, 0.0, nullptr, nullptr, nullptr, nullptr, {1, 0, 0, 0}, {}, {}, nullptr, nullptr, nullptr};
   return dtype == 1 ? dispatch<double, Resources>(kind1, kind2, A, out)
                     : dispatch<float, Resources>(kind1, kind2, A, out);
 }

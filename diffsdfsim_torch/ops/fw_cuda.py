@@ -15,6 +15,12 @@ parameters, built once per body and cached by the shape parameters'
 storage and version), allocates one output buffer, whose views are the
 nine outputs, and calls the kernel.
 
+Lanes: a body of a seed sweep (``physics/bodies.py``, ``lanes`` > 0)
+carries a lane axis; at R = L D poses, lane-major, pose r reads lane r / D
+of body 1's vertices and of both constant blocks (per-lane strides the
+kernel adds to its pointers; a body every lane shares has stride 0). A probe
+stage of the whole sweep is one launch per directed pair.
+
 ``fw_search_pair`` dispatches on the tensors' device alone: CUDA tensors
 launch the kernel (or raise), CPU tensors take the plain version,
 ``physics/contacts.search_pair_raw_plain``. The kernel knows the analytic
@@ -33,15 +39,23 @@ NBODY = 8  # per-body constants: scale, kind parameters (4), padding
 SUPPORTED_KINDS = (0, 1, 2, 3, 4)  # physics/shapes.py KIND_* tags; -1 is a plain mesh
 FACE_CAP = 8192  # faces a pose runs one per thread (fw_search.cu FACE_CAP); past it, a scratch state
 NSTATE = 19  # per-face state values in that scratch (fw_search.cu NSTATE)
+ARGTYPES = [ctypes.c_int] * 8 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 13  # fw_search's C signature
 
 
 def body_consts(shape, dtype, device):
     """A body's constant block (NBODY,): its scale, then its normalized kind
     parameters (``kernel_params``), zero-padded."""
-    prm = [torch.as_tensor(v, dtype=dtype, device=device).detach() for v in shape.kernel_params()]
+    prm = [v.detach().to(dtype=dtype, device=device) for v in shape.kernel_params()]
     vals = [shape.scale().detach().to(dtype=dtype, device=device)] + prm
     vals += [torch.zeros((), dtype=dtype, device=device)] * (NBODY - len(vals))
     return torch.stack(vals).contiguous()
+
+
+def lane_consts(shape, dtype, device):
+    """(L, NBODY) constant blocks of a lane body's shape, whose parameters
+    carry the lane axis: ``body_consts`` mapped over the lanes."""
+    params = {f.name: getattr(shape, f.name) for f in dataclasses.fields(shape)}
+    return torch.func.vmap(lambda p: body_consts(dataclasses.replace(shape, **p), dtype, device))(params).contiguous()
 
 
 def shape_kind(shape):
@@ -96,7 +110,7 @@ class _FwKernel:
             lib = load("fw_search")
             fn = lib.fw_search
             fn.restype = ctypes.c_int
-            fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 12
+            fn.argtypes = ARGTYPES
             info = lib.fw_search_info
             info.restype = ctypes.c_int
             info.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
@@ -109,18 +123,21 @@ class _FwKernel:
         buf, off, R = self._last
         return buf.view(torch.int32)[off // 4:off // 4 + R]
 
-    def consts(self, shape, dtype, device):
+    def consts(self, shape, dtype, device, lanes: int = 0):
         """The body's constant block, built once per shape parameters: the
-        key holds each parameter tensor's storage and version, so an in-place
-        update (an optimizer step on ``rad``) rebuilds it."""
+        key holds each parameter tensor's storage, shape and version, so an
+        in-place update (an optimizer step on ``rad``) rebuilds it. A lane
+        body's shape (``lanes`` > 0, its parameters stacked on the lane axis)
+        gets its (L, NBODY) blocks the same way."""
         params = [getattr(shape, f.name) for f in dataclasses.fields(shape)]
-        key = (shape.kind, dtype, device) + tuple((t.data_ptr(), t._version) for t in params)
+        key = (shape.kind, dtype, device, lanes) + tuple((t.data_ptr(), tuple(t.shape), t._version) for t in params)
         hit = self._consts.get(key)
         if hit is None:
             if len(self._consts) >= 16:
                 self._consts.clear()
             # the entry holds the parameters, so their storage is not reused under its key
-            hit = self._consts[key] = (params, body_consts(shape, dtype, device))
+            block = lane_consts(shape, dtype, device) if lanes else body_consts(shape, dtype, device)
+            hit = self._consts[key] = (params, block)
         return hit[1]
 
     def info(self, bd1, bd2, dtype, R: int):
@@ -136,7 +153,8 @@ class _FwKernel:
         return dict(zip(("threads", "cluster", "smem_bytes", "regs", "spill_bytes", "blocks_per_sm"), out))
 
     def __call__(self, bd1, q1, pos1, bd2, q2, pos2, cfg):
-        """One directed pair at R poses (q*/pos* (R,4)/(R,3)). Returns a
+        """One directed pair at R poses (q*/pos* (R,4)/(R,3)); a lane body
+        (L lanes) serves R / L consecutive poses per lane. Returns a
         ``physics.contacts.RawPairSearch``."""
         if not q1.is_cuda:
             from ..physics.contacts import search_pair_raw_plain
@@ -164,19 +182,26 @@ class _FwKernel:
         if not (verts.is_contiguous() and faces.is_contiguous() and faces.dtype == torch.int64
                 and faces.device == device):
             raise ValueError("FW kernel: body 1's verts and faces_t must be contiguous, faces_t int64 on its device")
-        c1 = self.consts(bd1.shape, dtype, device) if bd1.is_sdf else None
-        c2 = self.consts(bd2.shape, dtype, device)
+        lanes = max(bd1.lanes, bd2.lanes)
+        if (bd1.lanes and bd2.lanes and bd1.lanes != bd2.lanes) or (lanes and R % lanes):
+            raise ValueError(f"FW kernel: lane bodies of {bd1.lanes} and {bd2.lanes} lanes at {R} poses")
+        c1 = self.consts(bd1.shape, dtype, device, bd1.lanes) if bd1.is_sdf else None
+        c2 = self.consts(bd2.shape, dtype, device, bd2.lanes)
+        lane_strides = (ctypes.c_longlong * 3)(
+            verts[0].numel() if bd1.lanes else 0, NBODY if bd1.lanes and bd1.is_sdf else 0, NBODY if bd2.lanes else 0)
         b_cand, b_iters, n = out_layout(R, F, q1.element_size())
         buf = torch.empty((n,), dtype=dtype, device=device)
         state = torch.empty((NSTATE * R * F,), dtype=dtype, device=device) if F > FACE_CAP else None
         strides = (ctypes.c_longlong * 8)(*(s for t in (q1, pos1, q2, pos2) for s in t.stride()))
         polish = int(cfg.contact_polish_iters) if bd1.is_sdf else 0
-        dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, int(cfg.fw_iters), polish)
+        dims = (1 if dtype == torch.float64 else 0, bd1.kind, bd2.kind, R, F, int(cfg.fw_iters), polish,
+                R // lanes if lanes else R)
         ptrs = (verts.data_ptr(), faces.data_ptr(), q1.data_ptr(), pos1.data_ptr(), q2.data_ptr(),
-                pos2.data_ptr(), ctypes.addressof(strides), 0 if c1 is None else c1.data_ptr(), c2.data_ptr(),
-                buf.data_ptr(), 0 if state is None else state.data_ptr())
+                pos2.data_ptr(), ctypes.addressof(strides), ctypes.addressof(lane_strides),
+                0 if c1 is None else c1.data_ptr(), c2.data_ptr(), buf.data_ptr(),
+                0 if state is None else state.data_ptr())
         return dict(dims=dims, tols=(float(cfg.eps), float(cfg.tol)), ptrs=ptrs,
-                    keep=(strides, q1, pos1, q2, pos2, state),
+                    keep=(strides, lane_strides, q1, pos1, q2, pos2, state),
                     buf=buf, layout=(R, F, b_cand, b_iters), device=device)
 
     def launch(self, args):

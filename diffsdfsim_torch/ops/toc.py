@@ -17,6 +17,10 @@ padded slots masked, and w = 0 when sum (dD/dh)^2 <= 1e-5
 (world.py:206-210). The backward is one forward-mode derivative for dD/dh
 and one vector-Jacobian product with cotangent -w dL/dh for all eleven
 inputs at once, as in the JAX package.
+
+A seed sweep's B worlds (``physics/batched.py``) re-emit their dts in one
+call: h (B,), the arguments and the mask (B, K, ...), every sum over a
+lane's own contacts.
 """
 
 from __future__ import annotations
@@ -47,11 +51,14 @@ class TocArgs(NamedTuple):
 
 
 def gap_function(h, a: TocArgs):
-    """D(h, .): (K,) signed gap at time offset h (reference world.py:150-171)."""
-    Rih = so3_exp_map(h * a.vs1[:, :3]) @ a.rots1
-    Rjh = so3_exp_map(h * a.vs2[:, :3]) @ a.rots2
-    posih = a.poss1 + h * a.vs1[:, 3:] + 0.5 * a.as1[:, 3:] * h * h
-    posjh = a.poss2 + h * a.vs2[:, 3:] + 0.5 * a.as2[:, 3:] * h * h
+    """D(h, .): (K,) signed gap at time offset h (reference world.py:150-171);
+    (B, K) for h (B,) and arguments (B, K, ...)."""
+    if h.dim():
+        h = h[:, None, None]
+    Rih = so3_exp_map(h * a.vs1[..., :3]) @ a.rots1
+    Rjh = so3_exp_map(h * a.vs2[..., :3]) @ a.rots2
+    posih = a.poss1 + h * a.vs1[..., 3:] + 0.5 * a.as1[..., 3:] * h * h
+    posjh = a.poss2 + h * a.vs2[..., 3:] + 0.5 * a.as2[..., 3:] * h * h
     cih_w = (Rih @ a.cs1[..., None])[..., 0] + posih
     cih_j = (Rjh.transpose(-1, -2) @ (cih_w - posjh)[..., None])[..., 0]
     return torch.sum(a.ns2 * (a.cs2 - cih_j), dim=-1)
@@ -73,18 +80,20 @@ class TocDt(torch.autograd.Function):
         # dD/dh by one forward-mode derivative
         _, dD_dh = torch.func.jvp(lambda hh: gap_function(hh, a), (h,), (torch.ones_like(h),))
         zero = torch.zeros_like(dD_dh)
-        dD_dh = torch.where(dD_dh < TOC_TOL / h, zero, dD_dh)  # only motion into collision
+        lanes = h.dim() > 0
+        hc, dL_dhc = (h[:, None], dL_dh[:, None]) if lanes else (h, dL_dh)
+        dD_dh = torch.where(dD_dh < TOC_TOL / hc, zero, dD_dh)  # only motion into collision
         dD_dh = torch.where(mask, dD_dh, zero)
-        denom = torch.sum(dD_dh**2)
+        denom = torch.sum(dD_dh**2, dim=-1, keepdim=True) if lanes else torch.sum(dD_dh**2)
         ok = denom > 1e-5
         w = torch.where(ok, dD_dh / torch.where(ok, denom, torch.ones_like(denom)), zero)
         # every other gradient by one vjp with cotangent -w dL/dh
         _, vjp_fn = torch.func.vjp(lambda *aa: gap_function(h, TocArgs(*aa)), *a)
-        d_args = vjp_fn(-w * dL_dh)
+        d_args = vjp_fn(-w * dL_dhc)
         return (dL_dh, None) + tuple(d_args)
 
 
 def toc_dt(h, args: TocArgs, mask):
     """Identity on h; its backward applies the TOC differential. ``mask``
-    (K,) bool marks the contacts new in this step."""
+    (K,) bool marks the contacts new in this step ((B, K) for h (B,))."""
     return TocDt.apply(h, mask, *args)

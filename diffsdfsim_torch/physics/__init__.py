@@ -19,3 +19,11 @@ from .joints import (
 )
 from .forces import ExternalForce3D, Gravity3D
 from .world import Trajectory, WorldSpec, WorldState, make_world, rollout, run_world, step_frame
+from .batched import (
+    finish_step_batched,
+    make_world_batched,
+    rollout_batched,
+    step_dt_batched,
+    step_frame_batched,
+    trajectory_lanes_first,
+)

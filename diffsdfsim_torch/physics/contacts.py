@@ -18,7 +18,9 @@ PyTorch counterpart of ``diffsdfsim_tpu/physics/contacts.py`` (reference
 - compaction of all pairs into one fixed-K contact buffer, valid slots first.
 
 Searches carry a leading rung axis R: the probe ladder searches all its
-trial poses in one call (one kernel launch per directed pair).
+trial poses in one call (one kernel launch per directed pair). A seed
+sweep's bodies carry a lane axis (``physics/bodies.py``); its probe stage
+searches L D poses, lane-major, D per lane, in the same one call.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import dataclasses
 from typing import NamedTuple, Sequence
 
 import torch
+from torch.utils._pytree import tree_map
 
 from ..config import SimConfig
 from ..ops import fw_cuda
@@ -34,7 +37,7 @@ from ..ops.filtering import filter_contacts
 from ..ops.frank_wolfe import finalize_fw, frank_wolfe
 from ..ops.polish import polish_pair
 from ..utils.quaternion import quat_apply, quat_invert, quat_multiply
-from .bodies import BodyDef
+from .bodies import BodyDef, lane_map
 
 
 @dataclasses.dataclass
@@ -69,7 +72,7 @@ def _overlap(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2):
     q1, pos1, q2, pos2 = q1[:, None], pos1[:, None], q2[:, None], pos2[:, None]
     v1_b2 = quat_apply(quat_invert(q2), quat_apply(q1, bd1.verts) + pos1 - pos2)
     v2_b1 = quat_apply(quat_invert(q1), quat_apply(q2, bd2.verts) + pos2 - pos1)
-    s1, s2 = bd1.scale(), bd2.scale()
+    s1, s2 = bd1.scale()[..., None], bd2.scale()[..., None]
     ov1 = torch.all((torch.amax(v1_b2, dim=1) >= -s2) & (torch.amin(v1_b2, dim=1) <= s2), dim=-1)
     ov2 = torch.all((torch.amax(v2_b1, dim=1) >= -s1) & (torch.amin(v2_b1, dim=1) <= s1), dim=-1)
     return ov1 & ov2
@@ -87,7 +90,7 @@ def _compute_contacts(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, abc, face_
     if anchor_b1 is not None:
         cp_b1 = anchor_b1.detach()
     else:
-        tri = bd1.verts[bd1.faces_t[face_idx]]  # (..., N,3,3)
+        tri = bd1.face_tris(face_idx)  # (..., N,3,3)
         cp_b1 = torch.sum(tri * abc[..., None], dim=-2)
 
     if bd1.is_sdf:
@@ -151,8 +154,9 @@ class RawPairSearch(NamedTuple):
     x1: torch.Tensor  # (R,F,3) polished anchors (zeros when the pair does not polish)
 
     def at(self, r: int | torch.Tensor) -> "RawPairSearch":
-        """The search at one rung, keeping a leading axis of 1."""
-        r = torch.as_tensor(r, device=self.pen.device).reshape(1)
+        """The search at one rung, keeping a leading axis of 1 (at the
+        poses ``r``, one per lane, for a (B,) tensor)."""
+        r = torch.as_tensor(r, device=self.pen.device).reshape(-1)
         return RawPairSearch(*(t.index_select(0, r) for t in self))
 
 
@@ -172,7 +176,9 @@ def _fw_setup(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2):
 def search_pair_raw_plain(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimConfig) -> RawPairSearch:
     """Plain PyTorch version of the FW kernel K3 (the JAX package's
     ``_search_pair_raw_xla``): FW over all faces, surface push, polish and
-    contact test, and the no-grad contact quantities, for R poses."""
+    contact test, and the no-grad contact quantities, for R poses. A lane
+    body of L lanes serves R / L consecutive poses per lane."""
+    bd1, bd2 = per_pose(bd1, q1.shape[0]), per_pose(bd2, q1.shape[0])
     pqr = _fw_setup(bd1, q1, pos1, bd2, q2, pos2)
     R, F = pqr.shape[:2]
     dtype, device = pqr.dtype, pqr.device
@@ -195,7 +201,7 @@ def search_pair_raw_plain(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: S
     push_fn = None
     if bd1.is_sdf:
         q21 = quat_multiply(quat_invert(q2b), q1b)
-        tri1 = bd1.verts[bd1.faces_t]
+        tri1 = bd1.verts[..., bd1.faces_t, :]
 
         def push_fn(abc):
             x_b1 = torch.sum(tri1 * abc[..., None], dim=-2)
@@ -227,6 +233,16 @@ def search_pair_raw_plain(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: S
     return RawPairSearch(*(
         torch.where(has.reshape((R,) + (1,) * (a.dim() - 1)), a, b) for a, b in zip(raw, empty)
     ))
+
+
+def per_pose(bd: BodyDef, R: int) -> BodyDef:
+    """A lane body with a lane for each of R poses (lane-major); a body
+    every lane shares as it is."""
+    if not bd.lanes or bd.lanes == R:
+        return bd
+    if R % bd.lanes:
+        raise ValueError(f"a body of {bd.lanes} lanes at {R} poses")
+    return bd.repeat_lanes(R // bd.lanes)
 
 
 def search_pair_raw(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimConfig) -> RawPairSearch:
@@ -275,7 +291,7 @@ class RawContactSearch(NamedTuple):
     max_pen_all: torch.Tensor  # (R,)
 
     def at(self, r) -> "RawContactSearch":
-        r1 = torch.as_tensor(r, device=self.max_pen_all.device).reshape(1)
+        r1 = torch.as_tensor(r, device=self.max_pen_all.device).reshape(-1)
         return RawContactSearch(
             raws=tuple(x.at(r1) for x in self.raws),
             gates=tuple(g.index_select(0, r1) for g in self.gates),
@@ -298,7 +314,7 @@ def search_contacts_raw(bodies: Sequence[BodyDef], quat, pos, directed_pairs: Se
         raw = search_pair_raw(bd1, q1, p1, bd2, q2, p2, cfg)
         gate = torch.ones((R,), dtype=torch.bool, device=pos.device)
         if dp.overlap_test:
-            gate = _overlap(bd1, q1, p1, bd2, q2, p2)
+            gate = _overlap(per_pose(bd1, R), q1, p1, per_pose(bd2, R), q2, p2)
         if dp.gated:
             gate = gate & (pair_pens[dp.pair_id] <= cfg.tol)
         max_pen = torch.where(gate, raw.max_pen, neg_inf)
@@ -383,3 +399,28 @@ def find_contacts(bodies: Sequence[BodyDef], quat, pos, directed_pairs: Sequence
         valid=valid, i1=cat["i1"][order], i2=cat["i2"][order], pair_id=pair_id,
         max_pen_all=cache.max_pen_all, pair_active=pair_active,
     )
+
+
+# ---------------------------------------------------------------- lanes
+
+
+def contacts_fields(c: Contacts) -> tuple:
+    return tuple(getattr(c, f.name) for f in dataclasses.fields(Contacts))
+
+
+def finish_contacts_lanes(raw: RawContactSearch, cfg: SimConfig) -> ContactCache:
+    """``finish_contacts`` of B worlds, each at its own selected rung (raw
+    with a leading lane axis): the filter mapped over the lanes."""
+    return torch.func.vmap(lambda r: finish_contacts(tree_map(lambda x: x[None], r), cfg))(raw)
+
+
+def find_contacts_lanes(bodies: Sequence[BodyDef], quat, pos, directed_pairs: Sequence[DirectedPair],
+                        n_unordered: int, cfg: SimConfig, cache: ContactCache) -> Contacts:
+    """``find_contacts`` of B worlds at their cached candidates (quat (B,
+    nb, 4), pos (B, nb, 3), the cache with a lane axis): the recompute and
+    compaction mapped over the lanes, differentiable in the poses and the
+    bodies."""
+    fields = lane_map(
+        lambda bds, q, p, cc: contacts_fields(find_contacts(bds, q, p, directed_pairs, n_unordered, cfg, cache=cc)),
+        bodies, quat, pos, cache)
+    return Contacts(*fields)

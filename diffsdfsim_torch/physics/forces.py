@@ -2,8 +2,10 @@
 
 PyTorch counterpart of ``diffsdfsim_tpu/physics/forces.py``. A force object
 returns a 6-vector ``[torque, force]`` in the world frame from ``force(t,
-body)``. Parameters are plain attributes (floats or tensors), so a later
-slice can make them differentiable or per-lane without changing the call.
+body)``. Parameters are plain attributes (floats or tensors), so they can
+be differentiable or per-lane without changing the call: in a seed sweep
+(``physics/batched.py``) a tensor attribute may carry a lane axis (B,), as
+may the body's mass and the time t, and the force is then (B, 6).
 """
 
 from __future__ import annotations
@@ -17,6 +19,12 @@ def _axis6(i, sign, like):
     out = torch.zeros(6, dtype=like.dtype, device=like.device)
     out[i] = sign
     return out
+
+
+def _col(x):
+    """A per-lane parameter (B,) as a column against the 6-vector; a scalar
+    as it is."""
+    return x[..., None] if isinstance(x, torch.Tensor) and x.dim() > 0 else x
 
 
 def DOWN(like):
@@ -34,7 +42,7 @@ class ExternalForce3D:
         self.multiplier = multiplier
 
     def force(self, t, body):
-        return self.force_func(t) * self.multiplier
+        return self.force_func(t) * _col(self.multiplier)
 
 
 class Gravity3D(ExternalForce3D):
@@ -44,4 +52,4 @@ class Gravity3D(ExternalForce3D):
         self.g = g
 
     def force(self, t, body):
-        return DOWN(body.mass) * body.mass * self.g
+        return DOWN(body.mass) * _col(body.mass) * _col(self.g)

@@ -28,7 +28,7 @@ device here; ``WorldSpec.host_syncs`` counts those reads.
 
 from __future__ import annotations
 
-import dataclasses
+import collections
 from typing import NamedTuple, Sequence
 
 import torch
@@ -44,7 +44,7 @@ from .contacts import (
     finish_contacts,
     search_contacts_raw,
 )
-from .engine import apply_forces, post_stabilization, probe_dynamics_batch, solve_dynamics
+from .engine import _Emit, apply_forces, post_stabilization, probe_dynamics_batch, solve_dynamics
 
 
 class WorldState(NamedTuple):
@@ -69,11 +69,15 @@ class WorldSpec:
             forces = tuple(() for _ in bodies)
         self.forces = tuple(tuple(f) for f in forces)
         self.cfg = cfg
-        # reads of device values that steer control flow (see module docstring)
+        # reads of device values that steer control flow (see module
+        # docstring), and those of a seed sweep by decision kind
         self.host_syncs = 0
+        self.host_reads = collections.Counter()
+        # a seed sweep's substeps and probe stages (physics/batched.py)
+        self.stages = collections.Counter()
         # whether a parameter is on the tape: a body's tensors, or a tensor
         # attribute of a joint or force
-        self.params_require_grad = any(_requires_grad(_body_tensors(bd)) for bd in self.bodies) or any(
+        self.params_require_grad = any(_requires_grad(bd.tensors().values()) for bd in self.bodies) or any(
             _requires_grad(vars(o).values()) for o in (*self.joints, *(f for fs in self.forces for f in fs))
         )
 
@@ -107,15 +111,13 @@ class WorldSpec:
         cols = cols or [[0, 0, 0]] * kt
         self._empty_cols = torch.tensor(cols, dtype=torch.long, device=device).T
 
-    def host_bool(self, x: torch.Tensor) -> bool:
-        """Read a device flag on the host, counting the sync."""
+    def host_bool(self, x: torch.Tensor, kind: str | None = None) -> bool:
+        """Read a device flag on the host, counting the sync (and its
+        decision ``kind``, where named)."""
         self.host_syncs += 1
+        if kind is not None:
+            self.host_reads[kind] += 1
         return bool(x)
-
-
-def _body_tensors(bd: BodyDef):
-    shape = [getattr(bd.shape, f.name) for f in dataclasses.fields(bd.shape)]
-    return [bd.verts, bd.mass, bd.ang_inertia, bd.restitution, bd.fric_coeff, *shape]
 
 
 def _requires_grad(tensors) -> bool:
@@ -253,21 +255,6 @@ def _contacts_value(spec: WorldSpec, q2, p2, cc) -> tuple[Contacts, bool]:
         cts = find_contacts(spec.bodies, q2, p2, spec.directed_pairs, spec.n_unordered, spec.cfg, cache=cc)
         return cts, True
     return _empty_contacts_value(spec, q2.dtype, cc.max_pen_all), False
-
-
-class _Emit(torch.autograd.Function):
-    """The value of ``value`` with the gradient of ``inline``: re-emits a
-    value the probe computed while the tape records its differentiable
-    recomputation (the JAX package's emission replay, world.py:434-513),
-    whose last bits may differ."""
-
-    @staticmethod
-    def forward(ctx, inline, value):
-        return value.clone()
-
-    @staticmethod
-    def backward(ctx, grad):
-        return grad, None
 
 
 def _replay(spec: WorldSpec, state: WorldState, dt_, cache, any_contact: bool, tape: bool):

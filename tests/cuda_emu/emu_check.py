@@ -26,8 +26,10 @@ cluster, within 1e-12 (float64) and 1e-5 (float32) relative of
 ``implicit_net_apply``. K3 (``K3_CASES``): the bench pairs at contact, a
 tilted box, the sphere on a cylinder (the 768-face floor's poses on
 clusters of 12 CTAs), and a 3072-face floor whose poses spread over
-clusters of 16 CTAs, held against ``search_pair_raw_plain`` as
-``chip_smoke.py`` holds them. Takes about 40 s.
+clusters of 16 CTAs, and both bench pairs with a sphere of a different
+radius in each of 3 lanes at 2 poses a lane (the seed sweep's per-lane
+bodies), held against ``search_pair_raw_plain`` as ``chip_smoke.py`` holds
+them. Takes about 40 s.
 """
 
 import ctypes
@@ -221,7 +223,7 @@ def check_k4_case(libs, dtype, case):
 # sphere (chip_smoke.k3_big_cases)
 K3_CASES = ["sphere->floor touch R=3", "floor->sphere pen1e-3 R=3", "box->floor tilted R=6", "sphere->cylinder R=6",
             "box->sphere gap R=2", "floor3072->sphere touch R=2", "sphere20480->floor touch R=2",
-            "sphere20480->sphere gap R=2"]
+            "sphere20480->sphere gap R=2", "lanes sphere->floor B=3 D=2", "lanes floor->sphere B=3 D=2"]
 
 
 def k3_case(label, dtype):
@@ -229,6 +231,8 @@ def k3_case(label, dtype):
     import chip_smoke
     from diffsdfsim_torch.physics import BoxShape, make_body
 
+    if label.startswith("lanes"):
+        return next(c[1:] for c in chip_smoke.k3_lane_cases("cpu", dtype, 3, 2) if c[0] == label)
     if label.startswith("sphere20480"):
         return next(c[1:] for c in chip_smoke.k3_big_cases("cpu", dtype, 2) if c[0] == label)
     if label.startswith("floor3072"):
@@ -256,6 +260,7 @@ def check_k3_case(libs, dtype, label):
     Tolerances as chip_smoke.py's: float64 1e-6 and no mask mismatch, float32
     2e-3 and 0.5 % of the masks."""
     from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops import fw_cuda
     from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
     from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
     import chip_smoke
@@ -267,7 +272,7 @@ def check_k3_case(libs, dtype, label):
     args["buf"].view(torch.uint8).fill_(0xFF)  # NaN bytes: an output the kernel misses shows
     fn = libs["fw_search"].fw_search
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 7 + [ctypes.c_double] * 2 + [ctypes.c_void_p] * 12
+    fn.argtypes = fw_cuda.ARGTYPES
     err = fn(*args["dims"], *args["tols"], *args["ptrs"], None)
     assert err == 0, f"fw_search: error {err}"
     out_k = fw_search_pair.finish(args)
@@ -283,7 +288,7 @@ def check_k3_case(libs, dtype, label):
     atol, allowed = (1e-6, 0) if f64 else (2e-3, int(0.005 * out_k.cand.numel()))
     # as on the card: the bench pairs are held on every output, the other
     # kinds on max_pen (exact-tie failsafe gradients, chip_smoke.phase_k3)
-    bench = label.startswith(("floor", "sphere->floor", "sphere20480"))
+    bench = label.startswith(("floor", "sphere->floor", "sphere20480", "lanes"))
     ok = same_inf and errs["max_pen"] <= atol and (not bench or (mis <= allowed and max(errs.values()) <= atol))
     return [(f"K3 {str(dtype)[6:]} {label}: errs " + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
              + f", mask mismatches {mis} (allowed {allowed}), cmask faces {int(out_k.cmask.sum())}, "

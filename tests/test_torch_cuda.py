@@ -156,6 +156,35 @@ def test_fw_kernel_past_the_face_cap(cuda, case, R):
         assert float((out_k.max_pen - out_p.max_pen)[fin].abs().max()) <= 1e-9
 
 
+@pytest.mark.parametrize("B", [16, 64])
+@pytest.mark.parametrize("direction", ["sphere->floor", "floor->sphere"])
+def test_fw_kernel_lane_bodies(cuda, direction, B):
+    """A seed sweep's probe stage: a sphere of another radius in each of B
+    lanes, 3 rung poses per lane, one launch, held against the plain version
+    on the same per-lane bodies as test_fw_kernel_matches_plain holds the
+    bench pairs."""
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
+    from diffsdfsim_torch.physics.contacts import search_pair_raw_plain
+
+    cfg = SimConfig(fric_dirs=8, max_contacts_per_pair=4, max_contacts_total=4, tol=1e-8)
+    _, bd1, bd2, q1, p1, q2, p2 = next(c for c in _chip_smoke().k3_lane_cases(cuda, torch.float64, B, 3)
+                                       if c[0].startswith(f"lanes {direction}"))
+    before = fw_search_pair.launches
+    out_k = fw_search_pair(bd1, q1, p1, bd2, q2, p2, cfg)
+    torch.cuda.synchronize()
+    assert fw_search_pair.launches == before + 1 and max(bd1.lanes, bd2.lanes) == B
+    out_p = search_pair_raw_plain(bd1, q1, p1, bd2, q2, p2, cfg)
+    assert torch.equal(out_k.cmask, out_p.cmask) and torch.equal(out_k.cand, out_p.cand)
+    for name in ("abc", "n_ng", "p1_ng", "x1", "pen"):
+        a, b = getattr(out_k, name), getattr(out_p, name)
+        assert float((a - b).abs().max()) <= 1e-9, name
+    fin = torch.isfinite(out_p.max_pen)
+    assert torch.equal(torch.isfinite(out_k.max_pen), fin)
+    if bool(fin.any()):
+        assert float((out_k.max_pen - out_p.max_pen)[fin].abs().max()) <= 1e-9
+
+
 def _kkt_inputs(cuda, k, B):
     """The backward's inputs at the plain solution of B bench LCPs with k
     contact slots: (Q^-1, G, A, F, d, rx)."""

@@ -8,8 +8,10 @@ Each ROOT is the root of a checkout (an unpacked ``git archive`` of a
 commit). For each ROOT, in the order given, a fresh Python process imports
 that checkout's ``chip_smoke.py``, builds its kernels and runs its path
 phases with their checks: the bench forward rollout (``forward``), its
-gradient (``fwd_bwd``), the grid drop (``grid``), and the latent drop and
-fit (``latent``); ``--paths`` picks some, all by default. Besides the
+gradient (``fwd_bwd``), the seed sweep at B = 16 and 64 (``batched``:
+forward and fwd+bwd, lanes against the single path), the grid drop
+(``grid``), and the latent drop and fit (``latent``); ``--paths`` picks
+some, all but ``batched`` by default. Besides the
 paths: ``k3`` and ``k4`` run the checkout's K3 and K4 kernel phases (their
 kernel and wrapper times go to the log), ``kernel_times`` times K3's launch
 at the bench pairs (R = 3) and K4's at N = 100, 576 and 2304 with CUDA
@@ -20,7 +22,13 @@ sphere grid, 960 points: the grid drop's most frequent query) by CUDA events
 around each synchronized call and by the host clock, median and mean of 200,
 and ``digest`` prints the sha256
 of the 100-frame bench trajectory and the repr of d loss / d rad at 20, 27
-and 100 frames, to tell whether two commits compute bitwise the same. A root given
+and 100 frames, to tell whether two commits compute bitwise the same;
+``k1_lane_rule`` runs the seed sweep at B = 64 over the 100 frames fwd+bwd
+twice, with K1's committed rule (whether a problem's last step was checked
+for improvement is decided over the whole launch) and with that decision
+taken per lane's group of rungs (as a single rollout's launch takes it),
+and prints how far lanes 0, 21, 42 and 63 are from the single path each
+time. A root given
 twice runs twice, so ``parent change change parent`` alternates the two.
 The processes' output goes to FILE (default ``chiprun_out/ab_paths.log``);
 the last line is one JSON object with each path's wall times in seconds,
@@ -107,10 +115,62 @@ def grid_query():
           f"mean {np.mean(ev):.4f} ms; host clock median {np.median(host):.4f} ms, mean {np.mean(host):.4f} ms")
 
 
+def k1_lane_rule():
+    import numpy as np
+    from diffsdfsim_torch.ops import qp_cuda
+    from diffsdfsim_torch.physics import batched, make_world_batched, rollout_batched
+    group = [None]
+    probe, finish = batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish
+
+    def probe_grouped(bodies, joints, forces, state, dts, cfg, any_contact):
+        group[0] = dts.shape[1]
+        try:
+            return probe(bodies, joints, forces, state, dts, cfg, any_contact)
+        finally:
+            group[0] = None
+
+    def finish_grouped(self, args):
+        # qp_cuda._PdipmKernel.finish with n_run per group of rungs
+        _, B, nz, neq, neq_real, nineq, _, _, max_iter, _ = args["dims"]
+        sol2, ints = args["outs"]
+        done_it, cur_imp = ints[:, 0], ints[:, 1]
+        g = group[0]
+        n_run = torch.clamp(done_it.view(-1, g).amax(1) + 1, max=max_iter).repeat_interleave(g)
+        use_cur = (cur_imp != 0) & ((done_it >= max_iter) | (done_it + 1 < n_run))
+        sol = torch.where(use_cur[:, None], sol2[1], sol2[0])
+        return (sol[:, :nz], sol[:, nz + 2 * nineq : nz + 2 * nineq + neq_real], sol[:, nz + nineq : nz + 2 * nineq],
+                sol[:, nz : nz + nineq])
+
+    lanes, n = (0, 21, 42, 63), cs.N_FRAMES
+    rads = cs.lane_rads(64)
+    refs = {i: cs.single_reference(rads[i], n) for i in lanes}
+    for rule in ("whole launch", "per lane"):
+        if rule == "per lane":
+            batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish = probe_grouped, finish_grouped
+        try:
+            r = torch.tensor(rads, dtype=torch.float64, device="cuda", requires_grad=True)
+            spec, bodies_b, state_b = make_world_batched(cs.sweep_world, r)
+            _, traj = rollout_batched(spec, bodies_b, state_b, n)
+            (g,) = torch.autograd.grad(cs.lane_losses(traj, n).sum(), r)
+        finally:
+            batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish = probe, finish
+        tr = {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
+        for i in lanes:
+            lt, (ref, gref, _) = cs.lane_traj(tr, i), refs[i]
+            same = all(np.array_equal(lt[k], ref[k]) for k in ("valid", "n_halvings", "bisect_failed", "truncated"))
+            d = np.abs(lt["pos"] - ref["pos"]).reshape(n, -1).max(1)
+            first = int(np.nonzero(d > 0)[0][0]) if (d > 0).any() else n
+            print(f"k1 lane rule: K1 decided {rule}: B=64 lane {i} vs the single path: decisions identical {same}, "
+                  f"pos max diff {d.max():.3e}, first frame that differs {first}, d loss / d rad over {n} frames "
+                  f"{float(g[i])!r} vs {gref[n]!r} (rel {abs(float(g[i]) - gref[n]) / abs(gref[n]):.2e})")
+
+
+# looked up by name: an older checkout's chip_smoke.py lacks the newer phases
+PHASES = dict(forward="phase_main_path", fwd_bwd="phase_gradient", batched="phase_batched", grid="phase_grid_path",
+              latent="phase_latent_path", k3="phase_k3", k4="phase_k4")
 for path in sys.argv[2].split(","):
-    dict(forward=cs.phase_main_path, fwd_bwd=cs.phase_gradient, grid=cs.phase_grid_path,
-         latent=cs.phase_latent_path, k3=cs.phase_k3, k4=cs.phase_k4, kernel_times=kernel_times,
-         grid_query=grid_query, digest=digest)[path]()
+    fn = globals().get(path) if path not in PHASES else getattr(cs, PHASES[path])
+    fn()
 """
 
 # each path's wall time, as chip_smoke.py's path phases print it
@@ -120,6 +180,8 @@ WALLS = {
     "grid": r"^grid path: \d+ frames on a \S+ grid in ([0-9.]+) s wall",
     "latent_fwd": r"^latent path, forward: \d+ frames in ([0-9.]+) s wall",
     "latent_fit": r"^latent path, fit: .* in ([0-9.]+) s wall",
+    **{f"batched{b}_fwd": rf"^batched B={b}: forward \d+ frames in ([0-9.]+) s wall" for b in (16, 64)},
+    **{f"batched{b}_fwd_bwd": rf"^batched B={b}: .*; fwd\+bwd in ([0-9.]+) s wall" for b in (16, 64)},
 }
 
 
