@@ -250,6 +250,76 @@ def physics_lcps(B, seed, device, dtype, k=4):
     return [torch.stack(o).to(device=device, dtype=dtype).contiguous() for o in out]
 
 
+def room_lcps(B, seed, device, dtype):
+    """B mixed LCPs of optim_sphere's room at the sphere's wall and floor
+    contacts, assembled by the port's engine: the floor and the wall (each
+    fixed by a TotalConstraint3D) and a sphere of radius 0.4-2.0 in the
+    corner, its 8 contact slots split between the floor (slots 0-3) and the
+    wall (4-7), some invalid; nz 18, neq 12, k 8, fd 8 (m2 = 52, K1's and
+    K2's runtime-sized instantiation)."""
+    import torch
+    from diffsdfsim_torch.experiments import optim_sphere as osp
+    from diffsdfsim_torch.physics import Gravity3D, SphereShape, TotalConstraint3D, make_body
+    from diffsdfsim_torch.physics.contacts import Contacts
+    from diffsdfsim_torch.physics.engine import dump_contact_lcp, mass_matrix_inv
+    from diffsdfsim_torch.physics.world import WorldState
+    from diffsdfsim_torch.utils.spherical import normalize
+
+    c = dict(osp.DEFAULTS)
+    cfg = osp.build_cfg(c)
+    room = osp.room_bodies(c, "cpu", torch.float64)
+    f64 = lambda x: torch.tensor(np.asarray(x, dtype=np.float64))  # noqa: E731
+    rng = np.random.default_rng(seed)
+    k = cfg.max_contacts_total
+    out = [[] for _ in range(8)]
+    for _ in range(B):
+        r = rng.uniform(c["min_dim"], c["max_dim"])
+        sphere = make_body(SphereShape(torch.tensor(r)), restitution=0.5, fric_coeff=0.25, subdiv=1, device="cpu")
+        bodies = [*room, sphere]
+        centre = np.array([4.5 - r, r, 0.0])
+        valid = rng.random(k) < 0.7
+        valid[[0, 4]] = True
+        n = np.array([[0.0, 1.0, 0.0]] * 4 + [[-1.0, 0.0, 0.0]] * 4) + 0.05 * rng.normal(size=(k, 3))
+        along = np.array([[1.0, 0.0, 1.0]] * 4 + [[0.0, 1.0, 1.0]] * 4)  # in the floor's / the wall's plane
+        hit = np.array([[4.5 - r, 0.0, 0.0]] * 4 + [[4.5, r, 0.0]] * 4) + 0.05 * rng.normal(size=(k, 3)) * along
+        ctr = np.array([[0.0, -0.5, 0.0]] * 4 + [[5.0, 5.0, 0.0]] * 4)
+        contacts = Contacts(
+            normal=normalize(f64(n)), p1=f64(hit - ctr), p2=f64(hit - centre), pen=f64(np.zeros(k)),
+            valid=torch.tensor(valid), i1=torch.tensor([0] * 4 + [1] * 4), i2=torch.full((k,), 2),
+            pair_id=torch.tensor([0] * 4 + [1] * 4), max_pen_all=f64(0.0), pair_active=torch.ones(2, dtype=torch.bool),
+        )
+        v = np.zeros((3, 6))
+        v[2, :3] = rng.normal(size=3) * 0.5
+        v[2, 3:] = [3.0 * rng.random() + 0.1, -3.0 * rng.random() - 0.1, rng.normal() * 0.3]
+        q2 = np.array([1.0, *(0.1 * rng.normal(size=3))])
+        quat = f64([[1.0, 0, 0, 0], [1.0, 0, 0, 0], q2 / np.linalg.norm(q2)])
+        state = WorldState(quat=quat, pos=f64([[0.0, -0.5, 0.0], [5.0, 5.0, 0.0], centre]), v=f64(v), t=f64(0.0),
+                           contacts=contacts, last_dt=f64(cfg.dt), had_toc=torch.tensor(False))
+        dt = cfg.dt * 0.5 ** int(rng.integers(0, 3))
+        args, structure = dump_contact_lcp(bodies, (TotalConstraint3D(body1=0), TotalConstraint3D(body1=1)),
+                                           ((), (), (Gravity3D(10.0),)), state, contacts, dt, cfg)
+        check(structure == ("fric", 8, 8) and args[0].shape[-1] == 18 and args[4].shape[-2] == 12,
+              f"room LCP: structure {structure}, Q {tuple(args[0].shape)}, A {tuple(args[4].shape)}")
+        for i, a in enumerate(args):
+            out[i].append(a[0])
+        out[7].append(mass_matrix_inv(bodies, quat))
+    return [torch.stack(o).to(device=device, dtype=dtype).contiguous() for o in out]
+
+
+def case_lcps(case, B, seed, device, dtype):
+    """The LCPs of a kernel case: (k, B) on the bench scene (``physics_lcps``)
+    or ("room", B) on optim_sphere's room (``room_lcps``)."""
+    if case == "room":
+        return room_lcps(B, seed, device, dtype)
+    return physics_lcps(B, seed, device, dtype, k=case)
+
+
+def lcp_dims(G, A):
+    """(nz, neq, nineq, k) of a batch of fric LCPs (fd = 8)."""
+    nineq = G.shape[-2]
+    return G.shape[-1], A.shape[-2], nineq, nineq // 10
+
+
 def nnz(t):
     """Nonzeros of one problem's matrix, averaged over the batch."""
     return float((t != 0).sum()) / t.shape[0]
@@ -328,17 +398,24 @@ def phase_k1():
     # clipped to [1e-5, 1e5], a 1e-6 ridge), the kernel the Pallas kernel's
     # (none), so their x agree only to ~1e-3 of |x| ~ 3; both are also held
     # to their KKT residuals below. k = 8 contacts (nineq 80): the
-    # shape-space scene's buffer, at its probe batches of 3 and 4 rungs
-    cases = [(4, B) for B in (3, 6, 576)] + [(8, B) for B in (3, 4)]
+    # shape-space scene's buffer, at its probe batches of 3 and 4 rungs;
+    # "room": optim_sphere's room (nz 18, neq 12, k 8: the runtime-sized
+    # instantiation) at the single path's shallow stage (3 rungs) and the
+    # 50-seed sweep's (150 problems)
+    cases = [(4, B) for B in (3, 6, 576)] + [(8, B) for B in (3, 4)] + [("room", B) for B in (3, 150)]
     for dtype, eps, tol_x in ((torch.float64, 1e-12, 1e-8), (torch.float32, 1e-6, 1e-2)):
-        for k, B in cases:
+        for case, B in cases:
+            Q, p, G, h, A, b, F, invQ = case_lcps(case, B, seed=B, device="cuda", dtype=dtype)
+            nz, neq, nineq, k = lcp_dims(G, A)
             structure = ("fric", k, 8)
-            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype, k=k)
             args = (Q, p, G, h, A, b, F)
             sol_k = pdipm_fric(*args, invQ, 10, eps, 3, structure)
             done_it = pdipm_fric.last_done_it.clone()
             syncs = pdipm_fric.last_syncs.cpu()
-            info = pdipm_fric.info(dtype, 12, 6, k * 10, k, 8)
+            info = pdipm_fric.info(dtype, nz, neq, nineq, k, 8)
+            check(bool(info["static_m2"]) == (case != "room"),
+                  f"K1 {case} B={B}: the {'runtime-sized' if case == 'room' else 'static'} instantiation expected, "
+                  f"info {info}")
             sol_p = pdipm_solve_raw(*args, 10, eps, 3, structure)
             torch.cuda.synchronize()
             res_k = lcp_residuals(*args, sol_k)
@@ -360,7 +437,7 @@ def phase_k1():
             flops = k1_flops(done_it, 10, Q, G, A, F, invQ, k, 8)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
-            tag = f"K1 {str(dtype).split('.')[1]} k={k} B={B}"
+            tag = f"K1 {str(dtype).split('.')[1]} {'room' if case == 'room' else f'k={k}'} B={B}"
             print(f"{tag}: max|dx| {err:.3e} (tol {tol_x:g}, {int(solved.sum())}/{B} lanes), resid kernel max {float(res_k.max()):.3e} "
                   f"plain max {float(res_p.max()):.3e}, worse lanes {bad_res}; kernel {ms:.4f} ms ({how}) "
                   f"(wrapper with its tensor glue {wrapper_ms:.4f} ms), "
@@ -370,8 +447,8 @@ def phase_k1():
                   f"{fmt_info(info)}")
             check(err <= tol_x, f"{tag}: kernel x differs from the plain version by {err}")
             check(bad_res == 0, f"{tag}: {bad_res} lanes with a worse KKT residual than the plain version")
-            rows[(dtype, k, B)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                                       bytes_ms=bytes_ms, ops_ms=ops_ms)
+            rows[(dtype, case, B)] = dict(err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                          bytes_ms=bytes_ms, ops_ms=ops_ms)
     return rows
 
 
@@ -607,10 +684,14 @@ def phase_k2():
 
     rows = {}
     for dtype in (torch.float64, torch.float32):
-        for k, B in ((4, 1), (4, 6), (4, 576), (8, 1)):
-            structure = ("fric", k, 8)
+        # the room in float64 only: its KKT systems' condition numbers reach
+        # ~1e16 (d over 1e-9..1e9), beyond what float32 can be held to
+        room = (("room", 1), ("room", 50)) if dtype == torch.float64 else ()
+        for case, B in ((4, 1), (4, 6), (4, 576), (8, 1)) + room:
             f64 = dtype == torch.float64
-            Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device="cuda", dtype=dtype, k=k)
+            Q, p, G, h, A, b, F, invQ = case_lcps(case, B, seed=B, device="cuda", dtype=dtype)
+            nz, neq, nineq, k = lcp_dims(G, A)
+            structure = ("fric", k, 8)
             x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12 if f64 else 1e-6, 3, structure)
             d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12 if f64 else 1e5)
             rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=dtype, device="cuda")
@@ -618,7 +699,8 @@ def phase_k2():
             ins = (iq, G, A, F, d, rx)
             out_k = kkt_grad_fric(*ins, structure)
             syncs = int(kkt_grad_fric.last_syncs.max())
-            info = kkt_grad_fric.info(dtype, 12, 6, k * 10, k, 8)
+            info = kkt_grad_fric.info(dtype, nz, neq, nineq, k, 8)
+            check(bool(info["static_m2"]) == (case != "room"), f"K2 {case} B={B}: instantiation {info}")
             out_p = kkt_grad_plain(*ins, structure)
             out_ref = out_p if f64 else kkt_grad_plain(*(t.double() for t in ins), structure)
             torch.cuda.synchronize()
@@ -638,7 +720,7 @@ def phase_k2():
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
             tol = 1e-9 if f64 else 1e-4
-            tag = f"K2 {str(dtype).split('.')[1]} k={k} B={B}"
+            tag = f"K2 {str(dtype).split('.')[1]} {'room' if case == 'room' else f'k={k}'} B={B}"
             extra, library_ms = "", None
             if f64:
                 # the reduced Schur solve's plain version: (dnu, dlam) = -S^-1 [A; G] Q^-1 rx
@@ -646,20 +728,13 @@ def phase_k2():
                 hv = torch.cat([(A @ iqrx[..., None])[..., 0], (G @ iqrx[..., None])[..., 0]], -1)
                 w_red = -fric_reduced_solve(iq, G, A, F, d, hv, structure)
                 err_red = rel(torch.cat([out_k[2], out_k[1]], -1), w_red)
-                check(err_red <= tol, f"{tag}: kernel differs from fric_reduced_solve by {err_red} (relative)")
+                check(err_red <= tol or case == "room",
+                      f"{tag}: kernel differs from fric_reduced_solve by {err_red} (relative)")
                 # the library yardstick on the assembled full KKT system
-                n, neq = 12 + k * 10 + 6, 6
-                kkt = torch.zeros((B, n, n), dtype=dtype, device="cuda")
-                kkt[:, :12, :12] = Q
-                kkt[:, :12, 12 : n - neq] = G.transpose(-1, -2)
-                kkt[:, :12, n - neq :] = A.transpose(-1, -2)
-                kkt[:, 12 : n - neq, :12] = G
-                kkt[:, 12 : n - neq, 12 : n - neq] = -(torch.diag_embed(1.0 / d) + F)
-                kkt[:, n - neq :, :12] = A
-                rhs = torch.zeros((B, n, 1), dtype=dtype, device="cuda")
-                rhs[:, :12, 0] = -rx
+                n = nz + nineq + neq
+                kkt, rhs = kkt_system(Q, G, A, F, d, rx)
                 sol_lib = torch.linalg.solve_ex(kkt, rhs)[0][..., 0]
-                err_lib = max(rel(sol_lib[:, :12], out_p[0]), rel(sol_lib[:, 12 : n - neq], out_p[1]),
+                err_lib = max(rel(sol_lib[:, :nz], out_p[0]), rel(sol_lib[:, nz : n - neq], out_p[1]),
                               rel(sol_lib[:, n - neq :], out_p[2]))
                 library_ms, lib_how = device_ms(lambda: torch.linalg.solve_ex(kkt, rhs), None)
                 extra = (f"; vs fric_reduced_solve {err_red:.3e} (tol {tol:g}); torch.linalg.solve_ex of the "
@@ -670,16 +745,76 @@ def phase_k2():
                   f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
                   f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP){extra}; "
                   f"barriers per launch {syncs}; {fmt_info(info)}")
-            check(err <= tol, f"{tag}: kernel differs from the plain version by {err} (relative)")
-            rows[(dtype, k, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
-                                       bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=library_ms)
+            if case == "room":
+                # both the kernel and the plain version run the pivot-free
+                # Gauss-Jordan inverse of the reduced Schur block, as the
+                # reference's kernel does; at the room's d it loses digits
+                # (the plain version up to ~3e-9 relative), so each is held
+                # against the system's exact solution instead
+                ex = kkt_exact(kkt, rhs)
+                ex = (ex[:, :nz], ex[:, nz : n - neq], ex[:, n - neq :])
+                e_k = max(rel(a, r) for a, r in zip(out_k, ex))
+                e_p = max(rel(a, r) for a, r in zip(out_p, ex))
+                lim = max(tol, RTOL_K2_EXACT_FACTOR * e_p)
+                print(f"{tag}: against the exact solution (LAPACK on the full KKT system, one extended-precision "
+                      f"refinement): kernel {e_k:.3e}, plain version {e_p:.3e}, fric_reduced_solve "
+                      f"{max(rel(w_red[:, neq:], ex[1]), rel(w_red[:, :neq], ex[2])):.3e}, torch.linalg.solve_ex "
+                      f"{max(rel(sol_lib[:, :nz], ex[0]), rel(sol_lib[:, nz : n - neq], ex[1])):.3e}; "
+                      f"held at {lim:.3e} (max(1e-9, {RTOL_K2_EXACT_FACTOR:g}x the plain version's))")
+                check(e_k <= lim, f"{tag}: kernel {e_k} from the exact solution, the plain version {e_p}")
+            else:
+                check(err <= tol, f"{tag}: kernel differs from the plain version by {err} (relative)")
+            rows[(dtype, case, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                                          bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=library_ms)
     return rows
+
+
+# K2 at the room's size: the kernel's error from the exact solution of the
+# KKT system may be this many times the plain version's (both invert the
+# reduced Schur block without pivoting)
+RTOL_K2_EXACT_FACTOR = 20.0
+
+
+def kkt_system(Q, G, A, F, d, rx):
+    """The backward's full KKT systems [[Q, G', A'], [G, -(D^-1 + F), 0],
+    [A, 0, 0]] and right-hand sides (-rx, 0, 0), whose solutions are (dx,
+    dlam, dnu): (B, n, n), (B, n, 1)."""
+    import torch
+
+    B, nineq, nz = G.shape
+    neq = A.shape[-2]
+    n = nz + nineq + neq
+    kkt = torch.zeros((B, n, n), dtype=Q.dtype, device=Q.device)
+    kkt[:, :nz, :nz] = Q
+    kkt[:, :nz, nz : n - neq] = G.transpose(-1, -2)
+    kkt[:, :nz, n - neq :] = A.transpose(-1, -2)
+    kkt[:, nz : n - neq, :nz] = G
+    kkt[:, nz : n - neq, nz : n - neq] = -(torch.diag_embed(1.0 / d) + F)
+    kkt[:, n - neq :, :nz] = A
+    rhs = torch.zeros((B, n, 1), dtype=Q.dtype, device=Q.device)
+    rhs[:, :nz, 0] = -rx
+    return kkt, rhs
+
+
+def kkt_exact(kkt, rhs):
+    """The systems' solutions to float64 accuracy, (B, n) on kkt's device:
+    LAPACK's partially pivoted solve on the host, then one refinement with
+    the residual formed in extended precision (numpy's longdouble); on the
+    room's systems this agrees with a 34-digit mpmath solve to the last
+    float64 bit."""
+    import torch
+
+    K, b = kkt.double().cpu().numpy(), rhs.double().cpu().numpy()[..., 0]
+    x = np.linalg.solve(K, b[..., None])[..., 0]
+    res = b.astype(np.longdouble) - np.einsum("bij,bj->bi", K.astype(np.longdouble), x.astype(np.longdouble))
+    x = x + np.linalg.solve(K, res.astype(np.float64)[..., None])[..., 0]
+    return torch.tensor(x, device=kkt.device)
 
 
 # ---------------------------------------------------------------- phase 3c
 
 
-def igr_net(dtype, dims=(128,) * 8, skip_in=(4,), seed=1234, d_in=5):
+def igr_net(dtype, dims=(128,) * 8, skip_in=(4,), seed=1234, d_in=5, device="cuda"):
     """The shape-space decoder at the reference's width (latent size 2,
     geometric init toward radius 0.55, weights from a numpy seed as the
     golden file's); d_in = 259 with dims (512,) * 8 is IGR's own shape-space
@@ -687,7 +822,7 @@ def igr_net(dtype, dims=(128,) * 8, skip_in=(4,), seed=1234, d_in=5):
     from diffsdfsim_torch.models.igr import init_implicit_net
 
     return init_implicit_net(d_in, dims, skip_in, radius_init=0.55, generator=np.random.default_rng(seed),
-                             dtype=dtype).to("cuda")
+                             dtype=dtype).to(device)
 
 
 def igr_flops(params, n):
@@ -1262,8 +1397,8 @@ def phase_batched():
     frames forward and fwd+bwd through K1, K3 and K2. Each probe stage of the
     batch is one K1 launch (when some lane starts with a contact) and one
     K3 launch per directed pair, each whole-batch decision one host read;
-    lanes against the single path (all 16 lanes at 27 frames; lanes 0, 21,
-    42 and 63 of 64 over the 100 frames): identical decisions, the bounce
+    lanes against the single path (lanes 0, 5, 10 and 15 of 16 at 27
+    frames; lanes 0 and 63 of 64 over the 100 frames): identical decisions, the bounce
     as the single path is held against its golden, d loss / d rad at 20
     and 27 frames within RTOL_GRAD_SHORT (the 100-frame gradient, decided
     by rounding at the touchdowns, is reported). Where the host time of 20
@@ -1358,7 +1493,9 @@ def phase_batched():
         check(sum(reads.values()) == spec.host_syncs, f"B={B}: {spec.host_syncs} host reads, {dict(reads)} by kind")
 
         # lanes against the single path
-        n_chk, lanes = (27, range(B)) if B == 16 else (N_FRAMES, (0, 21, 42, 63))
+        # four lanes of 16 at 27 frames, two of 64 over the 100 frames: the
+        # single-path references take most of this phase's time
+        n_chk, lanes = (27, (0, 5, 10, 15)) if B == 16 else (N_FRAMES, (0, 63))
         errs, gerr, single_walls = {}, {20: 0.0, 27: 0.0, N_FRAMES: 0.0}, []
         for i in lanes:
             ref, g_ref, w = single_reference(rads[i], n_chk)
@@ -1528,20 +1665,29 @@ def synced(fn):
 
 
 def busy_share(fn, cpu=True):
-    """(wall ms, device busy ms, distinct kernels) of fn() under torch.profiler;
-    ``cpu=False`` traces the device's activity alone (a trace of every host op
-    of a seed sweep's frames takes minutes to process)."""
+    """(wall ms, device busy ms, {kernel: ms}) of fn() under torch.profiler;
+    ``cpu=False`` traces the device's activity alone. The device's events
+    are summed from the profiler's raw kineto events: building its event
+    tree (which ``acc_events`` or ``key_averages()`` do) took 150 s on the
+    H100's host after one 19 s iteration of the 50-seed sphere sweep, the
+    raw events 31 s; where they are not exposed, from ``key_averages()``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
-    with profile(activities=activities, acc_events=True) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = {}
+    raw = getattr(prof.profiler, "kineto_results", None)
+    if raw is not None:
+        for ev in raw.events():
+            if ev.device_type() == torch.autograd.DeviceType.CUDA and ev.duration_ns() > 0:
+                kern[ev.name()] = kern.get(ev.name(), 0.0) + ev.duration_ns() / 1e6
+        return wall * 1e3, sum(kern.values()), kern
     for ev in prof.key_averages():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
@@ -1706,22 +1852,475 @@ def phase_latent_path():
     return launches, fit_launches
 
 
-def main():
+# ---------------------------------------------------------------- phases 8-10
+
+
+# the fitting experiments' seed sweeps at the sizes their users run
+SPHERE_B, SYSID_B, SHAPE_B = 50, 16, 8
+DEVICE = "cuda"  # the device the sweep phases run on
+SPHERE_GOLDEN = os.path.join(ROOT, "tests", "golden", "full_sphere_f64.npz")
+SYSID_GOLDEN = os.path.join(ROOT, "tests", "golden", "full_sysid_{}_f64.npz")
+# How a sweep's lanes are held. Against the single path on the card at the
+# same draws: identical discrete decisions, each lane's first loss and
+# gradient within RTOL_LANE relative. Against the JAX golden (one lane per
+# experiment, carrying the golden's draws): identical decisions, the loss
+# and gradient within RTOL_EXP_GOLDEN relative.
+RTOL_LANE = 1e-6
+RTOL_EXP_GOLDEN = 1e-6
+# The shape-space lanes against the single path: looser than 1e-6 because
+# of the touchdown tie (ROADMAP queue 3, item 1): a lane's target drop may
+# part from the single path's after a touchdown (on an H100 lane 2's at
+# frame 31, by 7.7e-4 in its poses, its loss 2.5e-4 relative from the
+# single path's, the other six lanes within 4e-8)
+RTOL_SHAPE_LANE = 1e-3
+DECISIONS = ("valid", "n_halvings", "bisect_failed", "truncated")
+
+
+def rel_err(a, b):
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+class Recorder:
+    """Keeps each ``rollout_batched`` call's (spec, lanes-first trajectory,
+    lane bodies) made through ``module.rollout_batched`` while active."""
+
+    def __init__(self, module):
+        self.module, self.calls = module, []
+
+    def __enter__(self):
+        from diffsdfsim_torch.physics import trajectory_lanes_first
+
+        orig = self.orig = self.module.rollout_batched
+
+        def rec(spec, *a, **k):
+            out = orig(spec, *a, **k)
+            self.calls.append((spec, trajectory_lanes_first(out[1]), a[0]))
+            return out
+
+        self.module.rollout_batched = rec
+        return self
+
+    def __exit__(self, *exc):
+        self.module.rollout_batched = self.orig
+
+
+def check_sweep(tag, launches, spec, lanes, taped, k3=True):
+    """One batched rollout's launches and host reads, its lanes' world
+    construction included: one K1 launch per probe stage that solves the
+    LCP, one K3 launch per directed pair per stage and per lane's
+    construction-time search (``make_world`` searches each lane's initial
+    contacts; ``k3``: the pairs are analytic, a latent pair takes the plain
+    search and no K3), one K2 launch per taped LCP replay, one host read
+    per whole-batch decision."""
+    st, rd = spec.stages, spec.host_reads
+    n_st = st["shallow"] + st["deep"]
+    n_pairs = len(spec.directed_pairs)
+    check(launches["pdipm_fwd"] == st["lcp"] > 0, f"{tag}: {launches['pdipm_fwd']} K1 launches for {st['lcp']} "
+          f"probe stages that solve the LCP")
+    check(launches["fw_search"] == (n_pairs * (n_st + lanes) if k3 else 0), f"{tag}: {launches['fw_search']} K3 "
+          f"launches for {n_st} probe stages and {lanes} lanes' construction of {n_pairs} directed pairs")
+    check(launches["kkt_bwd"] == (st["replay_lcp"] if taped else 0) and (st["replay_lcp"] > 0) == taped,
+          f"{tag}: {launches['kkt_bwd']} K2 launches for {st['replay_lcp']} taped LCP replays")
+    check(rd["contact"] == rd["deep"] == st["shallow"] == st["substep"] == rd["recompute"],
+          f"{tag}: host reads {dict(rd)} for stages {dict(st)}")
+    check(sum(rd.values()) == spec.host_syncs, f"{tag}: {spec.host_syncs} host reads, {dict(rd)} by kind")
+    return (f"{st['substep']} whole-batch substeps, stages shallow {st['shallow']} deep {st['deep']} "
+            f"(LCP {st['lcp']}, taped replays {st['replay_lcp']}), host reads {dict(sorted(rd.items()))}, "
+            f"launches {launches}")
+
+
+def lane_decisions(traj, i):
+    """Lane i's discrete decisions of a lanes-first trajectory, as numpy."""
+    return {k: getattr(traj, k)[i].cpu().numpy() for k in DECISIONS}
+
+
+def first_parting(a, b, atol=1e-7):
+    """The first frame where two trajectories' poses part by more than atol
+    (None: never), and their largest difference, over their common frames."""
+    n = min(len(a), len(b))
+    d = np.abs(np.asarray(a)[:n] - np.asarray(b)[:n]).reshape(n, -1).max(axis=-1)
+    over = np.nonzero(d > atol)[0]
+    return (int(over[0]) if len(over) else None), float(d.max())
+
+
+def timed_sweep_steps(vg, n_steps, profile_last=True):
+    """``vg`` wrapped for ``fitting.descend``: each call's wall, launches
+    and (for the last call, ``profile_last``) the device's busy share."""
     import torch
 
+    walls, counts, busy = [], [], {}
+
+    def wrapped(x):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if profile_last and len(walls) == n_steps - 1:
+            out = []
+            pwall, pbusy, kern = busy_share(lambda: out.append(vg(x)), cpu=False)
+            busy.update(wall_ms=pwall, busy_ms=pbusy, top=sorted(kern.items(), key=lambda kv: -kv[1])[:5])
+            out = out[0]
+        else:
+            out = vg(x)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(read_counts())
+        return out
+
+    return wrapped, walls, counts, busy
+
+
+def phase_sphere_sweep():
+    """optim_sphere's seed sweep at the reference run's size: 50 seeds
+    (generate_sphere.sh's count), 45 frames (run_time 1.5), the sphere at
+    subdiv 2, fric_dirs 8, max_bisect 12, float64, in the room of a floor and
+    a wall: the targets as one batched forward, then 2 GD iterations of
+    ``run_sweep_hostloop``'s batched-native sweep (K1, K3 on 4 directed
+    pairs, K2). Lane 0 carries the JAX golden's draws
+    (tests/golden/full_sphere_f64.npz); the lanes of the smallest and the
+    largest start radius are held against the single path."""
+    import torch
+    from diffsdfsim_torch.experiments import fitting
+    from diffsdfsim_torch.experiments import optim_sphere as osp
+
+    golden = dict(np.load(SPHERE_GOLDEN))
+    c = dict(osp.DEFAULTS, n_par=SPHERE_B)
+    cfg = osp.build_cfg(c)
+    targets, starts = osp.draws(c, DEVICE)
+    targets[0], starts[0] = float(golden["target"]), float(golden["start"])
+    n_fr = osp.n_frames(c, cfg)
+    target_trajs, losses = osp.make_loss_batched(c, cfg, DEVICE)
+
+    with Recorder(osp) as rec:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tgt = target_trajs(targets)
+        torch.cuda.synchronize()
+        fwd_wall = time.perf_counter() - t0
+        fwd_line = check_sweep("sphere sweep targets", read_counts(), rec.calls[0][0], SPHERE_B, taped=False)
+        n_steps = 2
+        vg, walls, counts, busy = timed_sweep_steps(osp._value_and_grad(losses, tgt), n_steps)
+        out = osp._descend(vg, targets, starts, c, n_steps)
+        lines = [check_sweep(f"sphere sweep iteration {i}", counts[i], rec.calls[1 + i][0], SPHERE_B, taped=True)
+                 for i in range(n_steps)]
+    start_traj = rec.calls[1][1]
+    loss0, grad0 = out["loss_hist"][0].cpu().numpy(), out["grad_hist"][0].cpu().numpy()
+    check(bool(np.isfinite(loss0).all() and np.isfinite(grad0).all()), "sphere sweep: a lane's loss or gradient "
+          "is not finite")
+
+    # lane 0 against the JAX golden (its draws)
+    tgt_lanes = {k: getattr(tgt, k)[0].cpu().numpy() for k in DECISIONS}
+    for key in DECISIONS:
+        check(np.array_equal(tgt_lanes[key], golden[f"tgt_{key}"]), f"sphere sweep lane 0: target {key} differs "
+              f"from the JAX golden")
+        check(np.array_equal(lane_decisions(start_traj, 0)[key], golden[f"start_{key}"]),
+              f"sphere sweep lane 0: {key} at the start radius differs from the JAX golden")
+    frame, dmax = first_parting(start_traj.pos[0].detach().cpu().numpy(), golden["start_pos"])
+    e_loss, e_grad = rel_err(loss0[0], golden["loss"]), rel_err(grad0[0], golden["grad"])
+    print(f"sphere sweep lane 0 vs JAX golden: decisions identical; loss {loss0[0]!r} vs {float(golden['loss'])!r} "
+          f"rel {e_loss:.2e}, d loss / d rad {grad0[0]!r} vs {float(golden['grad'])!r} rel {e_grad:.2e} "
+          f"(tol {RTOL_EXP_GOLDEN:g}); poses part from JAX's (1e-7) at frame {frame}, at most {dmax:.2e}")
+    check(e_loss <= RTOL_EXP_GOLDEN and e_grad <= RTOL_EXP_GOLDEN, "sphere sweep lane 0: loss or gradient differs "
+          "from the JAX golden")
+
+    # the smallest and the largest start radius against the single path
+    s_np = starts.cpu().numpy()
+    for i in (int(np.argmin(s_np)), int(np.argmax(s_np))):
+        one = osp.fit(targets[i], starts[i], c, cfg, DEVICE, max_iter=1)
+        el = rel_err(loss0[i], one["loss_hist"][0].cpu().numpy())
+        eg = rel_err(grad0[i], one["grad_hist"][0].cpu().numpy())
+        print(f"sphere sweep lane {i} (start radius {s_np[i]:.4f}) vs the single path: loss rel {el:.2e}, "
+              f"d loss / d rad rel {eg:.2e} (tol {RTOL_LANE:g})")
+        check(el <= RTOL_LANE and eg <= RTOL_LANE, f"sphere sweep lane {i}: differs from the single path")
+
+    errs = np.abs(out["rad_hist"][-1].cpu().numpy() - targets.cpu().numpy())
+    lane_steps = SPHERE_B * n_fr
+    print(f"sphere sweep B={SPHERE_B}, {n_fr} frames: targets forward {fwd_wall:.3f} s = {lane_steps / fwd_wall:.2f} "
+          f"lane-steps/s ({fwd_line}); GD iterations (fwd+bwd) " + ", ".join(f"{w:.3f}" for w in walls)
+          + f" s (the second under the profiler) = {lane_steps / walls[0]:.2f} lane-steps/s; iteration 1: {lines[0]}")
+    print(f"sphere sweep, iteration 2 profiled (device activity alone): wall {busy['wall_ms']:.1f} ms, device busy "
+          f"{busy['busy_ms']:.1f} ms (idle {100 - 100 * busy['busy_ms'] / busy['wall_ms']:.1f}%); top kernels (ms): "
+          + "; ".join(f"{k[:40]} {v:.2f}" for k, v in busy["top"]))
+    print(f"sphere sweep: radius error after {n_steps} GD steps mean {errs.mean():.4f}, max {errs.max():.4f} "
+          f"(start {np.abs(s_np - targets.cpu().numpy()).mean():.4f})")
+    return dict(fwd_wall=fwd_wall, walls=walls, counts=counts)
+
+
+def traj_np(traj):
+    return {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
+
+
+def partings(named):
+    """'a vs b frame F (max d)' for consecutive pairs of named trajectories
+    (numpy dicts): the first frame where their poses part by 1e-7 (None:
+    never) and whether their discrete decisions agree."""
+    out = []
+    names = list(named)
+    for x, y in zip(names, names[1:]):
+        f, d = first_parting(named[x]["pos"], named[y]["pos"])
+        same = all(np.array_equal(named[x][k][: len(named[y][k])], named[y][k][: len(named[x][k])]) for k in DECISIONS)
+        out.append(f"{x} vs {y}: part at frame {f} (max {d:.2e}), decisions {'equal' if same else 'differ'}")
+    return "; ".join(out)
+
+
+def sysid_first_step(osy, target, start, c, cfg, device, plain_search=False):
+    """``optim_sysid.fit``'s first step on the single path: (loss, d loss /
+    d theta, the taped trajectory as numpy). ``plain_search``: every pair
+    takes the plain Frank-Wolfe search instead of K3 (on the card too)."""
+    import torch
+    from diffsdfsim_torch.experiments.losses import trajectory_loss
+    from diffsdfsim_torch.ops import fw_cuda
+
+    supported = fw_cuda.supported_pair
+    if plain_search:
+        fw_cuda.supported_pair = lambda *a: False
+    try:
+        with torch.no_grad():
+            _, tgt = osy.simulate(torch.as_tensor(target, dtype=torch.float64, device=device), c, cfg, device)
+        th = torch.tensor(float(start), dtype=torch.float64, device=device, requires_grad=True)
+        _, traj = osy.simulate(th, c, cfg, device)
+        loss = trajectory_loss(traj, tgt, body=1)
+        (g,) = torch.autograd.grad(loss, th)
+    finally:
+        fw_cuda.supported_pair = supported
+    return float(loss), float(g), traj_np(traj)
+
+
+def phase_sysid_sweep():
+    """optim_sysid's seed sweep for each parameter: 16 seeds, 30 frames
+    (run_time 1.0), its build_cfg (mesh_subdiv 2, max_bisect 6, no TOC): the
+    targets, then one Adam step through the batched-native rollout (K1, K3 on
+    the cube-floor pair both ways, K2). mass: the cube a lane body;
+    friction: the floor and the cube lane bodies, each with a per-lane
+    friction coefficient on the tape; force: the push magnitude per lane.
+    Held: the launches and host reads, the lane axes, finite losses and
+    gradients. Reported: lanes 0 and 15 against the single path on the
+    card, and lane 0 (the JAX golden's draws,
+    tests/golden/full_sysid_<param>_f64.npz) against the single path with
+    K3 and with the plain search, the CPU port and JAX: the first frame
+    where each pair's poses part, their losses and gradients. They are not
+    held to a tolerance because the cube's contacts are decided by exact
+    ties (its bottom face's corners and the floor's template vertices
+    reach the same SDF values; ROADMAP queue 3, items 3 and 11): a
+    perturbation of theta by 1e-15 moves the CPU port's loss by 1e-15, but
+    any other order of the same arithmetic (K3 or the plain search, K1 or
+    the plain solver, a lane of a batch or the single path, the CPU port or
+    JAX) may break a tie the other way, and the trajectories then part by
+    up to metres: on an H100 the lanes part from the single path at frames
+    4-24, the single path from JAX at frame 2 (mass) or 11 (friction), the
+    CPU port from JAX at frame 23 (mass) or never (force, friction)."""
+    import torch
+    from diffsdfsim_torch.experiments import fitting
+    from diffsdfsim_torch.experiments import optim_sysid as osy
+
+    rows = {}
+    for param in ("mass", "force", "friction"):
+        golden = dict(np.load(SYSID_GOLDEN.format(param)))
+        c = dict(osy.DEFAULTS, param=param, n_par=SYSID_B)
+        cfg = osy.build_cfg(c)
+        targets, starts = osy.draws(c, DEVICE)
+        targets[0], starts[0] = float(golden["target"]), float(golden["start"])
+        lo_hi = osy.param_range(c)
+        with Recorder(osy) as rec:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                _, tgt = osy.simulate_batched(targets, c, cfg, DEVICE)
+            torch.cuda.synchronize()
+            fwd_wall = time.perf_counter() - t0
+            fwd_line = check_sweep(f"sysid {param} targets", read_counts(), rec.calls[0][0], SYSID_B, taped=False)
+
+            def value_and_grad(th):
+                th = th.clone().requires_grad_(True)
+                ls = fitting.lane_losses(osy.simulate_batched(th, c, cfg, DEVICE)[1], tgt, body=1)
+                return ls.detach(), torch.autograd.grad(ls.sum(), th)[0]
+
+            vg, walls, counts, _ = timed_sweep_steps(value_and_grad, 1, profile_last=False)
+            out = fitting.descend(vg, starts, fitting.Adam(c["lr"]), 1, clip=lo_hi)
+            line = check_sweep(f"sysid {param} step", counts[0], rec.calls[1][0], SYSID_B, taped=True)
+        lane_axes = [bd.lanes for bd in rec.calls[1][2]]
+        check(lane_axes == {"mass": [0, SYSID_B], "force": [0, 0], "friction": [SYSID_B, SYSID_B]}[param],
+              f"sysid {param}: lane axes of (floor, cube) {lane_axes}")
+        loss0, grad0 = out[1][0].cpu().numpy(), out[3][0].cpu().numpy()
+        check(bool(np.isfinite(loss0).all() and np.isfinite(grad0).all()), f"sysid {param}: not finite")
+        batch_traj = rec.calls[1][1]
+
+        # lanes 0 and 15 against the single path on the card
+        singles = {}
+        for i in (0, SYSID_B - 1):
+            singles[i] = sysid_first_step(osy, targets[i], starts[i], c, cfg, DEVICE)
+            el, eg = rel_err(loss0[i], singles[i][0]), rel_err(grad0[i], singles[i][1])
+            f, d = first_parting({k: v[i] for k, v in traj_np(batch_traj).items()}["pos"], singles[i][2]["pos"])
+            print(f"sysid {param} lane {i} vs the single path: loss rel {el:.2e}, gradient rel {eg:.2e} (reported, "
+                  f"not held: see the docstring); poses part at frame {f} (max {d:.2e})")
+
+        # lane 0 against JAX, through the single path with K3, with the
+        # plain search, and the CPU port
+        plain = sysid_first_step(osy, targets[0], starts[0], c, cfg, DEVICE, plain_search=True)
+        cpu = sysid_first_step(osy, float(golden["target"]), float(golden["start"]), c, cfg, "cpu")
+        jax_traj = {k: golden[f"start_{k}"] for k in ("pos",) + DECISIONS}
+        lane0 = {k: v[0] for k, v in traj_np(batch_traj).items()}
+        named = {"card lane 0": lane0, "card single (K3)": singles[0][2], "card single (plain search)": plain[2],
+                 "CPU port": cpu[2], "JAX": jax_traj}
+        e_loss, e_grad = rel_err(loss0[0], golden["loss"]), rel_err(grad0[0], golden["grad"])
+        print(f"sysid {param} lane 0 (theta {float(golden['start']):.4f} toward {float(golden['target']):.4f}): loss "
+              f"card {loss0[0]!r}, card plain search {plain[0]!r}, CPU port {cpu[0]!r}, JAX {float(golden['loss'])!r}; "
+              f"gradient card {grad0[0]!r}, plain search {plain[1]!r}, CPU port {cpu[1]!r}, JAX "
+              f"{float(golden['grad'])!r}; card vs JAX rel {e_loss:.2e} / {e_grad:.2e} (reported, not held); "
+              + partings(named) + f"; CPU port vs JAX: " + partings({"CPU port": cpu[2], "JAX": jax_traj}))
+        lane_steps = SYSID_B * osy.n_frames(c, cfg)
+        print(f"sysid {param} B={SYSID_B}: targets forward {fwd_wall:.3f} s = {lane_steps / fwd_wall:.2f} lane-steps/s "
+              f"({fwd_line}); lane axes of (floor, cube) {lane_axes}; Adam step (fwd+bwd) {walls[0]:.3f} s = "
+              f"{lane_steps / walls[0]:.2f} lane-steps/s ({line})")
+        rows[param] = dict(fwd_wall=fwd_wall, walls=walls, counts=counts)
+    return rows
+
+
+def phase_shapespace_sweep():
+    """optim_shapespace's seed sweep at the full decoder width (latent 2,
+    (128,)*8, skip at 4, the seeded weights of the latent path), 8 seeds, 36
+    frames: the target drops, then one Adam step, through K4 (every decoder
+    value; the latent lane body's queries map the single-body code over the
+    lanes, and each query of the whole batch must be one K4 launch), K1 and
+    K2; K3 is never launched. Lane 0 carries the latent golden's draws
+    (tests/golden/latent128_f64.npz) and is held against its first fit
+    step (RTOL_LATENT_GRAD); the other lanes against the single path on the
+    card (RTOL_SHAPE_LANE)."""
+    import torch
+    from diffsdfsim_torch.experiments import optim_shapespace as oss
+    from diffsdfsim_torch.experiments.losses import trajectory_loss
+    from diffsdfsim_torch.models import igr
+
+    golden = dict(np.load(LATENT_GOLDEN))
+    net = igr_net(torch.float64, tuple(golden["dims"].tolist()), tuple(golden["skip_in"].tolist()),
+                  int(golden["weight_seed"]), device=DEVICE)
+    c = dict(oss.DEFAULTS, run_time=int(golden["frames"]) / 30.0, n_par=SHAPE_B)
+    cfg = oss.build_cfg(c)
+    codes = torch.tensor(golden["codes"], device=DEVICE)
+    targets, starts, quats = (x.clone() for x in oss.draws(codes, c))
+    for x, k in ((targets, "target_latent"), (starts, "start_latent"), (quats, "quat0")):
+        x[0] = torch.tensor(golden[k], device=DEVICE)
+
+    queries = [0]
+    decode = igr.decode
+
+    def counted(*a, **k):
+        queries[0] += 1
+        return decode(*a, **k)
+
+    igr.decode = counted
+    try:
+        with Recorder(oss) as rec:
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                _, tgt = oss.simulate_batched(targets, quats, net, c, cfg, DEVICE)
+            torch.cuda.synchronize()
+            fwd_wall = time.perf_counter() - t0
+            fwd_counts, fwd_queries = read_counts(), queries[0]
+            fwd_line = check_sweep("shape-space sweep targets", fwd_counts, rec.calls[0][0], SHAPE_B, taped=False,
+                                   k3=False)
+            queries[0] = 0
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            z = starts.clone().requires_grad_(True)
+            ls = fitting_losses(oss, z, quats, net, c, cfg, tgt)
+            (g,) = torch.autograd.grad(ls.sum(), z)
+            torch.cuda.synchronize()
+            step_wall = time.perf_counter() - t0
+            step_counts, step_queries = read_counts(), queries[0]
+            line = check_sweep("shape-space sweep step", step_counts, rec.calls[1][0], SHAPE_B, taped=True, k3=False)
+    finally:
+        igr.decode = decode
+    check(fwd_counts["igr_mlp"] == fwd_queries > 0 and step_counts["igr_mlp"] == step_queries > 0,
+          f"shape-space sweep: K4 launches {fwd_counts['igr_mlp']} / {step_counts['igr_mlp']} for "
+          f"{fwd_queries} / {step_queries} decoder queries (forward / step)")
+    check([bd.lanes for bd in rec.calls[1][2]] == [0, SHAPE_B], "shape-space sweep: the latent body must be a "
+          "lane body (its code per lane), the floor shared")
+    loss0, grad0 = ls.detach().cpu().numpy(), g.cpu().numpy()
+    batch = traj_np(rec.calls[1][1])
+    e_loss, e_grad = rel_err(loss0[0], golden["loss_0"]), rel_err(grad0[0], golden["grad_0"])
+    print(f"shape-space sweep lane 0 vs JAX golden: loss rel {e_loss:.2e}, d loss / d latent {grad0[0].tolist()} vs "
+          f"{golden['grad_0'].tolist()} rel {e_grad:.2e} (tol {RTOL_LATENT_GRAD:g}); "
+          + partings({"card lane 0": {k: v[0] for k, v in batch.items()},
+                      "JAX": {k: golden[f"start_traj_{k}"] for k in ("pos",) + DECISIONS}}))
+    failed = [] if e_loss <= RTOL_LATENT_GRAD and e_grad <= RTOL_LATENT_GRAD else ["lane 0 vs JAX"]
+    for i in range(1, SHAPE_B):
+        with torch.no_grad():
+            _, tgt_i = oss.simulate(targets[i], quats[i], net, c, cfg, DEVICE)
+        zi = starts[i].clone().requires_grad_(True)
+        _, traj_i = oss.simulate(zi, quats[i], net, c, cfg, DEVICE)
+        li = trajectory_loss(traj_i, tgt_i, body=1) + c["latent_reg"] * torch.sum(zi**2)
+        (gi,) = torch.autograd.grad(li, zi)
+        el, eg = rel_err(loss0[i], float(li)), rel_err(grad0[i], gi.cpu().numpy())
+        print(f"shape-space sweep lane {i} vs the single path: loss rel {el:.2e}, gradient rel {eg:.2e} "
+              f"(tol {RTOL_SHAPE_LANE:g}); "
+              + partings({"lane": {k: v[i] for k, v in batch.items()}, "single": traj_np(traj_i)}))
+        if not (el <= RTOL_SHAPE_LANE and eg <= RTOL_SHAPE_LANE):
+            failed.append(f"lane {i} vs the single path (loss rel {el:.2e}, gradient rel {eg:.2e})")
+    n_fr = int(golden["frames"])
+    print(f"shape-space sweep B={SHAPE_B}, {n_fr} frames: target drops {fwd_wall:.3f} s = "
+          f"{SHAPE_B * n_fr / fwd_wall:.2f} lane-steps/s ({fwd_line}; {fwd_queries} decoder queries); Adam step "
+          f"(fwd+bwd) {step_wall:.3f} s = {SHAPE_B * n_fr / step_wall:.2f} lane-steps/s ({line}; {step_queries} "
+          f"decoder queries)")
+    check(not failed, "shape-space sweep: " + "; ".join(failed))
+    return dict(fwd_counts=fwd_counts, step_counts=step_counts)
+
+
+def fitting_losses(oss, z, quats, net, c, cfg, tgt):
+    """optim_shapespace.fit_batched's per-lane losses at latents z."""
+    from diffsdfsim_torch.experiments.fitting import lane_losses
+
+    traj = oss.simulate_batched(z, quats, net, c, cfg, DEVICE)[1]
+    return lane_losses(traj, tgt, body=1) + c["latent_reg"] * (z**2).sum(-1)
+
+
+def run_some(names, keep_going):
+    """Build the kernels, then run the named phases only (a check while
+    working on a phase); with ``keep_going`` a phase's failure is printed and
+    the next phase runs. Prints no result lines; returns the exit code."""
+    import traceback
+
+    phase_device_and_build()
+    failed = []
+    for name in names:
+        t0 = time.perf_counter()
+        try:
+            globals()[name]()
+        except Exception:
+            if not keep_going:
+                raise
+            traceback.print_exc()
+            failed.append(name)
+        print(f"{name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"phases failed: {failed}")
+    return 1 if failed else 0
+
+
+def main(argv=None):
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if argv:
+        return run_some([a for a in argv if a != "--keep-going"], "--keep-going" in argv)
 
     t_start = time.perf_counter()
 
     def timed(phase):
         t0 = time.perf_counter()
         out = phase()
-        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s (script so far {time.perf_counter() - t_start:.1f} s)")
+        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s (script so far {time.perf_counter() - t_start:.1f} s)",
+              flush=True)
         return out
 
     name, smi = timed(phase_device_and_build)
@@ -1735,6 +2334,9 @@ def main():
     timed(phase_batched)
     grid_launches = timed(phase_grid_path)
     latent_launches, _ = timed(phase_latent_path)
+    timed(phase_sphere_sweep)
+    timed(phase_sysid_sweep)
+    timed(phase_shapespace_sweep)
 
     f64 = torch.float64
     k1r = k1[(f64, 4, 3)]

@@ -10,6 +10,12 @@ On CUDA the launch sits in an autograd Function: its forward is the kernel,
 its backward the vector-Jacobian product of the plain version with respect
 to x, recomputed from the saved input (the JAX package has no backward
 kernel either). The weights take no gradient: the decoder is frozen.
+
+Under ``torch.func.vmap`` (a seed sweep's latent lane bodies query their
+SDFs through a vmap of the single-body code, ``physics/bodies.py``) the
+Function's vmap rule folds the lane axis into the point axis: the query of
+all lanes is one launch over their points, and its backward one
+vector-Jacobian product over them.
 """
 
 from __future__ import annotations
@@ -168,13 +174,27 @@ class _IgrKernel:
 
 class _IgrMlp(torch.autograd.Function):
     """Forward: kernel K4. Backward: the plain version's vector-Jacobian
-    product with respect to x."""
+    product with respect to x. vmap: the mapped axes folded into the point
+    axis, one launch (``kernel.run``) for all of them."""
 
     @staticmethod
-    def forward(ctx, x, params, kernel):
+    def forward(x, params, kernel):
+        return kernel.run(params, x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, params, _ = inputs
         ctx.params = params
         ctx.save_for_backward(x)
-        return kernel.run(params, x)
+
+    @staticmethod
+    def vmap(info, in_dims, x, params, kernel):
+        x_dim, p_dims, _ = in_dims
+        if x_dim is None or any(d is not None for d in p_dims.weights + p_dims.biases):
+            raise ValueError("IGR kernel under vmap: the points carry the mapped axis, the decoder is shared")
+        x = x.movedim(x_dim, 0)
+        out = _IgrMlp.apply(x.reshape(-1, x.shape[-1]), params, kernel)
+        return out.reshape(x.shape[:-1]), 0
 
     @staticmethod
     @once_differentiable

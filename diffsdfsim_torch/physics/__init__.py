@@ -17,7 +17,7 @@ from .joints import (
     YConstraint3D,
     ZConstraint3D,
 )
-from .forces import ExternalForce3D, Gravity3D
+from .forces import BACK, DOWN, FRONT, LEFT, RIGHT, ROTX, ROTY, ROTZ, UP, ZERO6, ExternalForce3D, Gravity3D
 from .world import Trajectory, WorldSpec, WorldState, make_world, rollout, run_world, step_frame
 from .batched import (
     finish_step_batched,

@@ -9,9 +9,12 @@ meshes and the marching mesher wait for later slices.
 A body of a seed sweep (``physics/batched.py``) has a leading lane axis on
 every tensor (``lanes`` > 0): ``verts`` (L, V, 3), ``mass`` (L,),
 ``ang_inertia`` (L, 3, 3), ``restitution``, ``fric_coeff`` and the shape's
-parameters (L, ...), with one topology (``faces``) for all lanes. Its SDF
-queries and scale map the single-body code over the lanes
-(``torch.func.vmap``); the points of a query carry the lane axis first.
+tensor parameters (L, ...), with one topology (``faces``) for all lanes and
+a shape's non-tensor field (a latent shape's decoder) shared by every lane.
+Its SDF queries and scale map the single-body code over the lanes
+(``torch.func.vmap``); the points of a query carry the lane axis first. A
+latent lane body's query is one decoder call for all lanes: on the card
+one K4 launch, through the launch's vmap rule (``ops/igr_cuda.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..config import Defaults3D, default_dtype, resolve_device
 from ..ops.inertia import ang_inertia_from_mesh
 from ..ops.surface import surface_mesh
 from ..utils import meshes
-from .shapes import KIND_NONE, ShapeBase, SphereShape, query_sdfs
+from .shapes import KIND_NONE, LatentShape, ShapeBase, SphereShape, query_sdfs
 
 
 @dataclasses.dataclass
@@ -67,16 +70,17 @@ class BodyDef:
         return query_sdfs(self.shape, pts_loc, return_grads=return_grads)
 
     def shape_params(self) -> dict:
-        """The shape's tensor parameters by field name."""
-        return {f.name: getattr(self.shape, f.name) for f in dataclasses.fields(self.shape)}
+        """The shape's tensor parameters by field name (a non-tensor field,
+        a latent shape's decoder, stays with the shape)."""
+        fields = ((f.name, getattr(self.shape, f.name)) for f in dataclasses.fields(self.shape))
+        return {k: v for k, v in fields if isinstance(v, torch.Tensor)}
 
     def _lane_shape(self, params):
         return dataclasses.replace(self.shape, **params)
 
     def tensors(self) -> dict:
         """The body's parameters by name: every tensor that may carry a lane
-        axis, the shape's fields under ``shape.<field>`` (a latent shape's
-        decoder among them)."""
+        axis, the shape's tensor fields under ``shape.<field>``."""
         out = {name: getattr(self, name) for name in LANE_FIELDS}
         out.update({f"shape.{k}": v for k, v in self.shape_params().items()})
         return out
@@ -107,24 +111,29 @@ LANE_FIELDS = ("verts", "mass", "ang_inertia", "restitution", "fric_coeff")
 
 def stack_lanes(bodies: Sequence[BodyDef]) -> BodyDef:
     """One body per lane -> a lane body. The lanes must share their shape
-    class, SDF flag and topology. A body whose tensors are equal in every
-    lane, none requiring grad, stays one body that every lane shares."""
+    class, SDF flag, topology and the shape's non-tensor fields (a latent
+    shape's decoder, by identity). A body whose tensors are equal in every
+    lane, none requiring grad, stays one body that every lane shares. A
+    body that differs between lanes may be analytic or latent (its latent
+    code and scale per lane); a grid body may not."""
     b0 = bodies[0]
-    for bd in bodies[1:]:
+    statics = [{f.name: getattr(bd.shape, f.name) for f in dataclasses.fields(bd.shape)
+                if not isinstance(getattr(bd.shape, f.name), torch.Tensor)} for bd in bodies]
+    for bd, st in zip(bodies[1:], statics[1:]):
         if type(bd.shape) is not type(b0.shape) or bd.is_sdf != b0.is_sdf or not np.array_equal(bd.faces, b0.faces):
             raise ValueError("lanes must share each body's shape class, SDF flag and faces")
+        if any(st[k] is not v for k, v in statics[0].items()):
+            raise ValueError(f"lanes must share a {type(b0.shape).__name__}'s {sorted(statics[0])} as one object")
     ts = [bd.tensors() for bd in bodies]
 
-    def shared(a, b):  # a decoder module is shared only as the same object
-        if not isinstance(a, torch.Tensor):
-            return a is b
+    def shared(a, b):
         return not (a.requires_grad or b.requires_grad) and torch.equal(a, b)
 
     if all(shared(tt[k], ts[0][k]) for tt in ts[1:] for k in tt):
         return b0
-    if b0.shape.kind is None:
+    if b0.shape.kind is None and not isinstance(b0.shape, LatentShape):
         raise NotImplementedError(
-            f"a {type(b0.shape).__name__} body that differs between lanes: lanes take the analytic shapes")
+            f"a {type(b0.shape).__name__} body that differs between lanes: lanes take the analytic and latent shapes")
     return b0.with_tensors({k: torch.stack([tt[k] for tt in ts]) for k in ts[0]}, len(bodies))
 
 

@@ -6,6 +6,10 @@ body)``. Parameters are plain attributes (floats or tensors), so they can
 be differentiable or per-lane without changing the call: in a seed sweep
 (``physics/batched.py``) a tensor attribute may carry a lane axis (B,), as
 may the body's mass and the time t, and the force is then (B, 6).
+
+The unit 6-vectors (``UP`` ... ``ZERO6``) take a ``like`` tensor and are
+built on its device and dtype; the impulse helpers are on for t < 0.1 s,
+as the reference's.
 """
 
 from __future__ import annotations
@@ -17,7 +21,8 @@ def _axis6(i, sign, like):
     # built on the device without a host-to-device copy (a copy would
     # synchronize the stream on every step)
     out = torch.zeros(6, dtype=like.dtype, device=like.device)
-    out[i] = sign
+    if i is not None:
+        out[i] = sign
     return out
 
 
@@ -27,8 +32,44 @@ def _col(x):
     return x[..., None] if isinstance(x, torch.Tensor) and x.dim() > 0 else x
 
 
+def UP(like):
+    return _axis6(4, 1.0, like)
+
+
 def DOWN(like):
     return _axis6(4, -1.0, like)
+
+
+def RIGHT(like):
+    return _axis6(3, 1.0, like)
+
+
+def LEFT(like):
+    return _axis6(3, -1.0, like)
+
+
+def FRONT(like):
+    return _axis6(5, 1.0, like)
+
+
+def BACK(like):
+    return _axis6(5, -1.0, like)
+
+
+def ROTX(like):
+    return _axis6(0, 1.0, like)
+
+
+def ROTY(like):
+    return _axis6(1, 1.0, like)
+
+
+def ROTZ(like):
+    return _axis6(2, 1.0, like)
+
+
+def ZERO6(like):
+    return _axis6(None, 0.0, like)
 
 
 class ExternalForce3D:
@@ -53,3 +94,20 @@ class Gravity3D(ExternalForce3D):
 
     def force(self, t, body):
         return DOWN(body.mass) * _col(body.mass) * _col(self.g)
+
+
+def _impulse(t, axis):
+    """axis(t) while t < 0.1 s, zero after; t may carry a lane axis."""
+    return _col(torch.where(t < 0.1, 1.0, 0.0).to(t.dtype)) * axis(t)
+
+
+def vert_impulse(t):
+    return _impulse(t, DOWN)
+
+
+def hor_impulse(t):
+    return _impulse(t, RIGHT)
+
+
+def rot_impulse(t):
+    return _impulse(t, ROTX)

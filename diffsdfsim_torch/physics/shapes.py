@@ -38,12 +38,21 @@ KIND_CYLINDER = 3
 KIND_BRICK = 4
 
 
+def _same_device(a: torch.device, b) -> bool:
+    """Whether device ``b`` (as given: "cuda" names the current card) is ``a``."""
+    b = torch.device(b)
+    if b.type == "cuda" and b.index is None:
+        b = torch.device("cuda", torch.cuda.current_device())
+    return a == b
+
+
 def _field_to(value, device, dtype):
     """A shape field on this device and dtype: a module (the decoder) is
-    copied there unless it is there already, anything else becomes a tensor."""
+    copied there unless it is there already (so the lanes of a sweep share
+    one decoder), anything else becomes a tensor."""
     if isinstance(value, torch.nn.Module):
         p = next(value.parameters(), None)
-        if p is None or (p.device == torch.device(device) and p.dtype == dtype):
+        if p is None or (_same_device(p.device, device) and p.dtype == dtype):
             return value
         return copy.deepcopy(value).to(device=device, dtype=dtype)
     return torch.as_tensor(value, dtype=dtype, device=device)

@@ -2,7 +2,9 @@
 
 Same templates as ``diffsdfsim_tpu/utils/meshes.py``: an icosphere and a
 cube-sphere, both with vertices on the unit sphere. ``ops/surface.py``
-Newton-projects them onto a shape's SDF zero set.
+Newton-projects them onto a shape's SDF zero set. Also the brute-force
+``chamfer_distance`` (the reference's evaluation metric, in place of
+pytorch3d's).
 """
 
 from __future__ import annotations
@@ -10,6 +12,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,3 +100,12 @@ def cube_template(n: int = 8):
     verts = uniq
     verts = verts / np.linalg.norm(verts, axis=1, keepdims=True)
     return verts, faces.astype(np.int32)
+
+
+def chamfer_distance(x, y):
+    """Symmetric mean squared chamfer distance between point sets (N, 3)
+    and (M, 3): the mean over x of the squared distance to the nearest
+    point of y plus the same from y to x (pytorch3d.loss.chamfer_distance's
+    default reduction), by brute-force pairwise distances."""
+    d2 = torch.sum((x[:, None, :] - y[None, :, :]) ** 2, dim=-1)
+    return torch.mean(torch.amin(d2, dim=1)) + torch.mean(torch.amin(d2, dim=0))

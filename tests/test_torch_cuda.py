@@ -11,7 +11,10 @@ where JAX is not installed (tests/conftest.py imports it, hence
 Shapes are the main path's: the bench scene's LCPs (nz 12, neq 6, k 4,
 fd 8) at D = 3 and 6 rungs and a 576-problem seed sweep (K1), 1, 6 and 576
 problems (K2), and the shape-space scene's k = 8 contact buffer (K1 at 4
-rungs, K2 at 1 problem); both bench directed pairs (768-face floor,
+rungs, K2 at 1 problem), optim_sphere's room (nz 18, neq 12, k 8: K1
+at 3 and 150 problems, K2 at 1 and 50, the runtime-sized instantiation);
+a latent lane body's query (one K4 launch for all lanes); both bench
+directed pairs (768-face floor,
 320-face sphere) at three rung poses, a 3072-face floor (K3 on a cluster
 per pose) and a 20,480-face sphere (past K3's one-face-per-thread cap);
 K4 at the reference's width and at IGR's 512-wide shape-space decoder;
@@ -61,6 +64,28 @@ def test_pdipm_kernel_matches_plain(cuda, k, B):
     torch.cuda.synchronize()
     assert pdipm_fric.launches == before + 1
     sol_p = pdipm_solve_raw(*args, 10, 1e-12, 3, ("fric", k, 8))
+    assert float((sol_k[0] - sol_p[0]).abs().max()) <= 1e-8
+    assert bool(torch.all(lcp_residuals(*args, sol_k) <= 10 * lcp_residuals(*args, sol_p) + 1e-10))
+
+
+@pytest.mark.parametrize("B", [3, 150])
+def test_pdipm_kernel_room_size(cuda, B):
+    """K1 on optim_sphere's room (a floor and a wall, each fixed, and the
+    sphere at both: nz 18, neq 12, k 8, fd 8, m2 52, past the compile-time
+    instantiations) at the single path's 3 rungs and the 50-seed sweep's
+    150 problems: the runtime-sized instantiation, x within 1e-8 of the
+    plain version, KKT residuals no worse than 10x its."""
+    from diffsdfsim_torch.ops.qp import lcp_residuals, pdipm_solve_raw
+    from diffsdfsim_torch.ops.qp_cuda import pdipm_fric
+
+    Q, p, G, h, A, b, F, invQ = _chip_smoke().room_lcps(B, seed=B, device=cuda, dtype=torch.float64)
+    assert not pdipm_fric.info(torch.float64, 18, 12, 80, 8, 8)["static_m2"]
+    args = (Q, p, G, h, A, b, F)
+    before = pdipm_fric.launches
+    sol_k = pdipm_fric(*args, invQ, 10, 1e-12, 3, ("fric", 8, 8))
+    torch.cuda.synchronize()
+    assert pdipm_fric.launches == before + 1
+    sol_p = pdipm_solve_raw(*args, 10, 1e-12, 3, ("fric", 8, 8))
     assert float((sol_k[0] - sol_p[0]).abs().max()) <= 1e-8
     assert bool(torch.all(lcp_residuals(*args, sol_k) <= 10 * lcp_residuals(*args, sol_p) + 1e-10))
 
@@ -187,12 +212,14 @@ def test_fw_kernel_lane_bodies(cuda, direction, B):
 
 def _kkt_inputs(cuda, k, B):
     """The backward's inputs at the plain solution of B bench LCPs with k
-    contact slots: (Q^-1, G, A, F, d, rx)."""
+    contact slots (k = "room": optim_sphere's room, 8 slots): (Q^-1, G, A,
+    F, d, rx)."""
     import numpy as np
 
     from diffsdfsim_torch.ops.qp import blockdiag_inv3, pdipm_solve_raw
 
-    Q, p, G, h, A, b, F, _ = _lcps(B, cuda, k)
+    Q, p, G, h, A, b, F, _ = _chip_smoke().case_lcps(k, B, seed=B, device=cuda, dtype=torch.float64)
+    k = G.shape[-2] // 10
     x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12, 3, ("fric", k, 8))
     d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12)
     rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=torch.float64, device=cuda)
@@ -213,6 +240,31 @@ def test_kkt_grad_kernel_matches_plain(cuda, k, B):
     assert kkt_grad_fric.launches == before + 1
     for a, r in zip(out_k, kkt_grad_plain(*ins, ("fric", k, 8))):
         assert float((a - r).abs().max()) <= 1e-9 * float(r.abs().max())
+
+
+@pytest.mark.parametrize("B", [1, 50])
+def test_kkt_grad_kernel_room_size(cuda, B):
+    """K2 on optim_sphere's room LCPs (m2 52, the runtime-sized
+    instantiation) at one replay and a 50-seed sweep's, against the exact
+    solution of the full KKT system: within max(1e-9, 20x the plain
+    version's error). Both invert the reduced Schur block without pivoting,
+    as the reference's kernel does, which at the room's d (1e-9..1e9) loses
+    digits: the plain version reads up to ~3e-9."""
+    from diffsdfsim_torch.ops.qp import kkt_grad_plain
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    cs = _chip_smoke()
+    iq, G, A, F, d, rx = ins = _kkt_inputs(cuda, "room", B)
+    assert not kkt_grad_fric.info(torch.float64, 18, 12, 80, 8, 8)["static_m2"]
+    before = kkt_grad_fric.launches
+    out_k = kkt_grad_fric(*ins, ("fric", 8, 8))
+    torch.cuda.synchronize()
+    assert kkt_grad_fric.launches == before + 1
+    Q = cs.case_lcps("room", B, seed=B, device=cuda, dtype=torch.float64)[0]  # the inputs' own Q
+    ex = cs.kkt_exact(*cs.kkt_system(Q, G, A, F, d, rx))
+    ex = (ex[:, :18], ex[:, 18:98], ex[:, 98:])
+    rel = lambda outs: max(float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(outs, ex))  # noqa: E731
+    assert rel(out_k) <= max(1e-9, cs.RTOL_K2_EXACT_FACTOR * rel(kkt_grad_plain(*ins, ("fric", 8, 8))))
 
 
 @pytest.mark.parametrize("k", [4, 8])
@@ -314,6 +366,46 @@ def test_igr_kernel_backward_gradcheck(cuda):
     net = init_implicit_net(5, (32,) * 4, (2,), radius_init=0.55, generator=np.random.default_rng(0)).to(cuda)
     x = (torch.rand((7, 5), dtype=torch.float64, device=cuda) * 2 - 1).requires_grad_(True)
     assert torch.autograd.gradcheck(lambda t: igr_mlp(net.params(), t), (x,), eps=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("B", [2, 8])
+def test_latent_lane_query_is_one_k4_launch(cuda, B):
+    """A latent lane body's SDF query (B codes, the decoder shared, full
+    width) under its ``torch.func.vmap``: exactly one K4 launch for the
+    values of all lanes, bitwise each lane's own K4 call on its points; the
+    backward to the codes (the plain vector-Jacobian product over the
+    lanes' points at once, whose matrix products sum in another order than
+    one lane's) within 1e-12 relative, the query's normals (the decoder's
+    plain point gradient) within 1e-13 of each lane's."""
+    import numpy as np
+
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+    from diffsdfsim_torch.physics import LatentShape, make_body
+    from diffsdfsim_torch.physics.bodies import stack_lanes
+    from diffsdfsim_torch.physics.shapes import query_sdfs
+
+    net = _igr_net(cuda)
+    codes = torch.tensor(np.random.default_rng(B).normal(size=(B, 2)) * 0.3, device=cuda)
+    lane_codes = codes.clone().requires_grad_(True)
+    bodies = [make_body(LatentShape(lane_codes[i], torch.tensor(1.0), net), subdiv=1, project_iters=16, device=cuda)
+              for i in range(B)]
+    lane = stack_lanes(bodies)
+    assert lane.lanes == B and lane.shape.decoder is net
+    pts = torch.rand((B, 96, 3), dtype=torch.float64, device=cuda, generator=torch.Generator(device=cuda).manual_seed(B))
+    pts = pts * 2.2 - 1.1
+    before = igr_mlp.launches
+    sd, nrm = lane.query_sdfs(pts)
+    torch.cuda.synchronize()
+    assert igr_mlp.launches == before + 1
+    (g,) = torch.autograd.grad(sd.sum(), lane_codes)
+    for i in range(B):
+        z = codes[i].clone().requires_grad_(True)
+        one = LatentShape(z, torch.tensor(1.0, dtype=torch.float64, device=cuda), net)
+        s1, n1 = query_sdfs(one, pts[i])
+        (g1,) = torch.autograd.grad(s1.sum(), z)
+        assert torch.equal(sd[i], s1.detach()), f"lane {i}: values"
+        assert float((g[i] - g1).abs().max()) <= 1e-12 * float(g1.abs().max()), f"lane {i}: d sdf / d code"
+        assert float((nrm[i] - n1).abs().max()) <= 1e-13
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

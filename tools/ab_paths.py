@@ -23,6 +23,9 @@ around each synchronized call and by the host clock, median and mean of 200,
 and ``digest`` prints the sha256
 of the 100-frame bench trajectory and the repr of d loss / d rad at 20, 27
 and 100 frames, to tell whether two commits compute bitwise the same;
+``sweep_k1_rule`` runs the targets of chip_smoke.py's sysid sweeps (each
+parameter) and shape-space sweep with K1's committed rule and the per-lane
+one, and prints where lanes part from the single path each time;
 ``k1_lane_rule`` runs the seed sweep at B = 64 over the 100 frames fwd+bwd
 twice, with K1's committed rule (whether a problem's last step was checked
 for improvement is decided over the whole launch) and with that decision
@@ -115,45 +118,102 @@ def grid_query():
           f"mean {np.mean(ev):.4f} ms; host clock median {np.median(host):.4f} ms, mean {np.mean(host):.4f} ms")
 
 
+class k1_rule:
+    # within it (per_lane), K1 decides per lane's group of rungs (as a
+    # single rollout's launch does) whether a problem's last step was
+    # checked for improvement, instead of over the whole launch
+
+    def __init__(self, per_lane):
+        self.per_lane, self.group = per_lane, None
+
+    def __enter__(self):
+        from diffsdfsim_torch.ops import qp_cuda
+        from diffsdfsim_torch.physics import batched
+
+        self.probe, self.finish = batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish
+        if not self.per_lane:
+            return self
+        rule = self
+
+        def probe_grouped(bodies, joints, forces, state, dts, cfg, any_contact):
+            rule.group = dts.shape[1]
+            try:
+                return rule.probe(bodies, joints, forces, state, dts, cfg, any_contact)
+            finally:
+                rule.group = None
+
+        def finish_grouped(kernel, args):
+            # qp_cuda._PdipmKernel.finish with n_run per group of rungs
+            if rule.group is None:
+                return rule.finish(kernel, args)
+            _, B, nz, neq, neq_real, nineq, _, _, max_iter, _ = args["dims"]
+            sol2, ints = args["outs"]
+            done_it, cur_imp = ints[:, 0], ints[:, 1]
+            g = rule.group
+            n_run = torch.clamp(done_it.view(-1, g).amax(1) + 1, max=max_iter).repeat_interleave(g)
+            use_cur = (cur_imp != 0) & ((done_it >= max_iter) | (done_it + 1 < n_run))
+            sol = torch.where(use_cur[:, None], sol2[1], sol2[0])
+            return (sol[:, :nz], sol[:, nz + 2 * nineq : nz + 2 * nineq + neq_real],
+                    sol[:, nz + nineq : nz + 2 * nineq], sol[:, nz : nz + nineq])
+
+        batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish = probe_grouped, finish_grouped
+        return self
+
+    def __exit__(self, *exc):
+        from diffsdfsim_torch.ops import qp_cuda
+        from diffsdfsim_torch.physics import batched
+
+        batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish = self.probe, self.finish
+
+
+def sweep_k1_rule():
+    import numpy as np
+    from diffsdfsim_torch.experiments import optim_shapespace as oss
+    from diffsdfsim_torch.experiments import optim_sysid as osy
+
+    for param in ("mass", "force", "friction"):
+        golden = dict(np.load(cs.SYSID_GOLDEN.format(param)))
+        c = dict(osy.DEFAULTS, param=param, n_par=cs.SYSID_B)
+        cfg = osy.build_cfg(c)
+        targets, starts = osy.draws(c, "cuda")
+        targets[0], starts[0] = float(golden["target"]), float(golden["start"])
+        lanes = (0, cs.SYSID_B - 1)
+        with torch.no_grad():
+            singles = {i: cs.traj_np(osy.simulate(targets[i], c, cfg, "cuda")[1]) for i in lanes}
+            for per_lane in (False, True):
+                with k1_rule(per_lane):
+                    tb = cs.traj_np(osy.simulate_batched(targets, c, cfg, "cuda")[1])
+                for i in lanes:
+                    print(f"sweep k1 rule: sysid {param} targets, K1 decided {'per lane' if per_lane else 'over the launch'}: "
+                          f"lane {i} " + cs.partings({"batch": {k: v[i] for k, v in tb.items()}, "single": singles[i]}))
+    golden = dict(np.load(cs.LATENT_GOLDEN))
+    net = cs.igr_net(torch.float64, tuple(golden["dims"].tolist()), tuple(golden["skip_in"].tolist()),
+                     int(golden["weight_seed"]))
+    c = dict(oss.DEFAULTS, run_time=int(golden["frames"]) / 30.0, n_par=cs.SHAPE_B)
+    cfg = oss.build_cfg(c)
+    targets, starts, quats = oss.draws(torch.tensor(golden["codes"], device="cuda"), c)
+    with torch.no_grad():
+        single = cs.traj_np(oss.simulate(targets[2], quats[2], net, c, cfg, "cuda")[1])
+        for per_lane in (False, True):
+            with k1_rule(per_lane):
+                tb = cs.traj_np(oss.simulate_batched(targets, quats, net, c, cfg, "cuda")[1])
+            print(f"sweep k1 rule: shape-space targets, K1 decided {'per lane' if per_lane else 'over the launch'}: "
+                  f"lane 2 " + cs.partings({"batch": {k: v[2] for k, v in tb.items()}, "single": single}))
+
+
 def k1_lane_rule():
     import numpy as np
-    from diffsdfsim_torch.ops import qp_cuda
-    from diffsdfsim_torch.physics import batched, make_world_batched, rollout_batched
-    group = [None]
-    probe, finish = batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish
-
-    def probe_grouped(bodies, joints, forces, state, dts, cfg, any_contact):
-        group[0] = dts.shape[1]
-        try:
-            return probe(bodies, joints, forces, state, dts, cfg, any_contact)
-        finally:
-            group[0] = None
-
-    def finish_grouped(self, args):
-        # qp_cuda._PdipmKernel.finish with n_run per group of rungs
-        _, B, nz, neq, neq_real, nineq, _, _, max_iter, _ = args["dims"]
-        sol2, ints = args["outs"]
-        done_it, cur_imp = ints[:, 0], ints[:, 1]
-        g = group[0]
-        n_run = torch.clamp(done_it.view(-1, g).amax(1) + 1, max=max_iter).repeat_interleave(g)
-        use_cur = (cur_imp != 0) & ((done_it >= max_iter) | (done_it + 1 < n_run))
-        sol = torch.where(use_cur[:, None], sol2[1], sol2[0])
-        return (sol[:, :nz], sol[:, nz + 2 * nineq : nz + 2 * nineq + neq_real], sol[:, nz + nineq : nz + 2 * nineq],
-                sol[:, nz : nz + nineq])
+    from diffsdfsim_torch.physics import make_world_batched, rollout_batched
 
     lanes, n = (0, 21, 42, 63), cs.N_FRAMES
     rads = cs.lane_rads(64)
     refs = {i: cs.single_reference(rads[i], n) for i in lanes}
     for rule in ("whole launch", "per lane"):
-        if rule == "per lane":
-            batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish = probe_grouped, finish_grouped
-        try:
+        with k1_rule(rule == "per lane"):
             r = torch.tensor(rads, dtype=torch.float64, device="cuda", requires_grad=True)
             spec, bodies_b, state_b = make_world_batched(cs.sweep_world, r)
             _, traj = rollout_batched(spec, bodies_b, state_b, n)
             (g,) = torch.autograd.grad(cs.lane_losses(traj, n).sum(), r)
-        finally:
-            batched.probe_dynamics_lanes, qp_cuda._PdipmKernel.finish = probe, finish
         tr = {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
         for i in lanes:
             lt, (ref, gref, _) = cs.lane_traj(tr, i), refs[i]
