@@ -10,8 +10,8 @@ It builds the hand-written CUDA kernels from ``diffsdfsim_torch/ops/csrc``
 plain PyTorch version on the card (K3 also with a sphere of another radius
 in each lane, at a sweep's probe stage of 48 and 192 poses, and with the
 sysid floor and cube both lane bodies at 48 and 96; K1 and K2 also at
-optim_sphere's room LCPs), then drives eight paths of the port on CUDA
-(float64):
+optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4), then
+drives nine paths of the port on CUDA (float64):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
   (PDIPM) and K3 (Frank-Wolfe search), held against the plain CPU rollout
@@ -39,7 +39,13 @@ optim_sphere's room LCPs), then drives eight paths of the port on CUDA
   optim_shapespace (8 seeds at the full decoder width, 36 frames, targets
   and one Adam step): launches per probe stage, K4 launches per decoder
   query, lanes against the single path and one lane against the JAX
-  golden (sysid: up to the first contact tie, which is printed).
+  golden (sysid: up to the first contact tie, which is printed);
+- the observation layer: optim_pointcloud's scene rendered (128 x 96, 30
+  frames) on the card against the CPU port, the latent and grid bodies
+  rendered through K4 / K5 (one launch per SDF query, counted), its main
+  with its iterations cut through K1, K3 and K2, its first-frame and
+  trajectory losses and gradients against the JAX golden, and
+  optim_pointcloud_real's main on a synthetic recording.
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every check that fails raises, so any failure exits
@@ -215,10 +221,11 @@ def phase_device_and_build():
 # ---------------------------------------------------------------- phase 2
 
 
-def physics_lcps(B, seed, device, dtype, k=4):
+def physics_lcps(B, seed, device, dtype, k=4, fd=8):
     """B mixed LCPs of the bench scene at contact (floor -> sphere, k
-    contact slots, some invalid), assembled by the port's engine: k = 4 is
-    the bench's contact buffer, k = 8 the shape-space scene's."""
+    contact slots, some invalid, fd friction directions), assembled by the
+    port's engine: k = 4 is the bench's contact buffer, k = 8 the
+    shape-space scene's; fd = 4 optim_pointcloud's friction pyramid."""
     import torch
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.physics import Gravity3D, TotalConstraint3D
@@ -227,7 +234,7 @@ def physics_lcps(B, seed, device, dtype, k=4):
     from diffsdfsim_torch.physics.world import WorldState
     from diffsdfsim_torch.utils.spherical import normalize
 
-    cfg = SimConfig(**dict(BENCH_CFG, max_contacts_total=k))
+    cfg = SimConfig(**dict(BENCH_CFG, max_contacts_total=k, fric_dirs=fd))
     floor, sphere = bench_bodies("cpu", torch.float64)
     f64 = lambda x: torch.tensor(np.asarray(x, dtype=np.float64))
     rng = np.random.default_rng(seed)
@@ -316,17 +323,28 @@ def room_lcps(B, seed, device, dtype):
 
 
 def case_lcps(case, B, seed, device, dtype):
-    """The LCPs of a kernel case: (k, B) on the bench scene (``physics_lcps``)
-    or ("room", B) on optim_sphere's room (``room_lcps``)."""
+    """The LCPs of a kernel case: (k, B) on the bench scene (``physics_lcps``),
+    ("room", B) on optim_sphere's room (``room_lcps``) or ("pc", B) at
+    optim_pointcloud's shape (the bench scene at k = 4, fd = 4)."""
     if case == "room":
         return room_lcps(B, seed, device, dtype)
+    if case == "pc":
+        return physics_lcps(B, seed, device, dtype, k=4, fd=4)
     return physics_lcps(B, seed, device, dtype, k=case)
 
 
-def lcp_dims(G, A):
-    """(nz, neq, nineq, k) of a batch of fric LCPs (fd = 8)."""
+def case_fd(case):
+    return 4 if case == "pc" else 8
+
+
+def case_tag(case, k):
+    return "room" if case == "room" else ("k=4 fd=4" if case == "pc" else f"k={k}")
+
+
+def lcp_dims(G, A, fd=8):
+    """(nz, neq, nineq, k) of a batch of fric LCPs with fd directions."""
     nineq = G.shape[-2]
-    return G.shape[-1], A.shape[-2], nineq, nineq // 10
+    return G.shape[-1], A.shape[-2], nineq, nineq // (2 + fd)
 
 
 def nnz(t):
@@ -411,20 +429,24 @@ def phase_k1():
     # "room": optim_sphere's room (nz 18, neq 12, k 8: the runtime-sized
     # instantiation) at the single path's shallow stage (3 rungs) and the
     # 50-seed sweep's (150 problems)
-    cases = [(4, B) for B in (3, 6, 576)] + [(8, B) for B in (3, 4)] + [("room", B) for B in (3, 150)]
+    # "pc": optim_pointcloud's LCPs (k = 4, fd = 4: the runtime-sized
+    # instantiation) at its probe stage of 3 rungs
+    cases = ([(4, B) for B in (3, 6, 576)] + [(8, B) for B in (3, 4)] + [("room", B) for B in (3, 150)]
+             + [("pc", 3)])
     for dtype, eps, tol_x in ((torch.float64, 1e-12, 1e-8), (torch.float32, 1e-6, 1e-2)):
         for case, B in cases:
             Q, p, G, h, A, b, F, invQ = case_lcps(case, B, seed=B, device="cuda", dtype=dtype)
-            nz, neq, nineq, k = lcp_dims(G, A)
-            structure = ("fric", k, 8)
+            fd = case_fd(case)
+            nz, neq, nineq, k = lcp_dims(G, A, fd)
+            structure = ("fric", k, fd)
             args = (Q, p, G, h, A, b, F)
             sol_k = pdipm_fric(*args, invQ, 10, eps, 3, structure)
             done_it = pdipm_fric.last_done_it.clone()
             syncs = pdipm_fric.last_syncs.cpu()
-            info = pdipm_fric.info(dtype, nz, neq, nineq, k, 8)
-            check(bool(info["static_m2"]) == (case != "room"),
-                  f"K1 {case} B={B}: the {'runtime-sized' if case == 'room' else 'static'} instantiation expected, "
-                  f"info {info}")
+            info = pdipm_fric.info(dtype, nz, neq, nineq, k, fd)
+            static = case not in ("room", "pc")
+            check(bool(info["static_m2"]) == static,
+                  f"K1 {case} B={B}: the {'static' if static else 'runtime-sized'} instantiation expected, info {info}")
             sol_p = pdipm_solve_raw(*args, 10, eps, 3, structure)
             torch.cuda.synchronize()
             res_k = lcp_residuals(*args, sol_k)
@@ -443,10 +465,10 @@ def phase_k1():
             # Fz; the reduced solve reads only its cone coefficients)
             nbytes = sum(t.numel() * t.element_size() for t in (Q, p, G, h, A, b, invQ, *sol_k)) + int(
                 nnz(F) * B) * F.element_size()
-            flops = k1_flops(done_it, 10, Q, G, A, F, invQ, k, 8)
+            flops = k1_flops(done_it, 10, Q, G, A, F, invQ, k, fd)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
-            tag = f"K1 {str(dtype).split('.')[1]} {'room' if case == 'room' else f'k={k}'} B={B}"
+            tag = f"K1 {str(dtype).split('.')[1]} {case_tag(case, k)} B={B}"
             print(f"{tag}: max|dx| {err:.3e} (tol {tol_x:g}, {int(solved.sum())}/{B} lanes), resid kernel max {float(res_k.max()):.3e} "
                   f"plain max {float(res_p.max()):.3e}, worse lanes {bad_res}; kernel {ms:.4f} ms ({how}) "
                   f"(wrapper with its tensor glue {wrapper_ms:.4f} ms), "
@@ -748,19 +770,21 @@ def phase_k2():
     relative to the largest entry, at 1, 6 and 576 problems (one
     contacting substep; a seed sweep's batch); optim_sphere's room LCPs at 1
     and 50 problems within RTOL_K2_ROOM, and also held against the KKT
-    system's exact solution there. float32: both against the plain version
+    system's exact solution there (every float64 case is, within
+    RTOL_K2_EXACT). float32: both against the plain version
     run in float64 on the same (float32-rounded) inputs, the kernel within
     1e-4 relative; the plain float32 path keeps the JAX XLA path's d-clip to
     [1e-5, 1e5] and ridge, which move its answer at these d (down to 1e-8),
     so its error is reported, not held. float64 also holds K2 against
-    ``fric_reduced_solve`` (the plain version of its reduced Schur solve,
-    1e-9 relative) and times the library yardstick: one
+    ``kkt_grad_reduced`` (the plain version of its algorithm: the reduced
+    Schur solve and two steps of iterative refinement, 1e-9 relative) and
+    times the library yardstick: one
     ``torch.linalg.solve_ex`` of the full (nz + nineq + neq) KKT system
     [[Q, G', A'], [G, -(D^-1 + F), 0], [A, 0, 0]] with right-hand side
     (-rx, 0, 0), whose solution is (dx, dlam, dnu); its assembly is not
     timed."""
     import torch
-    from diffsdfsim_torch.ops.qp import blockdiag_inv3, fric_reduced_solve, kkt_grad_plain, pdipm_solve_raw
+    from diffsdfsim_torch.ops.qp import blockdiag_inv3, kkt_grad_plain, kkt_grad_reduced, pdipm_solve_raw
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
 
     rows = {}
@@ -768,11 +792,14 @@ def phase_k2():
         # the room in float64 only: its KKT systems' condition numbers reach
         # ~1e16 (d over 1e-9..1e9), beyond what float32 can be held to
         room = (("room", 1), ("room", 50)) if dtype == torch.float64 else ()
-        for case, B in ((4, 1), (4, 6), (4, 576), (8, 1)) + room:
+        # "pc": optim_pointcloud's LCPs (k = 4, fd = 4, runtime-sized) at one
+        # replay and at a probe stage's 6
+        for case, B in ((4, 1), (4, 6), (4, 576), (8, 1)) + room + (("pc", 1), ("pc", 6)):
             f64 = dtype == torch.float64
             Q, p, G, h, A, b, F, invQ = case_lcps(case, B, seed=B, device="cuda", dtype=dtype)
-            nz, neq, nineq, k = lcp_dims(G, A)
-            structure = ("fric", k, 8)
+            fd = case_fd(case)
+            nz, neq, nineq, k = lcp_dims(G, A, fd)
+            structure = ("fric", k, fd)
             x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12 if f64 else 1e-6, 3, structure)
             d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12 if f64 else 1e5)
             rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=dtype, device="cuda")
@@ -780,8 +807,8 @@ def phase_k2():
             ins = (iq, G, A, F, d, rx)
             out_k = kkt_grad_fric(*ins, structure)
             syncs = int(kkt_grad_fric.last_syncs.max())
-            info = kkt_grad_fric.info(dtype, nz, neq, nineq, k, 8)
-            check(bool(info["static_m2"]) == (case != "room"), f"K2 {case} B={B}: instantiation {info}")
+            info = kkt_grad_fric.info(dtype, nz, neq, nineq, k, fd)
+            check(bool(info["static_m2"]) == (case not in ("room", "pc")), f"K2 {case} B={B}: instantiation {info}")
             out_p = kkt_grad_plain(*ins, structure)
             out_ref = out_p if f64 else kkt_grad_plain(*(t.double() for t in ins), structure)
             torch.cuda.synchronize()
@@ -797,20 +824,17 @@ def phase_k2():
             # coefficients mu (the kernel reads those, and forms the
             # reduced Schur block from invQ, G and A)
             nbytes = sum(t.numel() * t.element_size() for t in (iq, G, A, d, rx) + tuple(out_k)) + B * k * G.element_size()
-            flops = k2_flops(iq, G, A, k, 8)
+            flops = k2_flops(iq, G, A, k, fd)
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
             tol = 1e-9 if f64 else 1e-4
-            tag = f"K2 {str(dtype).split('.')[1]} {'room' if case == 'room' else f'k={k}'} B={B}"
+            tag = f"K2 {str(dtype).split('.')[1]} {case_tag(case, k)} B={B}"
             extra, library_ms = "", None
             if f64:
-                # the reduced Schur solve's plain version: (dnu, dlam) = -S^-1 [A; G] Q^-1 rx
-                iqrx = (iq @ rx[..., None])[..., 0]
-                hv = torch.cat([(A @ iqrx[..., None])[..., 0], (G @ iqrx[..., None])[..., 0]], -1)
-                w_red = -fric_reduced_solve(iq, G, A, F, d, hv, structure)
-                err_red = rel(torch.cat([out_k[2], out_k[1]], -1), w_red)
-                check(err_red <= (RTOL_K2_ROOM if case == "room" else tol),
-                      f"{tag}: kernel differs from fric_reduced_solve by {err_red} (relative)")
+                # the kernel's algorithm in plain PyTorch
+                out_red = kkt_grad_reduced(*ins, structure)
+                err_red = max(rel(a, r) for a, r in zip(out_k, out_red))
+                check(err_red <= tol, f"{tag}: kernel differs from kkt_grad_reduced by {err_red} (relative)")
                 # the library yardstick on the assembled full KKT system
                 n = nz + nineq + neq
                 kkt, rhs = kkt_system(Q, G, A, F, d, rx)
@@ -818,7 +842,17 @@ def phase_k2():
                 err_lib = max(rel(sol_lib[:, :nz], out_p[0]), rel(sol_lib[:, nz : n - neq], out_p[1]),
                               rel(sol_lib[:, n - neq :], out_p[2]))
                 library_ms, lib_how = device_ms(lambda: torch.linalg.solve_ex(kkt, rhs), None)
-                extra = (f"; vs fric_reduced_solve {err_red:.3e} (tol {tol:g}); torch.linalg.solve_ex of the "
+                # the system's exact solution
+                ex = kkt_exact(kkt, rhs)
+                ex = (ex[:, :nz], ex[:, nz : n - neq], ex[:, n - neq :])
+                e_k = max(rel(a, r) for a, r in zip(out_k, ex))
+                e_p = max(rel(a, r) for a, r in zip(out_p, ex))
+                check(e_k <= RTOL_K2_EXACT, f"{tag}: kernel {e_k} from the exact solution (relative)")
+                extra = (f"; vs kkt_grad_reduced {err_red:.3e} (tol {tol:g}); against the exact solution (LAPACK on "
+                         f"the full KKT system, one extended-precision refinement): kernel {e_k:.3e} (tol "
+                         f"{RTOL_K2_EXACT:g}), plain version {e_p:.3e}, torch.linalg.solve_ex "
+                         f"{max(rel(sol_lib[:, :nz], ex[0]), rel(sol_lib[:, nz : n - neq], ex[1])):.3e}; "
+                         f"torch.linalg.solve_ex of the "
                          f"{n}x{n} KKT system {library_ms:.4f} ms ({lib_how}, all its kernels; its solution "
                          f"{err_lib:.1e} from the plain version's)")
             print(f"{tag}: max abs err {abs_err:.3e}, max rel err {err:.3e} vs the plain version{'' if f64 else ' in float64'} (tol {tol:g})"
@@ -826,20 +860,6 @@ def phase_k2():
                   f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
                   f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP){extra}; "
                   f"barriers per launch {syncs}; {fmt_info(info)}")
-            if case == "room":
-                # the room's reduced block is ill-conditioned (RTOL_K2_ROOM):
-                # the kernel is held against the plain version and against
-                # the system's exact solution at a fixed tolerance
-                ex = kkt_exact(kkt, rhs)
-                ex = (ex[:, :nz], ex[:, nz : n - neq], ex[:, n - neq :])
-                e_k = max(rel(a, r) for a, r in zip(out_k, ex))
-                e_p = max(rel(a, r) for a, r in zip(out_p, ex))
-                print(f"{tag}: against the exact solution (LAPACK on the full KKT system, one extended-precision "
-                      f"refinement): kernel {e_k:.3e}, plain version {e_p:.3e}, fric_reduced_solve "
-                      f"{max(rel(w_red[:, neq:], ex[1]), rel(w_red[:, :neq], ex[2])):.3e}, torch.linalg.solve_ex "
-                      f"{max(rel(sol_lib[:, :nz], ex[0]), rel(sol_lib[:, nz : n - neq], ex[1])):.3e} "
-                      f"(tol {RTOL_K2_ROOM:g})")
-                check(e_k <= RTOL_K2_ROOM, f"{tag}: kernel {e_k} from the exact solution (relative)")
             check(err <= (RTOL_K2_ROOM if case == "room" else tol),
                   f"{tag}: kernel differs from the plain version by {err} (relative)")
             rows[(dtype, case, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
@@ -847,19 +867,20 @@ def phase_k2():
     return rows
 
 
-# K2 at the room's size, float64: the kernel within this of the plain
-# version, of fric_reduced_solve and of the KKT system's exact solution
-# (relative to the largest entry). The plain version factors the Schur
-# complement by Cholesky and Woodbury (the JAX package's XLA path); the
-# kernel and fric_reduced_solve fold it into the m2 = 52 reduced block and
-# invert that by pivot-free Gauss-Jordan (the Pallas kernel's algorithm). At
+# K2 at the room's size, float64: the kernel within RTOL_K2_ROOM of the
+# plain version (relative to the largest entry). The plain version factors
+# the Schur complement by Cholesky and Woodbury (the JAX package's XLA path);
+# the kernel folds it into the m2 = 52 reduced block and inverts that by
+# pivot-free Gauss-Jordan (the Pallas kernel's algorithm). At
 # room_lcps(1, seed=1) the reduced block's condition number is 2.1e10
-# (pivots 1.5e-2 .. 3.1e8), so any order of its arithmetic lands within
-# ~cond * eps of the exact solution: one-ulp perturbations of the block
-# move fric_reduced_solve's error over 4.2e-10 .. 1.7e-8 (300 draws), the
-# kernel's own order reads 1.6e-8 on the CPU emulator and 2.5e-8 on an H100
-# (tools/k2_room_conditioning.py). At B = 50 every reading is ~1e-15.
-RTOL_K2_ROOM = 1e-7
+# (pivots 1.5e-2 .. 3.1e8): the reduced solve alone lands ~cond * eps from
+# the exact solution (1.6e-8 on the CPU emulator, 2.5e-8 on an H100 before
+# the kernel refined it; tools/k2_room_conditioning.py), the plain version
+# 2.5e-9. The kernel's two refinement steps take it to the exact solution:
+# every float64 case within RTOL_K2_EXACT of it (kkt_exact), so the room's
+# kernel-vs-plain reading is the plain version's own error.
+RTOL_K2_ROOM = 1e-8
+RTOL_K2_EXACT = 1e-12
 
 
 def kkt_system(Q, G, A, F, d, rx):
@@ -1960,14 +1981,22 @@ RTOL_EXP_GOLDEN = 1e-6
 RTOL_SHAPE_LANE = 1e-3
 # K2 on the sysid friction sweep's replays: the friction-cone rows of dlam
 # (and with them dF and d loss / d mu) against the plain KKT solve. Where a
-# cone is tight (its d ~3e8, sticking friction) they are recovered as d times
-# a difference of the reduced solve's outputs, which the kernel's reduced
-# algorithm (the Pallas kernel's, shared by fric_reduced_solve) has to ~1e-12
-# absolute and the plain Cholesky to ~1e-20: on an H100 the cone rows read
-# 4.0e-4, d loss / d mu 6.1e-4 per replay, and the CPU emulator of the
-# kernel and fric_reduced_solve 2e-5 on the single path's replays, where the
-# plain version is 4e-13 from the exact solution (ROADMAP queue 3, item 13)
-RTOL_K2_CONE = 2e-3
+# cone is tight (its d ~3e8, sticking friction) the reduced solve recovers
+# them as d times a difference of its outputs, which it has to ~1e-12
+# absolute: before the kernel refined its solve they read 4.0e-4 on an H100,
+# d loss / d mu 6.1e-4 per replay; with its two refinement steps 6.0e-10 and
+# 1.03e-9, the plain version's own error at these systems (on the CPU, on the
+# single path's replays, the kernel's algorithm reads 1e-13 from the exact
+# solution, the plain version 1.4e-12; ROADMAP queue 3, item 13), so K2 is
+# also held against the exact solution (RTOL_K2_REPLAY_EXACT)
+RTOL_K2_CONE = 1e-8
+# K2 on taped replays against the KKT systems' exact solution (kkt_exact):
+# their condition numbers reach 1.6e16 (optim_pointcloud's touchdowns, d up
+# to 7e8), where the kernel's algorithm on the CPU (kkt_grad_reduced) reads
+# 4.1e-12 from it and the plain version 9.9e-9; so there K2 is held against
+# the plain version within RTOL_K2_PC_PLAIN only
+RTOL_K2_REPLAY_EXACT = 1e-10
+RTOL_K2_PC_PLAIN = 1e-6
 # Two runs of one sysid world, held up to the substep where their accepted
 # contacts first differ (``tie_witness``): their poses within ATOL_TIE_FREE
 # (read at most 2.8e-17 on an H100) and, at that substep, the deepest
@@ -2339,20 +2368,26 @@ def check_sysid_k3_calls(calls, cfg):
     check(not bad and err <= 1e-6, line)
 
 
-def check_sysid_k2_calls(calls):
-    """K2 on the friction sweep's taped replays (the lane axis on F's friction
-    coefficients), against the plain KKT solve, each gradient relative to its
-    largest entry: dx and dnu (so dQ, dp, dA, db) and dlam's rows but the
-    friction-cone rows within 1e-9; the cone rows (so dh, dG, dF and d loss /
-    d mu, dF's cone diagonal, which the friction coefficients' gradient sums)
-    within RTOL_K2_CONE; and each lane bitwise its own K2 launch. Returns
-    the largest d loss / d mu error."""
+def check_k2_replays(calls, tag="sysid friction", rtol_tight=1e-9, rtol_cone=None, rtol_exact=None):
+    """K2 on taped replays (by default the sysid friction sweep's, the lane
+    axis on F's friction coefficients), against the plain KKT solve, each
+    gradient relative to its largest entry: dx and dnu (so dQ, dp, dA, db)
+    and dlam's rows but the friction-cone rows within ``rtol_tight``; the
+    cone rows (so dh, dG, dF and d loss / d mu, dF's cone diagonal, which
+    the friction coefficients' gradient sums) within ``rtol_cone``
+    (RTOL_K2_CONE); dlam within ``rtol_exact`` (RTOL_K2_REPLAY_EXACT) of the
+    KKT systems' exact solution (``kkt_exact``; the plain version's
+    distance from it is printed); and each lane bitwise its own K2 launch.
+    Returns the largest d loss / d mu error."""
     import torch
     from diffsdfsim_torch.ops import qp
 
-    check(len(calls) > 0, "sysid friction: no taped K2 replay")
+    rtol_cone = RTOL_K2_CONE if rtol_cone is None else rtol_cone
+    rtol_exact = RTOL_K2_REPLAY_EXACT if rtol_exact is None else rtol_exact
+    check(len(calls) > 0, f"{tag}: no taped K2 replay")
     rel = lambda a, r: float((a - r).abs().max()) / max(float(r.abs().max()), 1e-300)  # noqa: E731
     tight, cone, dmu_err, bad, B = 0.0, 0.0, 0.0, set(), calls[0][0][0].shape[0]
+    ex_k, ex_p = 0.0, 0.0
     with torch.no_grad():
         for a, out in calls:
             plain = qp._lcp_bwd(*a[:10], None)
@@ -2365,16 +2400,24 @@ def check_sysid_k2_calls(calls):
             dmu_k, dmu_p = (torch.diagonal(g[6][:, -k:, :k], dim1=-2, dim2=-1) for g in (out, plain))
             dmu_err = max(dmu_err, float(((dmu_k - dmu_p).abs().amax(-1)
                                           / dmu_p.abs().amax(-1).clamp(min=1e-300)).max()))
+            # the replay's KKT systems at the backward's diagonal (_lcp_bwd's d)
+            Q, G, A, F, lam, slack, dl = a[0], a[1], a[2], a[3], a[6], a[7], a[8]
+            d = torch.clamp(torch.clamp(lam, min=1e-8) / torch.clamp(slack, min=1e-8), max=1e12)
+            nz, nineq = Q.shape[-1], G.shape[-2]
+            ex = kkt_exact(*kkt_system(Q, G, A, F, d, dl))[:, nz : nz + nineq]
+            ex_k, ex_p = max(ex_k, rel(dl_k, ex)), max(ex_p, rel(dl_p, ex))
             for i in range(a[0].shape[0]):
                 one = qp._lcp_bwd(*(t[i : i + 1] for t in a[:9]), *a[9:])
                 bad.update(n for n, x, y in zip("dQ dp dG dh dA db dF".split(), one, out)
                            if not torch.equal(x, y[i : i + 1]))
-    line = (f"sysid friction K2 ({len(calls)} taped replays of B = {B} lanes, structure {calls[0][0][9]}): through K2 "
-            f"against the plain KKT solve: dx, dnu and dlam but its cone rows {tight:.3e} (tol 1e-9), the cone rows "
-            f"(dh, dG, dF) {cone:.3e} and d loss / d mu per lane {dmu_err:.3e} (tol {RTOL_K2_CONE:g}); each lane "
-            f"against its own launch {'bitwise' if not bad else 'differs in ' + ', '.join(sorted(bad))}")
+    line = (f"{tag} K2 ({len(calls)} taped replays of B = {B} lanes, structure {calls[0][0][9]}): through K2 "
+            f"against the plain KKT solve: dx, dnu and dlam but its cone rows {tight:.3e} (tol {rtol_tight:g}), the "
+            f"cone rows (dh, dG, dF) {cone:.3e} and d loss / d mu per lane {dmu_err:.3e} (tol {rtol_cone:g}); dlam "
+            f"against the exact solution: K2 {ex_k:.3e} (tol {rtol_exact:g}), the plain version {ex_p:.3e}; each "
+            f"lane against its own launch {'bitwise' if not bad else 'differs in ' + ', '.join(sorted(bad))}")
     print(line)
-    check(tight <= 1e-9 and cone <= RTOL_K2_CONE and dmu_err <= RTOL_K2_CONE and not bad, line)
+    check(tight <= rtol_tight and cone <= rtol_cone and dmu_err <= rtol_cone and ex_k <= rtol_exact and not bad,
+          line)
     return dmu_err
 
 
@@ -2407,7 +2450,7 @@ def phase_sysid_sweep():
     Held: the launches and host reads, the lane axes, finite losses and
     gradients; under friction, every K3 launch with two lane bodies and
     every taped K2 replay against one launch per lane (bitwise) and the
-    plain version (``check_sysid_k3_calls``, ``check_sysid_k2_calls``).
+    plain version (``check_sysid_k3_calls``, ``check_k2_replays``).
     The cube rests face down on the floor, so the contacts it keeps are
     decided by exact ties (its bottom face's points reach the same
     penetration; ROADMAP queue 3, items 3 and 11): any other order of the
@@ -2492,7 +2535,7 @@ def phase_sysid_sweep():
             cpu = sysid_first_step(osy, float(golden["target"]), float(golden["start"]), c, cfg, "cpu", logs, "cpu")
         if param == "friction":
             check_sysid_k3_calls(k3_calls.calls, cfg)
-            check_sysid_k2_calls(k2_calls.calls)
+            check_k2_replays(k2_calls.calls)
             # the step's gradient again, every replay's KKT solve the plain one
             from diffsdfsim_torch.ops.qp import blockdiag_inv3, kkt_grad_plain
             from diffsdfsim_torch.physics import engine
@@ -2635,6 +2678,313 @@ def phase_shapespace_sweep():
     return dict(fwd_counts=fwd_counts, step_counts=step_counts)
 
 
+# ---------------------------------------------------------------- phase 11
+
+
+PC_GOLDEN = os.path.join(ROOT, "tests", "golden", "pointcloud_{}_f64.npz")
+# How optim_pointcloud is held (phase_pointcloud). Renders of one trajectory
+# on the card and on the CPU port: the segmentation equal but in at most
+# MAX_SEG_DIFF pixels a frame (a grazing ray can hit on one device and miss
+# on the other), the depth within ATOL_DEPTH where both hit. On JAX's
+# observations (tests/golden/pointcloud_sphere_f64.npz): the first-frame
+# loss and gradient within RTOL_PC_FRAME relative; the trajectory loss and
+# gradient within RTOL_PC_TRAJ of the CPU port's over the frames before the
+# card's and the CPU port's kept contacts first differ (a touchdown tie,
+# ROADMAP queue 3, item 1: tie_witness prints it), and of JAX's where they
+# never do (tests/test_torch_pointcloud.py holds the CPU port to JAX's). The
+# cube is decided by box ties (items 3 and 11): its values are reported.
+MAX_SEG_DIFF, ATOL_DEPTH = 2, 1e-9
+RTOL_PC_FRAME, RTOL_PC_TRAJ = 1e-8, 1e-6
+# optim_pointcloud.main's Adam steps a phase on the card (60 and 40 at its
+# defaults), the frames the latent and grid bodies are rendered at, and a
+# frame's SDF queries of each body (64 march steps, then the segmentation)
+PC_ITERS, N_RENDER, QUERIES_PER_FRAME = 2, 3, 65
+
+
+def pc_observations(g, device):
+    """JAX's observations of a point-cloud golden: [(t, pc (H, W, 3), seg (H,
+    W))], the points set where the body's mask is."""
+    import torch
+
+    seg = torch.tensor(g["seg"]).to(torch.int32)
+    pcs = torch.zeros(tuple(seg.shape) + (3,), dtype=torch.float64)
+    pcs[seg == 1] = torch.tensor(g["obs_pts"])
+    seg, pcs = seg.to(device), pcs.to(device)
+    return [(torch.tensor(t, device=device), pcs[i], seg[i]) for i, t in enumerate(g["obs_t"])]
+
+
+class CountedBody:
+    """A body with the renderer's surface (``scale``, ``query_sdfs``) whose
+    SDF queries are counted."""
+
+    def __init__(self, body):
+        self.body, self.queries = body, 0
+
+    def scale(self):
+        return self.body.scale()
+
+    def query_sdfs(self, pts, return_grads=True):
+        self.queries += 1
+        return self.body.query_sdfs(pts, return_grads=return_grads)
+
+
+def render_compare(tag, frames_a, frames_b):
+    """Two renders of the same frames ([(depth, seg)]) held as MAX_SEG_DIFF
+    and ATOL_DEPTH say."""
+    n_seg, d_depth, n_hit = 0, 0.0, 0
+    for (da, sa), (db, sb) in zip(frames_a, frames_b):
+        sa, sb = sa.cpu().numpy(), sb.cpu().numpy()
+        n_seg = max(n_seg, int((sa != sb).sum()))
+        both = (sa >= 0) & (sb >= 0)
+        n_hit += int(both.sum())
+        if both.any():
+            d_depth = max(d_depth, float(np.abs(da.cpu().numpy()[both] - db.cpu().numpy()[both]).max()))
+    line = (f"{tag}: {len(frames_a)} frames, segmentation differs in at most {n_seg} pixels a frame (tol "
+            f"{MAX_SEG_DIFF}), depth where both hit ({n_hit} pixels) within {d_depth:.3e} (tol {ATOL_DEPTH:g})")
+    print(line)
+    check(n_seg <= MAX_SEG_DIFF and d_depth <= ATOL_DEPTH and n_hit > 0, line)
+
+
+def render_counted(tag, spec, state, cam, pose, kernel):
+    """N_RENDER frames of a world's second body at heights 2.0, 1.6, 1.2 m
+    (the first, the floor, analytic): its SDF queries counted against the
+    launches of ``kernel`` (K4 for a latent body, K5 for a grid body)."""
+    import torch
+    from diffsdfsim_torch.rendering import render_depth_seg
+
+    body = CountedBody(spec.bodies[1])
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        for y in (2.0, 1.6, 1.2)[:N_RENDER]:
+            pos = state.pos.clone()
+            pos[1, 1] = y
+            _, seg = render_depth_seg([spec.bodies[0], body], state.quat, pos, cam, pose)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    want = QUERIES_PER_FRAME * N_RENDER
+    line = (f"pointcloud render of the {tag} body at {cam.width} x {cam.height} (N = {cam.width * cam.height} "
+            f"points a query), {N_RENDER} frames in {wall:.3f} s: {body.queries} queries of the body, launches "
+            f"{launches}, its pixels in the last frame {int((seg == 1).sum())}")
+    print(line)
+    check(body.queries == want and launches[kernel] == want and int((seg == 1).sum()) > 0, line)
+    return wall
+
+
+def phase_pointcloud():
+    """optim_pointcloud at its full width (128 x 96, mesh_subdiv 2,
+    run_time 1.0: 30 frames, fric_dirs 4) with its iterations cut, and the
+    renderer on the latent and grid bodies:
+
+    1. the target scene at the JAX golden's draws: its rollout on the card
+       and on the CPU port (held up to their first contact parting by
+       tie_witness; the CPU port against JAX's target), its 30 frames
+       rendered on the card and on the CPU port (render_compare), no kernel
+       launched by the analytic render;
+    2. the latent drop's body (the reference's decoder at full width) and
+       the grid drop's (64^3) rendered at N_RENDER frames: each SDF query of
+       the body is one K4 / K5 launch, QUERIES_PER_FRAME a frame; K4 timed
+       at N = 128 * 96 = 12,288;
+    3. ``optim_pointcloud.main`` with PC_ITERS Adam steps a phase: K1, K3
+       and K2 launched, its taped replays' K2 (k 4, fd 4, runtime-sized)
+       held against the plain KKT solve and the exact solution;
+    4. on JAX's observations: the first-frame loss and gradient at JAX's
+       iterates, the trajectory loss and gradient at the trajectory fit's
+       start (RTOL_PC_FRAME, RTOL_PC_TRAJ; the cube reported);
+    5. ``optim_pointcloud_real.main`` (3 Adam steps) on the synthetic
+       recording of tests/test_pointcloud_real.py against its golden (K3
+       launched).
+
+    K1 and K2 at the point-cloud LCP shape are also held by phase_k1 /
+    phase_k2 ("pc"). Prints each part's wall time and the device's idle
+    share over one trajectory loss and its gradient."""
+    import json
+    import tempfile
+
+    import torch
+    from diffsdfsim_torch.experiments import optim_pointcloud as op
+    from diffsdfsim_torch.experiments import optim_pointcloud_real as opr
+    from diffsdfsim_torch.experiments import optim_shapespace as oss
+    from diffsdfsim_torch.ops import qp
+    from diffsdfsim_torch.physics import GridShape, make_body, rollout
+    from diffsdfsim_torch.rendering import render_depth_seg
+
+    walls = {}
+
+    def part(name, t0):
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+
+    f64 = torch.float64
+    golden = dict(np.load(PC_GOLDEN.format("sphere")))
+    c = dict(op.DEFAULTS)
+    cfg = op.build_cfg(c)
+    n = op.n_frames(c, cfg)
+    cam, pose = op.camera_setup(c, "cuda")
+
+    # 1. the target scene
+    runs = {}
+    with ContactLog() as logs:
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            logs.begin(dev)
+            spec, state = op.make_scene(c, cfg, torch.tensor(golden["target_size"], device=dev),
+                                        torch.tensor(op.TARGET_POS, dtype=f64, device=dev),
+                                        torch.tensor(golden["target_quat"], device=dev), dev)
+            with torch.no_grad():
+                _, traj = rollout(spec, state, n)
+            runs[dev] = (spec, traj_np(traj), traj)
+            part(f"target rollout ({dev})", t0)
+    (spec_g, tg, traj_g), (spec_c, tc, _) = runs["cuda"], runs["cpu"]
+    tie_witness("pointcloud target, card vs CPU port", ("cuda", None), ("cpu", None), logs, tg["valid"], tc["valid"],
+                tg["pos"], tc["pos"])
+    e_jax = max(float(np.abs(tc[k] - golden[f"tgt_{k}"]).max()) for k in ("pos", "quat"))
+    same = np.array_equal(tc["valid"], golden["tgt_valid"]) and np.array_equal(tc["n_halvings"],
+                                                                                golden["tgt_n_halvings"])
+    print(f"pointcloud target, CPU port vs JAX golden: poses within {e_jax:.2e} (tol {ATOL_SHAPE_PATH:g}), decisions "
+          f"{'equal' if same else 'differ'}")
+    check(e_jax <= ATOL_SHAPE_PATH and same, "pointcloud target: the CPU port differs from JAX's")
+    reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        frames_g = [render_depth_seg(spec_g.bodies, traj_g.quat[i, 0], traj_g.pos[i, 0], cam, pose) for i in range(n)]
+    part("render 30 frames (card)", t0)
+    check(all(v == 0 for v in read_counts().values()), f"the analytic render launched {read_counts()}")
+    qc, pc_, pose_c = traj_g.quat.cpu(), traj_g.pos.cpu(), pose.cpu()
+    t0 = time.perf_counter()
+    frames_c = [render_depth_seg(spec_c.bodies, qc[i, 0], pc_[i, 0], cam, pose_c) for i in range(n)]
+    walls["render 30 frames (CPU port)"] = time.perf_counter() - t0
+    render_compare("pointcloud target renders of the card's trajectory, card vs CPU port", frames_g, frames_c)
+
+    # 2. the latent and grid bodies
+    lat = dict(np.load(LATENT_GOLDEN))
+    net = igr_net(f64, tuple(lat["dims"].tolist()), tuple(lat["skip_in"].tolist()), int(lat["weight_seed"]))
+    oc = dict(oss.DEFAULTS)
+    spec_l, state_l = oss.build_world(torch.tensor(lat["target_latent"], device="cuda"),
+                                      torch.tensor(lat["quat0"], device="cuda"), net, oc, oss.build_cfg(oc), "cuda")
+    walls["render the latent body"] = render_counted("latent", spec_l, state_l, cam, pose, "igr_mlp")
+    k4 = k4_case(net.params(), cam.width * cam.height, K4_RTOL["float64"])
+    grid = torch.tensor(sphere_grid(64), device="cuda")
+    ball = make_body(GridShape(grid=grid, scale_=torch.tensor(0.75)), template="ico", subdiv=2, project_iters=16,
+                     device="cuda")
+    spec_q = type("Spec", (), {"bodies": [spec_l.bodies[0], ball]})
+    walls["render the grid body"] = render_counted("grid", spec_q, state_l, cam, pose, "grid_query")
+
+    # 3. main, its iterations cut
+    with tempfile.TemporaryDirectory() as tmp, Calls(qp, "_lcp_bwd") as k2_calls:
+        reset_counts()
+        t0 = time.perf_counter()
+        out = op.main(["with", f"frame_fit_iters={PC_ITERS}", f"traj_fit_iters={PC_ITERS}", f"base_dir={tmp}"],
+                      device="cuda")
+        part("optim_pointcloud.main", t0)
+        main_launches = read_counts()
+    errs = {k: (out[k]["pos_err"], out[k]["rot_err"], out[k]["size_err"]) for k in ("init", "frame_fit", "traj_fit")}
+    line = (f"optim_pointcloud.main on the card ({PC_ITERS} Adam steps a phase): {walls['optim_pointcloud.main']:.3f} s, "
+            f"launches {main_launches}, (pos, rot, size) errors {errs}")
+    print(line)
+    check(main_launches["pdipm_fwd"] > 0 and main_launches["fw_search"] > 0 and main_launches["kkt_bwd"] > 0
+          and bool(np.isfinite(np.array(list(errs.values()))).all()), line)
+    check_k2_replays(k2_calls.calls, "pointcloud trajectory fit", RTOL_K2_PC_PLAIN, RTOL_K2_PC_PLAIN)
+
+    # 4. on JAX's observations
+    obs = {dev: pc_observations(golden, dev) for dev in ("cuda", "cpu")}
+    masks = {dev: [o[2] == 1 for o in obs[dev]] for dev in obs}
+    pose_d = {"cuda": pose, "cpu": pose_c}
+    e_frame = 0.0
+    for i in range(len(golden["frame_loss"])):
+        x = torch.tensor(golden["frame_x"][i], device="cuda", requires_grad=True)
+        v = op.frame_loss(x, c, obs["cuda"][0][1], masks["cuda"][0], pose)
+        (g,) = torch.autograd.grad(v, x)
+        e_frame = max(e_frame, rel_err(float(v), golden["frame_loss"][i]),
+                      rel_err(g.cpu().numpy(), golden["frame_grad"][i]))
+    line = f"pointcloud first-frame loss and gradient at JAX's 3 iterates vs JAX: rel {e_frame:.2e} (tol {RTOL_PC_FRAME:g})"
+    print(line)
+    check(e_frame <= RTOL_PC_FRAME, line)
+    res = {}
+    with ContactLog() as logs:
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            logs.begin(dev)
+            x = torch.tensor(golden["traj_x"][0], device=dev, requires_grad=True)
+            traj = op.simulate(x, c, cfg, dev)
+            res[dev] = (x, traj_np(traj), op.frame_losses(traj, x, c, obs[dev], masks[dev], pose_d[dev]))
+            part(f"trajectory loss, forward ({dev})", t0)
+    (xg, tg, flg), (xc, tc, flc) = res["cuda"], res["cpu"]
+    fc, _, _ = tie_witness("pointcloud trajectory fit's start, card vs CPU port", ("cuda", None), ("cpu", None), logs,
+                           tg["valid"], tc["valid"], tg["pos"], tc["pos"])
+
+    def loss_grad(x, fl, m):
+        v = 0.0
+        for t in fl[:m]:
+            v = v + t
+        v = v / len(fl)
+        if m == 0:
+            return 0.0, np.zeros(8)
+        t0 = time.perf_counter()
+        (g,) = torch.autograd.grad(v, x, retain_graph=True)
+        walls[f"trajectory loss, backward ({x.device.type}, {m} frames)"] = time.perf_counter() - t0
+        return float(v), g.cpu().numpy()
+
+    m = n if fc is None else fc
+    (lg, gg), (lc, gc) = loss_grad(xg, flg, m), loss_grad(xc, flc, m)
+    e_cpu = max(rel_err(lg, lc), rel_err(gg, gc))
+    full_l, full_g = loss_grad(xg, flg, n) if m < n else (lg, gg)
+    e_jax = max(rel_err(full_l, golden["traj_loss"][0]), rel_err(full_g, golden["traj_grad"][0]))
+    line = (f"pointcloud trajectory loss and gradient at the trajectory fit's start over the {m} frames before the "
+            f"contacts part: card vs CPU port rel {e_cpu:.2e} (tol {RTOL_PC_TRAJ:g}); all {n} frames: loss card "
+            f"{full_l!r}, JAX {float(golden['traj_loss'][0])!r}, gradient card {full_g.tolist()}, JAX "
+            f"{golden['traj_grad'][0].tolist()}: card vs JAX rel {e_jax:.2e} "
+            + (f"(tol {RTOL_PC_TRAJ:g})" if fc is None else "(reported: the contacts part)"))
+    print(line)
+    check(e_cpu <= RTOL_PC_TRAJ and (fc is not None or e_jax <= RTOL_PC_TRAJ), line)
+    x = torch.tensor(golden["traj_x"][0], device="cuda", requires_grad=True)
+    pwall, busy, kern = busy_share(lambda: torch.autograd.grad(
+        op.traj_loss(x, c, cfg, obs["cuda"], masks["cuda"], pose, "cuda"), x))
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:5]
+    print(f"pointcloud trajectory loss and gradient, profiled: wall {pwall:.1f} ms, device busy {busy:.1f} ms (idle "
+          f"{100 - 100 * busy / pwall:.1f}%); top kernels (ms): " + "; ".join(f"{k[:40]} {v:.2f}" for k, v in top))
+    # the cube, reported
+    cube = dict(np.load(PC_GOLDEN.format("cube")))
+    cc = dict(c, shape="cube")
+    obs_q = pc_observations(cube, "cuda")
+    mask_q = [o[2] == 1 for o in obs_q]
+    x = torch.tensor(cube["frame_x"][0], device="cuda", requires_grad=True)
+    v = op.frame_loss(x, cc, obs_q[0][1], mask_q[0], pose)
+    e_cf = max(rel_err(float(v), cube["frame_loss"][0]),
+               rel_err(torch.autograd.grad(v, x)[0].cpu().numpy(), cube["frame_grad"][0]))
+    x = torch.tensor(cube["traj_x"][0], device="cuda", requires_grad=True)
+    v = op.traj_loss(x, cc, op.build_cfg(cc), obs_q, mask_q, pose, "cuda")
+    g = torch.autograd.grad(v, x)[0].cpu().numpy()
+    print(f"pointcloud cube (reported; box ties): first-frame loss and gradient vs JAX rel {e_cf:.2e}; trajectory "
+          f"loss {float(v)!r} vs JAX {float(cube['traj_loss'][0])!r}, gradient rel {rel_err(g, cube['traj_grad'][0]):.2e}")
+
+    # 5. optim_pointcloud_real on the synthetic recording
+    real = dict(np.load(PC_GOLDEN.format("real")))
+    with tempfile.TemporaryDirectory() as tmp:
+        rec = os.path.join(tmp, "rec.pkl")
+        opr.synthetic_recording(rec)
+        reset_counts()
+        t0 = time.perf_counter()
+        out = opr.main(["with", f"data_path={rec}", "max_iter=3", "mesh_subdiv=1", f"base_dir={tmp}"], device="cuda")
+        part("optim_pointcloud_real.main (3 steps)", t0)
+        real_launches = read_counts()
+        losses = json.loads(open(os.path.join(tmp, "pointcloud_real", "1", "metrics.json")).read())["loss"]["values"]
+    # the rotation's gradient is ~0 for a sphere: rot0 held absolutely
+    e_real = max(rel_err(losses, real["loss"]), *(rel_err(out[k], real[k]) for k in ("size", "pos0")))
+    e_rot = float(np.abs(out["rot0"] - real["rot0"]).max())
+    line = (f"optim_pointcloud_real.main on the card, 3 Adam steps on the synthetic recording: losses {losses}, size "
+            f"{float(out['size'])!r}; vs JAX golden: losses, size and pos0 rel {e_real:.2e} (tol {RTOL_PC_TRAJ:g}), "
+            f"rot0 {e_rot:.2e} (tol {RTOL_PC_TRAJ:g}); launches {real_launches}")
+    print(line)
+    # the sphere starts at its first-frame points' centroid and falls for the
+    # recording's 4 frames without reaching the floor: K3 searches, no LCP
+    check(e_real <= RTOL_PC_TRAJ and e_rot <= RTOL_PC_TRAJ and real_launches["fw_search"] > 0, line)
+    print("pointcloud walls (s): " + ", ".join(f"{k} {v:.3f}" for k, v in walls.items()))
+    return dict(main_launches=main_launches, k4=k4, walls=walls)
+
+
 def fitting_losses(oss, z, quats, net, c, cfg, tgt):
     """optim_shapespace.fit_batched's per-lane losses at latents z."""
     from diffsdfsim_torch.experiments.fitting import lane_losses
@@ -2676,6 +3026,7 @@ def main():
     timed(phase_sphere_sweep)
     timed(phase_sysid_sweep)
     timed(phase_shapespace_sweep)
+    timed(phase_pointcloud)
 
     f64 = torch.float64
     k1r = k1[(f64, 4, 3)]

@@ -387,18 +387,15 @@ __device__ void factor(const S& D, Work<T>& w, Inv<S, T>& K, Ctx<T>& c) {
   }
 }
 
-// one KKT solve with the factored Schur complement (JAX kernel solve_kkt;
-// reference batch.py:380-410): given rx, rs, rz, ry (shared arrays; w.zero
-// for a zero right-hand side) returns dx, ds, dz, dy. ds may be null. Seven
-// barriers; the outputs (of type O: shared arrays, or a kernel's device
-// outputs) are complete when it returns.
-template <class S, typename T, typename O>
-__device__ void solve_kkt(const S& D, Work<T>& w, const Inv<S, T>& K, Ctx<T>& c, const T* rx, const T* rs,
-                          const T* rz, const T* ry, O* dx, O* ds, O* dz, O* dy) {
-  const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), k = D.k(), fd = D.fd(), fd2 = D.fd2();
-  const int nf2 = D.nf2(), vs = D.vstart(), m = D.m(), m2 = D.m2(), ldz = D.ldz();
+// The KKT solve with the factored Schur complement (JAX kernel solve_kkt;
+// reference batch.py:380-410) in three parts: `kkt_hvec` forms the Schur
+// right-hand side, `schur_solve` w = -S^-1 hvec, `kkt_out` the outputs.
+
+// hvec = [A; G] (Q^-1 rx) - [ry; rz - rs / d]; two barriers
+template <class S, typename T>
+__device__ void kkt_hvec(const S& D, Work<T>& w, Ctx<T>& c, const T* rx, const T* rs, const T* rz, const T* ry) {
+  const int nz = D.nz(), neq = D.neq(), m = D.m(), ldz = D.ldz();
   const T* d = w.d;
-  // hvec = [A; G] (Q^-1 rx) - [ry; rz - rs / d]
   rows<T, 4>(c.t, nz, [&](int r, int l) { return gdot<4>(l, nz, w.invQ + r * ldz, 1, rx); },
              [&](int r, T acc) { w.iQrx[r] = acc; });
   c.sync();
@@ -409,6 +406,14 @@ __device__ void solve_kkt(const S& D, Work<T>& w, const Inv<S, T>& K, Ctx<T>& c,
         else w.hvec[r] = acc + rs[r - neq] / d[r - neq] - rz[r - neq];
       });
   c.sync();
+}
+
+// w.wvec = -S^-1 w.hvec by the reduced system (the factor K in registers);
+// three barriers
+template <class S, typename T>
+__device__ void schur_solve(const S& D, Work<T>& w, const Inv<S, T>& K, Ctx<T>& c) {
+  const int neq = D.neq(), k = D.k(), fd = D.fd(), fd2 = D.fd2();
+  const int nf2 = D.nf2(), vs = D.vstart(), m = D.m(), m2 = D.m2();
   // the reduced right-hand side: [he, hn, 0.5 (rp - rm - delta SM(q))]
   const T* hf = w.hvec + vs;
   const T* hc = w.hvec + m - k;
@@ -477,7 +482,15 @@ __device__ void solve_kkt(const S& D, Work<T>& w, const Inv<S, T>& K, Ctx<T>& c,
     w.wvec[c.t - nf2] = -w.w2[c.t - nf2];
   }
   c.sync();
-  // dx = Q^-1 (-rx - [A; G]' w), ds = (-rs - w_ineq) / d, dz = w_ineq, dy = w_eq
+}
+
+// from w.wvec: dx = Q^-1 (-rx - [A; G]' w), ds = (-rs - w_ineq) / d,
+// dz = w_ineq, dy = w_eq (ds, dz, dy may be null); two barriers
+template <class S, typename T, typename O>
+__device__ void kkt_out(const S& D, Work<T>& w, Ctx<T>& c, const T* rx, const T* rs, O* dx, O* ds, O* dz,
+                        O* dy) {
+  const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), m = D.m(), ldz = D.ldz();
+  const T* d = w.d;
   rows<T, 16>(
       c.t, nz, [&](int r, int l) { return gdot<16>(l, m, w.AG + r, ldz, w.wvec); },
       [&](int r, T acc) { w.iQrx[r] = -rx[r] - acc; });
@@ -487,10 +500,23 @@ __device__ void solve_kkt(const S& D, Work<T>& w, const Inv<S, T>& K, Ctx<T>& c,
   for (int i = c.t; i < nineq; i += NT) {
     const T wi = w.wvec[neq + i];
     if (ds) ds[i] = (O)((-rs[i] - wi) / d[i]);
-    dz[i] = (O)wi;
+    if (dz) dz[i] = (O)wi;
   }
-  for (int i = c.t; i < neq; i += NT) dy[i] = (O)w.wvec[i];
+  if (dy)
+    for (int i = c.t; i < neq; i += NT) dy[i] = (O)w.wvec[i];
   c.sync();
+}
+
+// one KKT solve: given rx, rs, rz, ry (shared arrays; w.zero for a zero
+// right-hand side) returns dx, ds, dz, dy. ds may be null. Seven barriers;
+// the outputs (of type O: shared arrays, or a kernel's device outputs) are
+// complete when it returns.
+template <class S, typename T, typename O>
+__device__ void solve_kkt(const S& D, Work<T>& w, const Inv<S, T>& K, Ctx<T>& c, const T* rx, const T* rs,
+                          const T* rz, const T* ry, O* dx, O* ds, O* dz, O* dy) {
+  kkt_hvec(D, w, c, rx, rs, rz, ry);
+  schur_solve(D, w, K, c);
+  kkt_out(D, w, c, rx, rs, dx, ds, dz, dy);
 }
 
 // f(shape) with the compile-time shape that matches these sizes, else the

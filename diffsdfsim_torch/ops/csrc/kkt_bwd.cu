@@ -23,7 +23,10 @@
 // solve. As in K1, a block of NT = 128 threads per problem keeps the
 // inverse in registers (one barrier per pivot) and spreads every product
 // over the block; a batch of problems (hundreds for a seed sweep) spreads
-// over blocks. m2 + 12 barriers per launch, counted at run time.
+// over blocks. NREFINE steps of iterative refinement follow the first solve
+// (below): the reduced algorithm loses a tight friction cone's digits, which
+// the residual of the unreduced system restores. m2 + 12 + 7 NREFINE
+// barriers per launch, counted at run time.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
@@ -39,11 +42,20 @@ using fric::carve;
 using fric::Ctx;
 using fric::NT;
 
+// refinement steps after the first solve: on the sysid friction sweep's
+// replays one step takes the cone rows from 1.8e-5 to 1.4e-13 of the exact
+// solution; where a whole contact's cone is tight at d = 3e8 (the emulator's
+// "tight" case) the first solve's cone rows are off by O(1) and two steps
+// take them to 5e-10
+constexpr int NREFINE = 2;
+
 template <class S, typename T>
 __host__ __device__ size_t smem_elems(const S& D) {
   T* p = nullptr;
   fric::carve_work(p, D);
   carve(p, D.nz());  // rx
+  carve(p, D.nz());  // dx0
+  carve(p, D.m());   // w0
   return (size_t)(p - (T*)nullptr);
 }
 
@@ -59,6 +71,8 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
   T* p = reinterpret_cast<T*>(smem_raw);
   fric::Work<T> w = fric::carve_work(p, D);
   T* rx = carve(p, nz);
+  T* dx0 = carve(p, nz);
+  T* w0 = carve(p, D.m());
   Ctx<T> c{(int)threadIdx.x, w.red, 0, 0};
   const int t = c.t;
 
@@ -75,8 +89,55 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
   c.sync();
   fric::Inv<S, T> K;
   fric::factor(D, w, K, c);
-  fric::solve_kkt(D, w, K, c, rx, w.zero, w.zero, w.zero, out_dx + (size_t)prob * nz, (T*)nullptr,
-                  out_dlam + (size_t)prob * nineq, out_dnu + (size_t)prob * neq);
+  // w = -S^-1 hvec, then NREFINE steps of iterative refinement. Where a
+  // friction cone is tight (d ~1e8) the reduced solve recovers its cone row
+  // as d times a difference of its outputs, which loses that row's digits;
+  // each step forms the residual of the unreduced KKT rows at (dx0, w),
+  // rho = [A; G] dx0 - [P w_eq; (F + D^-1) w_ineq] (dx0 = Q^-1 (-rx - [A; G]'
+  // w) meets the first row by construction; P pins a padded equality row),
+  // in float64 from F's structure (a friction row couples to its contact's
+  // cone multiplier; cone row c reads mu_c wn_c - the sum of c's friction
+  // multipliers), solves S delta = rho with the factor in registers and adds
+  // delta to w.
+  fric::kkt_hvec(D, w, c, rx, w.zero, w.zero, w.zero);
+  fric::schur_solve(D, w, K, c);
+  const int k = D.k(), fd = D.fd(), nf = D.nf(), m = D.m(), ldz = D.ldz(), neq_real = D.neq_real();
+  for (int step = 0; step < NREFINE; ++step) {
+    fric::kkt_out(D, w, c, rx, w.zero, dx0, (T*)nullptr, (T*)nullptr, (T*)nullptr);
+    fric::rows<double, 4>(
+        t, m,
+        [&](int r, int l) {
+          double s0 = 0;
+          for (int j = l; j < nz; j += 4) s0 += (double)w.AG[r * ldz + j] * (double)dx0[j];
+          return s0;
+        },
+        [&](int r, double acc) {
+          const T* wv = w.wvec;
+          double pin = 0;
+          if (r < neq) {
+            if (r >= neq_real) pin = wv[r];
+          } else {
+            const int i = r - neq;
+            if (i >= k + nf) {
+              const int cc = i - k - nf;
+              double fs = 0;
+              for (int j = 0; j < fd; ++j) fs += (double)wv[neq + k + cc * fd + j];
+              pin = (double)w.mu[cc] * (double)wv[neq + cc] - fs;
+            } else if (i >= k) {
+              pin = wv[neq + k + nf + (i - k) / fd];
+            }
+            pin += (double)wv[r] / (double)w.d[i];
+          }
+          w.hvec[r] = (T)(pin - acc);  // -rho
+          w0[r] = wv[r];
+        });
+    c.sync();
+    fric::schur_solve(D, w, K, c);  // w.wvec = S^-1 rho
+    for (int i = t; i < m; i += NT) w.wvec[i] += w0[i];
+    c.sync();
+  }
+  fric::kkt_out(D, w, c, rx, w.zero, out_dx + (size_t)prob * nz, (T*)nullptr, out_dlam + (size_t)prob * nineq,
+                out_dnu + (size_t)prob * neq);
   if (t == 0) out_syncs[prob] = c.nsync;
 }
 

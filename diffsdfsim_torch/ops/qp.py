@@ -440,6 +440,32 @@ def fric_reduced_solve(invQ, G, A, F, d, hvec, structure):
     return w[:, neq - neq_real :]
 
 
+K2_REFINE = 2  # kernel K2's refinement steps (kkt_bwd.cu, NREFINE)
+
+
+def kkt_grad_reduced(invQ, G, A, F, d, rx, structure):
+    """The backward KKT solve as kernel K2 runs it (``ops/csrc/kkt_bwd.cu``),
+    returning (dx, dlam, dnu): w = (dnu, dlam) = -S^-1 [A; G] Q^-1 rx by
+    ``fric_reduced_solve``, dx = Q^-1 (-rx - [A; G]' w), then K2_REFINE
+    steps of iterative refinement. Where a friction cone is tight (its d
+    ~1e8) the reduced solve recovers the cone rows as d times a difference
+    of its outputs and loses their digits; each step solves for the residual
+    of the unreduced KKT rows at (dx, dlam, dnu), rho = [A; G] dx - [0; (F +
+    D^-1) dlam] (dx meets the first row by construction), with the same
+    reduced factor and adds the correction (ROADMAP queue 3, item 13)."""
+    neq = A.shape[-2]
+    AG = torch.cat([A, G], dim=-2)
+    AGt = AG.transpose(-1, -2)
+    w = -fric_reduced_solve(invQ, G, A, F, d, _bmv(AG, _bmv(invQ, rx)), structure)
+    dx = _bmv(invQ, -rx - _bmv(AGt, w))
+    for _ in range(K2_REFINE):
+        wi = w[:, neq:]
+        rho = _bmv(AG, dx) - torch.cat([torch.zeros_like(w[:, :neq]), _bmv(F, wi) + wi / d], dim=-1)
+        w = w + fric_reduced_solve(invQ, G, A, F, d, rho, structure)
+        dx = _bmv(invQ, -rx - _bmv(AGt, w))
+    return dx, w[:, neq:], w[:, :neq]
+
+
 def _lcp_bwd(Q, G, A, F, zhat, nu, lam, slack, dl_dzhat, structure, kkt_solve=None):
     """Gradients (dQ, dp, dG, dh, dA, db, dF) of the LCP solution's x
     (JAX ops/qp.py:485-533). ``kkt_solve(Q, G, A, F, d, rx, structure)``,

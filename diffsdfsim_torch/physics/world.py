@@ -465,13 +465,13 @@ def run_world(spec: WorldSpec, state: WorldState, run_time: float = 10.0, fixed_
               recorder=None, print_time: bool = False):
     """Host-loop runner (reference run_world, sdf_physics/physics3d/world.py:
     113-205; JAX world.py:1114-1160): step fixed-dt frames until ``state.t``
-    reaches ``run_time``. Raises in strict mode when the dt-bisection hit its
-    floor with penetration; warns on a frame that ran out of substeps.
-    Returns (final state, Trajectory of the frames run, or None)."""
+    reaches ``run_time``, handing each frame's end state to ``recorder``
+    (``rendering.Recorder3D``) where one is given. Raises in strict mode when
+    the dt-bisection hit its floor with penetration; warns on a frame that
+    ran out of substeps. Returns (final state, Trajectory of the frames run,
+    or None)."""
     import time
 
-    if recorder is not None:
-        raise NotImplementedError("the rendering recorder is not ported yet; pass recorder=None")
     frames, truncs = [], []
     t_start = time.time()
     while float(state.t) < run_time:
@@ -488,6 +488,8 @@ def run_world(spec: WorldSpec, state: WorldState, run_time: float = 10.0, fixed_
                   f"max_substeps={spec.cfg.max_substeps} before covering dt")
         frames.append(rec)
         truncs.append(truncated)
+        if recorder is not None:
+            recorder.record(float(state.t), spec.bodies, state.quat, state.pos)
         if print_time:
             print(f"\r {float(state.t):.3f} / {time.time() - t_start:.2f}s", end="")
     if print_time:

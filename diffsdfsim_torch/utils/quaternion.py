@@ -166,6 +166,14 @@ def so3_log_map(R):
     return w * scale[..., None]
 
 
+def so3_relative_angle(R1, R2):
+    """The angle of R1' R2 (batched), the evaluation metric of the
+    reference's optim_pointcloud.py:27."""
+    R = R1.transpose(-1, -2) @ R2
+    tr = torch.diagonal(R, dim1=-2, dim2=-1).sum(-1)
+    return torch.arccos(torch.clamp((tr - 1.0) / 2.0, -1.0 + 1e-7, 1.0 - 1e-7))
+
+
 def quat_from_euler(euler, style="wxyz"):
     """Euler angles (phi, the, psi) -> quaternion (reference physics3d/utils.py:207-221)."""
     phi, the, psi = euler[..., 0] * 0.5, euler[..., 1] * 0.5, euler[..., 2] * 0.5

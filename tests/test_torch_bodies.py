@@ -2,9 +2,13 @@
 2) and floor box (cube template subdiv 3) and the other analytic kinds:
 template-projected verts, faces, mass and Mirtich inertia, float64 on the
 CPU, atol 1e-10 (12 Newton projection steps and the volume integrals repeat
-the same formulas; differences are rounding)."""
+the same formulas; differences are rounding), against the JAX package's
+``make_body`` as ``tests/golden/gen_torch_bodies_golden.py`` wrote it to
+``tests/golden/bodies_f64.npz`` (the JAX package's eager projection takes
+seconds a body)."""
 
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -12,11 +16,15 @@ import torch
 from diffsdfsim_torch import interop
 from diffsdfsim_torch.physics import shapes as tshapes
 from diffsdfsim_torch.physics.bodies import make_body as t_make_body
-from diffsdfsim_tpu.physics import shapes as jshapes
-from diffsdfsim_tpu.physics.bodies import make_body as j_make_body
-from torch_jax_bridge import jax_body_np, one_torch_thread  # noqa: F401
+from torch_jax_bridge import one_torch_thread  # noqa: F401
 
 ATOL = 1e-10
+GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "bodies_f64.npz")
+
+
+@pytest.fixture(scope="module")
+def golden():
+    return dict(np.load(GOLDEN))
 
 CASES = [
     ("bench-floor", "BoxShape", dict(dims=[20.0, 1.0, 20.0]), dict(subdiv=3, fric_coeff=0.25)),
@@ -27,27 +35,27 @@ CASES = [
 
 
 @pytest.mark.parametrize("name,kind,params,kw", CASES, ids=[c[0] for c in CASES])
-def test_make_body_matches(name, kind, params, kw):
-    jb = j_make_body(getattr(jshapes, kind)(**{k: jnp.asarray(v) for k, v in params.items()}), **kw)
+def test_make_body_matches(golden, name, kind, params, kw):
     tb = t_make_body(getattr(tshapes, kind)(**{k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()}),
                      device="cpu", **kw)
-    np.testing.assert_array_equal(tb.faces, np.asarray(jb.faces))
+    np.testing.assert_array_equal(tb.faces, golden[f"{name}_faces"])
     for field in ("verts", "mass", "ang_inertia", "restitution", "fric_coeff"):
-        np.testing.assert_allclose(getattr(tb, field).numpy(), np.asarray(getattr(jb, field)),
+        np.testing.assert_allclose(getattr(tb, field).numpy(), golden[f"{name}_{field}"],
                                    rtol=0, atol=ATOL, err_msg=field)
-    assert tb.is_sdf and jb.is_sdf
+    assert tb.is_sdf
 
 
-def test_mesh_body_and_interop_roundtrip():
+def test_mesh_body_and_interop_roundtrip(golden):
     """Explicit verts/faces make a plain mesh body; interop carries a JAX
-    body across and back unchanged."""
+    body (the golden's sphere) across and back unchanged."""
     from diffsdfsim_torch.utils import meshes
 
     tv, tf = meshes.cube_template(2)
     tb = t_make_body(tshapes.BoxShape(torch.tensor([0.5, 0.5, 0.5])), verts=0.25 * tv, faces=tf, device="cpu")
     assert not tb.is_sdf and tb.kind == tshapes.KIND_NONE
-    jb = j_make_body(jshapes.SphereShape(jnp.asarray(0.5)), subdiv=2)
-    d = jax_body_np(jb)
+    d = {k[len("interop_"):]: (v.item() if v.ndim == 0 and v.dtype.kind in "bU" else v) for k, v in golden.items()
+         if k.startswith("interop_")}
+    assert d["shape"] == "SphereShape" and d["is_sdf"] is True
     back = interop.body_to_numpy(interop.body_from_numpy(d, device="cpu"))
     for key, val in d.items():
         np.testing.assert_array_equal(np.asarray(back[key]), np.asarray(val), err_msg=key)

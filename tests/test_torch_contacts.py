@@ -7,7 +7,15 @@ Poses: free flight, touching, penetrating by 1e-3, and a box tilted by
 pen and max_pen within atol 1e-9 (same algorithm, rounding differences);
 the contact mask equal; ``cache_from_raw`` selects the same faces, or
 faces with the same contact point where several tie exactly.
+
+The JAX side's results (each jitted search compiles for seconds) are read
+from ``tests/golden/contacts_jax.pkl``, which
+``tests/golden/gen_torch_contacts_golden.py`` writes by running these tests
+with the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate it when
+a test's inputs change.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -19,9 +27,14 @@ from diffsdfsim_torch.config import SimConfig as TConfig
 from diffsdfsim_torch.physics import BoxShape, contacts as tcon, make_body
 from diffsdfsim_tpu.config import SimConfig as JConfig
 from diffsdfsim_tpu.physics import contacts as jcon
-from torch_jax_bridge import BENCH_CFG, jax_body_from_torch, one_torch_thread, torch_bench_world  # noqa: F401
+from torch_jax_bridge import BENCH_CFG, JaxGolden, jax_body_from_torch, one_torch_thread, torch_bench_world  # noqa: F401
 
 ATOL = 1e-9
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "contacts_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
+RAW = ("cmask", "abc", "n_ng", "p1_ng", "x1", "pen", "max_pen")
+CACHE = ("sel_valid", "sel_idx", "x1_sel")
+FOUND = ("valid", "i1", "i2", "pair_id", "pair_active", "normal", "p1", "p2", "pen", "max_pen_all")
 EYE = [1.0, 0.0, 0.0, 0.0]
 FLOOR_POS = [0.0, -0.5, 0.0]
 
@@ -75,15 +88,21 @@ def _poses(b1, q, p):
 def test_pair_search_matches_xla(b1, b2, q, p, tag, bodies, jax_search):
     q = list(np.asarray(q) / np.linalg.norm(q))
     q1, p1, q2, p2 = _poses(b1, q, p)
-    jraw = jax_search(b1, b2)(*(jnp.asarray(x) for x in (q1, p1, q2, p2)))
+
+    def jfn():
+        raw = jax_search(b1, b2)(*(jnp.asarray(x) for x in (q1, p1, q2, p2)))
+        cache = jcon.cache_from_raw(raw, JConfig(**BENCH_CFG))
+        return tuple(getattr(raw, f) for f in RAW) + tuple(getattr(cache, f) for f in CACHE)
+
+    out = _from_jax(jfn)
+    jraw, jc = dict(zip(RAW, out)), dict(zip(CACHE, out[len(RAW):]))
     cfg = TConfig(**BENCH_CFG)
     tt = lambda x: torch.tensor([x], dtype=torch.float64)
     traw = tcon.search_pair_raw_plain(bodies[b1][1], tt(q1), tt(p1), bodies[b2][1], tt(q2), tt(p2), cfg)
-    np.testing.assert_array_equal(traw.cmask[0].numpy(), np.asarray(jraw.cmask))
+    np.testing.assert_array_equal(traw.cmask[0].numpy(), jraw["cmask"])
     for name in ("abc", "n_ng", "p1_ng", "x1", "pen"):
-        np.testing.assert_allclose(getattr(traw, name)[0].numpy(), np.asarray(getattr(jraw, name)),
-                                   rtol=0, atol=ATOL, err_msg=name)
-    jmp, tmp = float(jraw.max_pen), float(traw.max_pen[0])
+        np.testing.assert_allclose(getattr(traw, name)[0].numpy(), jraw[name], rtol=0, atol=ATOL, err_msg=name)
+    jmp, tmp = float(jraw["max_pen"]), float(traw.max_pen[0])
     assert (np.isinf(jmp) and jmp == tmp) or abs(jmp - tmp) <= ATOL
     if tag == "box-4pt":
         assert int(traw.cmask.sum()) >= 4
@@ -91,14 +110,13 @@ def test_pair_search_matches_xla(b1, b2, q, p, tag, bodies, jax_search):
     # the filter keeps the same representatives: the same faces, or faces
     # whose contact point is the same point (faces sharing a box corner tie
     # exactly, and rounding picks among them)
-    jc = jcon.cache_from_raw(jraw, JConfig(**BENCH_CFG))
     tc = tcon.cache_from_raw(traw, cfg)
-    sel = np.asarray(jc.sel_valid)
+    sel = jc["sel_valid"]
     np.testing.assert_array_equal(tc.sel_valid.numpy(), sel)
-    tidx, jidx = tc.sel_idx.numpy()[sel], np.asarray(jc.sel_idx)[sel]
+    tidx, jidx = tc.sel_idx.numpy()[sel], jc["sel_idx"][sel]
     p1 = traw.p1_ng[0].numpy()
     np.testing.assert_allclose(p1[tidx], p1[jidx], rtol=0, atol=ATOL)
-    np.testing.assert_allclose(tc.x1_sel.numpy()[sel], np.asarray(jc.x1_sel)[sel], rtol=0, atol=ATOL)
+    np.testing.assert_allclose(tc.x1_sel.numpy()[sel], jc["x1_sel"][sel], rtol=0, atol=ATOL)
     if tag == "box-4pt":
         assert int(sel.sum()) == 4
 
@@ -114,16 +132,17 @@ def test_find_contacts_at_contact(bodies):
     tspec = TSpec([bodies["floor"][1], bodies["sphere"][1]], cfg=tcfg)
     quat = np.array([EYE, EYE])
     pos = np.array([FLOOR_POS, [0.01, 0.5 - 5e-4, 0.0]])
-    jc = jax.jit(lambda q, p: jcon.find_contacts(jspec.bodies, q, p, jspec.directed_pairs, jspec.n_unordered,
-                                                  jcfg))(jnp.asarray(quat), jnp.asarray(pos))
+    found = _from_jax(lambda: tuple(getattr(jax.jit(lambda q, p: jcon.find_contacts(
+        jspec.bodies, q, p, jspec.directed_pairs, jspec.n_unordered, jcfg))(jnp.asarray(quat), jnp.asarray(pos)), f)
+        for f in FOUND))
+    jc = dict(zip(FOUND, found))
     tc = tcon.find_contacts(tspec.bodies, torch.tensor(quat), torch.tensor(pos), tspec.directed_pairs,
                             tspec.n_unordered, tcfg)
     assert bool(tc.valid.any())
     for name in ("valid", "i1", "i2", "pair_id", "pair_active"):
-        np.testing.assert_array_equal(getattr(tc, name).numpy(), np.asarray(getattr(jc, name)), err_msg=name)
+        np.testing.assert_array_equal(getattr(tc, name).numpy(), jc[name], err_msg=name)
     for name in ("normal", "p1", "p2", "pen", "max_pen_all"):
-        np.testing.assert_allclose(getattr(tc, name).numpy(), np.asarray(getattr(jc, name)),
-                                   rtol=0, atol=ATOL, err_msg=name)
+        np.testing.assert_allclose(getattr(tc, name).numpy(), jc[name], rtol=0, atol=ATOL, err_msg=name)
 
 
 def test_fw_kernel_body_constants_cache():

@@ -11,18 +11,21 @@ where JAX is not installed (tests/conftest.py imports it, hence
 Shapes are the main path's: the bench scene's LCPs (nz 12, neq 6, k 4,
 fd 8) at D = 3 and 6 rungs and a 576-problem seed sweep (K1), 1, 6 and 576
 problems (K2), and the shape-space scene's k = 8 contact buffer (K1 at 4
-rungs, K2 at 1 problem), optim_sphere's room (nz 18, neq 12, k 8: K1
+rungs, K2 at 1 problem), optim_pointcloud's fd = 4 (K1 at 3 rungs, K2 at 6
+problems; K2 also on the sysid friction fit's taped replays, where the
+friction cones are tight), optim_sphere's room (nz 18, neq 12, k 8: K1
 at 3 and 150 problems, K2 at 1 and 50, the runtime-sized instantiation);
 a latent lane body's query (one K4 launch for all lanes); both bench
 directed pairs (768-face floor,
 320-face sphere) at three rung poses, a 3072-face floor (K3 on a cluster
 per pose) and a 20,480-face sphere (past K3's one-face-per-thread cap);
-K4 at the reference's width and at IGR's 512-wide shape-space decoder;
+K4 at the reference's width (N to 20,000; 12,288 is a 128 x 96 render's
+query) and at IGR's 512-wide shape-space decoder;
 K5's fused grid query at 33^3, 64^3 and 128^3; float64. Tolerances: PDIPM x within
 1e-8 (Gauss-Jordan vs Cholesky rounding), KKT residuals no worse than 10x
 the plain version's; FW search outputs within 1e-9 and masks equal; the
 backward KKT solve within 1e-9 relative, of the plain version and of the
-plain reduced Schur solve ``fric_reduced_solve``.
+plain version of its algorithm ``kkt_grad_reduced``.
 """
 
 import pytest
@@ -288,9 +291,10 @@ def test_kkt_grad_kernel_lanes_bitwise(cuda, k):
 def test_kkt_grad_kernel_room_size(cuda, B):
     """K2 on optim_sphere's room LCPs (m2 52, the runtime-sized
     instantiation) at one replay and a 50-seed sweep's, against the plain
-    version and against the exact solution of the full KKT system, within
-    chip_smoke.RTOL_K2_ROOM relative (the reduced block's condition number
-    reaches 2.1e10 there; see that constant)."""
+    version within chip_smoke.RTOL_K2_ROOM relative (the plain version's
+    own error: the reduced block's condition number reaches 2.1e10 there;
+    see that constant) and against the exact solution of the full KKT
+    system within chip_smoke.RTOL_K2_EXACT (the kernel's refinement)."""
     from diffsdfsim_torch.ops.qp import kkt_grad_plain
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
 
@@ -305,23 +309,79 @@ def test_kkt_grad_kernel_room_size(cuda, B):
     ex = cs.kkt_exact(*cs.kkt_system(Q, G, A, F, d, rx))
     ex = (ex[:, :18], ex[:, 18:98], ex[:, 98:])
     rel = lambda outs, refs: max(float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(outs, refs))  # noqa: E731
-    assert rel(out_k, ex) <= cs.RTOL_K2_ROOM
+    assert rel(out_k, ex) <= cs.RTOL_K2_EXACT
     assert rel(out_k, kkt_grad_plain(*ins, ("fric", 8, 8))) <= cs.RTOL_K2_ROOM
 
 
 @pytest.mark.parametrize("k", [4, 8])
 def test_kkt_grad_kernel_matches_fric_reduced_solve(cuda, k):
-    """K2's (dnu, dlam) against the plain reduced Schur solve on the same
-    inputs, -S^-1 [A; G] Q^-1 rx: 1e-9 relative to the largest entry."""
-    from diffsdfsim_torch.ops.qp import fric_reduced_solve
+    """K2's (dx, dlam, dnu) against the plain version of its algorithm on
+    the same inputs (``kkt_grad_reduced``: the reduced Schur solve,
+    ``fric_reduced_solve``, and two refinement steps): 1e-9 relative to the
+    largest entry."""
+    from diffsdfsim_torch.ops.qp import kkt_grad_reduced
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
 
-    iq, G, A, F, d, rx = _kkt_inputs(cuda, k, 6)
-    _, dlam, dnu = kkt_grad_fric(iq, G, A, F, d, rx, ("fric", k, 8))
-    iqrx = (iq @ rx[..., None])[..., 0]
-    hvec = torch.cat([(A @ iqrx[..., None])[..., 0], (G @ iqrx[..., None])[..., 0]], -1)
-    ref = -fric_reduced_solve(iq, G, A, F, d, hvec, ("fric", k, 8))
-    assert float((torch.cat([dnu, dlam], -1) - ref).abs().max()) <= 1e-9 * float(ref.abs().max())
+    ins = _kkt_inputs(cuda, k, 6)
+    out = kkt_grad_fric(*ins, ("fric", k, 8))
+    for a, r in zip(out, kkt_grad_reduced(*ins, ("fric", k, 8))):
+        assert float((a - r).abs().max()) <= 1e-9 * float(r.abs().max())
+
+
+def test_fric_kernels_at_the_pointcloud_shape(cuda):
+    """optim_pointcloud's LCPs (nz 12, neq 6, k 4, fd 4: the runtime-sized
+    instantiation): K1 at a probe stage's 3 rungs, x within 1e-8 of the
+    plain version and KKT residuals no worse than 10x its; K2 at 6 problems
+    within 1e-9 relative of the plain version and of ``kkt_grad_reduced``,
+    and within chip_smoke.RTOL_K2_EXACT of the KKT system's exact solution."""
+    import numpy as np
+
+    from diffsdfsim_torch.ops.qp import (blockdiag_inv3, kkt_grad_plain, kkt_grad_reduced, lcp_residuals,
+                                         pdipm_solve_raw)
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
+
+    cs = _chip_smoke()
+    st = ("fric", 4, 4)
+    assert not pdipm_fric.info(torch.float64, 12, 6, 24, 4, 4)["static_m2"]
+    Q, p, G, h, A, b, F, invQ = cs.case_lcps("pc", 3, seed=3, device=cuda, dtype=torch.float64)
+    args = (Q, p, G, h, A, b, F)
+    sol_k = pdipm_fric(*args, invQ, 10, 1e-12, 3, st)
+    sol_p = pdipm_solve_raw(*args, 10, 1e-12, 3, st)
+    assert float((sol_k[0] - sol_p[0]).abs().max()) <= 1e-8
+    assert bool(torch.all(lcp_residuals(*args, sol_k) <= 10 * lcp_residuals(*args, sol_p) + 1e-10))
+    Q, p, G, h, A, b, F, _ = cs.case_lcps("pc", 6, seed=6, device=cuda, dtype=torch.float64)
+    x, y, z, s = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12, 3, st)
+    d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s, min=1e-8), max=1e12)
+    rx = torch.tensor(np.random.default_rng(6).normal(size=tuple(x.shape)), dtype=torch.float64, device=cuda)
+    ins = (blockdiag_inv3(Q), G, A, F, d, rx)
+    out_k = kkt_grad_fric(*ins, st)
+    rel = lambda outs, refs: max(float((a - r).abs().max()) / float(r.abs().max()) for a, r in zip(outs, refs))  # noqa: E731
+    assert rel(out_k, kkt_grad_plain(*ins, st)) <= 1e-9 and rel(out_k, kkt_grad_reduced(*ins, st)) <= 1e-9
+    ex = cs.kkt_exact(*cs.kkt_system(Q, G, A, F, d, rx))
+    assert rel(out_k, (ex[:, :12], ex[:, 12:36], ex[:, 36:])) <= cs.RTOL_K2_EXACT
+
+
+def test_kkt_grad_kernel_tight_cones(cuda):
+    """K2 on the taped replays of optim_sysid's friction fit (the cube pushed
+    over the floor, 15 frames; its contacts stick, so the friction cones'
+    d reach ~3e8): dlam within chip_smoke.RTOL_K2_REPLAY_EXACT of the KKT
+    systems' exact solution, and the cone rows (dh, dG, dF) and d loss /
+    d mu within chip_smoke.RTOL_K2_CONE of the plain KKT solve
+    (chip_smoke.check_k2_replays)."""
+    from diffsdfsim_torch.experiments import optim_sysid as osy
+    from diffsdfsim_torch.experiments.losses import trajectory_loss
+    from diffsdfsim_torch.ops import qp
+
+    cs = _chip_smoke()
+    c = dict(osy.DEFAULTS, param="friction", run_time=0.5)
+    cfg = osy.build_cfg(c)
+    with torch.no_grad():
+        _, tgt = osy.simulate(torch.tensor(0.45, dtype=torch.float64, device=cuda), c, cfg, cuda)
+    th = torch.tensor(0.3, dtype=torch.float64, device=cuda, requires_grad=True)
+    with cs.Calls(qp, "_lcp_bwd") as calls:
+        torch.autograd.grad(trajectory_loss(osy.simulate(th, c, cfg, cuda)[1], tgt, body=1), th)
+    assert len(calls.calls) > 0
+    cs.check_k2_replays(calls.calls, "sysid friction, single path")
 
 
 def test_bench_gradient_runs_through_k2(cuda):
@@ -353,7 +413,7 @@ def _igr_net(cuda, dtype=torch.float64):
 
 
 @pytest.mark.parametrize("dtype,rtol", [(torch.float64, 1e-12), (torch.float32, 1e-5)])
-@pytest.mark.parametrize("n", [1, 100, 2304, 20000])
+@pytest.mark.parametrize("n", [1, 100, 2304, 12288, 20000])
 def test_igr_kernel_matches_plain(cuda, dtype, rtol, n):
     """K4 against implicit_net_apply at the reference's width ((128,)*8,
     skip at 4): relative to the largest value; 2304 points take 40 per

@@ -23,8 +23,8 @@ def libs(tmp_path_factory):
     return emu_check.build_libs(str(tmp_path_factory.mktemp("cuda_emu")))
 
 
-@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
-@pytest.mark.parametrize("case", emu_check.CASES, ids=[c[0].replace(" ", "-") for c in emu_check.CASES])
+@pytest.mark.parametrize("case,dtype", emu_check.K12_RUNS,
+                         ids=[f"{c[0].replace(' ', '-')}-{str(dt)[-2:]}" for c, dt in emu_check.K12_RUNS])
 def test_kernels_match_plain_emulated(libs, case, dtype):
     for line, ok in emu_check.check_case(libs, dtype, case):
         assert ok, line

@@ -69,22 +69,29 @@ def test_assembly_and_mass_matrices(worlds):
     """M, its analytic inverse and the contact LCP data (with Jf's per-contact
     [+dirs | -dirs] rows) equal the JAX package's."""
     jspec, jst, tspec, tst = worlds["contact"]
-    jargs, jstruct = jeng.dump_contact_lcp(jspec.bodies, jspec.joints, jspec.forces, jst, jst.contacts,
-                                           1 / 30, jspec.cfg)
+    jstruct = []
+
+    def jdump(st):  # one compiled program; the structure is static, kept while tracing
+        args, struct = jeng.dump_contact_lcp(jspec.bodies, jspec.joints, jspec.forces, st, st.contacts, 1 / 30,
+                                             jspec.cfg)
+        jstruct.append(struct)
+        return args, jeng.mass_matrix_inv(jspec.bodies, st.quat), jeng.friction_dirs(st.contacts.normal, 8)
+
+    jargs, jminv, jdirs = jax.jit(jdump)(jst)
     targs, tstruct = teng.dump_contact_lcp(tspec.bodies, tspec.joints, tspec.forces, tst, tst.contacts,
                                            1 / 30, tspec.cfg)
-    assert tuple(jstruct) == tuple(tstruct)
+    assert tuple(jstruct[0]) == tuple(tstruct)
     for j, t in zip(jargs, targs):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=1e-12)
-    np.testing.assert_allclose(teng.mass_matrix_inv(tspec.bodies, tst.quat).numpy(),
-                               np.asarray(jeng.mass_matrix_inv(jspec.bodies, jst.quat)), rtol=0, atol=1e-12)
-    np.testing.assert_allclose(teng.friction_dirs(tst.contacts.normal, 8).numpy(),
-                               np.asarray(jeng.friction_dirs(jst.contacts.normal, 8)), rtol=0, atol=1e-12)
+    np.testing.assert_allclose(teng.mass_matrix_inv(tspec.bodies, tst.quat).numpy(), np.asarray(jminv), rtol=0,
+                               atol=1e-12)
+    np.testing.assert_allclose(teng.friction_dirs(tst.contacts.normal, 8).numpy(), np.asarray(jdirs), rtol=0,
+                               atol=1e-12)
 
 
 def test_post_stabilization(worlds):
     jspec, jst, tspec, tst = worlds["contact"]
-    jv = jeng.post_stabilization(jspec.bodies, jspec.joints, jst, jst.contacts, jspec.cfg)
+    jv = jax.jit(lambda st: jeng.post_stabilization(jspec.bodies, jspec.joints, st, st.contacts, jspec.cfg))(jst)
     tv = teng.post_stabilization(tspec.bodies, tspec.joints, tst, tst.contacts, tspec.cfg)
     np.testing.assert_allclose(tv.numpy(), np.asarray(jv), rtol=0, atol=ATOL)
 
@@ -98,7 +105,7 @@ def test_joint_rows(worlds):
     for name, kw in (("XConstraint3D", {}), ("YConstraint3D", {}), ("ZConstraint3D", {}),
                      ("RotConstraint3D", {}), ("TotalConstraint3D", {}),
                      ("GripperJoint", dict(body2=1, axis=(0.0, 1.0, 0.0)))):
-        jrows = jj.__dict__[name](body1=0, **kw).rows(jst)
+        jrows = jax.jit(jj.__dict__[name](body1=0, **kw).rows)(jst)
         trows = tj.__dict__[name](body1=0, **kw).rows(tst)
         for t, j in zip(trows, jrows):
             if j is None:

@@ -85,3 +85,36 @@ def test_fric_reduced_solve_matches_jax_and_full_schur(neq, k, fd):
         cache = tqp._KKTCache(t[0], AG @ t[0] @ AG.transpose(-1, -2), t[1], t[2], t[3], structure)
         w_full = tqp._solve_S(cache, tqp._factor_S(cache, t[4]), t[5]).numpy()
         assert _rel(w, w_full) <= RTOL, structure
+
+
+def test_kkt_grad_reduced_refines_tight_cones():
+    """``kkt_grad_reduced`` (kernel K2's algorithm: the reduced solve, then
+    two refinement steps on the unreduced KKT rows' residual) where every
+    friction cone is tight (its d at 3e8, the other rows in [0.1, 10]):
+    (dx, dlam, dnu) within 1e-9 relative of the full KKT system's solution
+    (numpy's LU, float64), while the reduced solve alone recovers the cone
+    rows as d times a difference of its outputs and is off by more than
+    1e-6."""
+    neq, k, fd = 6, 4, 8
+    invQ, G, A, F, d, _ = _problem(neq, k, fd, nb=2, seed=11)
+    d[:, -k:] = 3e8
+    rx = np.random.default_rng(12).normal(size=(2, 12))
+    nz, nineq = 12, G.shape[1]
+    n = nz + nineq + neq
+    kkt = np.zeros((2, n, n))
+    kkt[:, :nz, :nz] = np.linalg.inv(invQ)
+    kkt[:, :nz, nz : nz + nineq] = np.swapaxes(G, -1, -2)
+    kkt[:, :nz, nz + nineq :] = np.swapaxes(A, -1, -2)
+    kkt[:, nz : nz + nineq, :nz] = G
+    kkt[:, nz : nz + nineq, nz : nz + nineq] = -(np.eye(nineq) / d[:, None, :] + F)
+    kkt[:, nz + nineq :, :nz] = A
+    rhs = np.concatenate([-rx, np.zeros((2, nineq + neq))], axis=1)
+    ex = np.linalg.solve(kkt, rhs[..., None])[..., 0]
+    ex = (ex[:, :nz], ex[:, nz : nz + nineq], ex[:, nz + nineq :])
+    t = [torch.tensor(x) for x in (invQ, G, A, F, d, rx)]
+    out = tqp.kkt_grad_reduced(*t, ("fric", k, fd))
+    assert max(_rel(a.numpy(), r) for a, r in zip(out, ex)) <= 1e-9
+    iqrx = np.einsum("bij,bj->bi", invQ, rx)
+    hv = np.concatenate([np.einsum("bij,bj->bi", A, iqrx), np.einsum("bij,bj->bi", G, iqrx)], axis=1)
+    w = -tqp.fric_reduced_solve(*t[:5], torch.tensor(hv), ("fric", k, fd)).numpy()
+    assert _rel(w[:, neq:], ex[1]) > 1e-6

@@ -5,7 +5,12 @@ and the stop-gradient flags, against the JAX package in float64 on the CPU.
 
 Inputs are made with numpy from a seed and handed to both packages. Where
 the JAX function reaches a Pallas kernel (``kkt_grad_pallas``), it runs in
-interpret mode, as the JAX package's own tests run it.
+interpret mode, as the JAX package's own tests run it. The JAX side's
+results (each compiled program takes seconds to build) are read from
+``tests/golden/grad_leaf_jax.pkl``, which
+``tests/golden/gen_torch_grad_leaf_golden.py`` writes by running these
+tests with the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate
+it when a test's inputs change.
 
 Tolerances (each stated where it is used): 1e-9 relative to the largest
 gradient entry where both sides run the same algorithm and only rounding
@@ -14,6 +19,7 @@ backward is held at 1e-7 relative.
 """
 
 import functools
+import os
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +33,7 @@ from diffsdfsim_torch.ops import toc as ttoc
 from diffsdfsim_tpu.ops import qp as jqp
 from diffsdfsim_tpu.ops import toc as jtoc
 from test_torch_qp import bench_contact_lcps, fric_pm_problem
-from torch_jax_bridge import jax_body_from_torch, one_torch_thread, torch_bench_world  # noqa: F401
+from torch_jax_bridge import JaxGolden, jax_body_from_torch, one_torch_thread, torch_bench_world  # noqa: F401
 
 
 def _rel(t, j, rel, name=""):
@@ -38,13 +44,21 @@ def _rel(t, j, rel, name=""):
     np.testing.assert_allclose(t, j, rtol=0, atol=rel * scale, err_msg=name)
 
 
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "grad_leaf_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
+
+
 def _jax_vjp(fn, primals, cts):
     """(fn(*primals), its vjp with cotangents cts), as one jitted program."""
-    return jax.jit(lambda p, c: (fn(*p), jax.vjp(fn, *p)[1](c)))(tuple(primals), cts)
+    return _from_jax(lambda: jax.jit(lambda p, c: (fn(*p), jax.vjp(fn, *p)[1](c)))(tuple(primals), cts))
 
 
 LCP_NAMES = ("Q", "p", "G", "h", "A", "b", "F")
-_jsolve = jax.jit(jqp.pdipm_solve_raw, static_argnums=(7, 8, 9, 10))
+_jsolve_jit = jax.jit(jqp.pdipm_solve_raw, static_argnums=(7, 8, 9, 10))
+
+
+def _jsolve(*args):
+    return _from_jax(lambda: _jsolve_jit(*args))
 
 
 def _port_lcp_grads(args, sol, g, structure, kkt_solve=None):
@@ -61,8 +75,8 @@ def _jax_lcp_vjp(structure):
 
 
 def _jax_lcp_grads(args, sol, g, structure):
-    return _jax_lcp_vjp(structure)(tuple(jnp.asarray(a) for a in args), tuple(jnp.asarray(s) for s in sol),
-                                   jnp.asarray(g))
+    return _from_jax(lambda: _jax_lcp_vjp(structure)(tuple(jnp.asarray(a) for a in args),
+                                                     tuple(jnp.asarray(s) for s in sol), jnp.asarray(g)))
 
 
 @pytest.mark.parametrize("neq,k,fd,nb", [(6, 4, 8, 3), (0, 2, 4, 2), (3, 1, 2, 2)])
@@ -118,8 +132,8 @@ def test_kkt_grad_matches_jax_kernel():
     tout = qp_cuda.kkt_grad_fric(*[torch.tensor(a) for a in (invQ, G, A, F, d, rx)], ("fric", 4, 8))
     assert qp_cuda.kkt_grad_fric.launches == before
     pout = tqp.kkt_grad_plain(*[torch.tensor(a) for a in (invQ, G, A, F, d, rx)], ("fric", 4, 8))
-    jout = kkt_grad_pallas(*[jnp.asarray(a) for a in (invQ, G, A, F, d, rx)], interpret=True,
-                           structure=("fric", 4, 8))
+    jout = _from_jax(lambda: kkt_grad_pallas(*[jnp.asarray(a) for a in (invQ, G, A, F, d, rx)], interpret=True,
+                                             structure=("fric", 4, 8)))
     for name, t, pl, j in zip(("dx", "dlam", "dnu"), tout, pout, jout):
         assert torch.equal(t, pl), name  # the CPU wrapper is the plain version
         _rel(t, j, 1e-9, name)

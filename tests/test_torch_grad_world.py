@@ -108,16 +108,27 @@ def test_no_grad_rollout_is_the_same_forward(monkeypatch):
 
 
 def test_run_world_matches_rollout():
+    """run_world's frames equal rollout's, and a recorder is handed each
+    frame's end time and state (the JAX package's run_world)."""
     from diffsdfsim_torch.physics.world import run_world
 
+    class Calls:
+        def __init__(self):
+            self.calls = []
+
+        def record(self, t, bodies, quat, pos):
+            self.calls.append((t, bodies, quat, pos))
+
     spec, state = torch_bench_world()
+    rec = Calls()
     with torch.no_grad():
-        final, traj = run_world(spec, state, run_time=6.5 / 30)
+        final, traj = run_world(spec, state, run_time=6.5 / 30, recorder=rec)
         _, ref = rollout(*torch_bench_world(), 7)
     assert traj.pos.shape[0] == 7
     assert torch.equal(traj.pos, ref.pos)
-    with pytest.raises(NotImplementedError):
-        run_world(spec, state, recorder=object())
+    assert len(rec.calls) == 7 and all(c[1] is spec.bodies for c in rec.calls)
+    assert rec.calls[-1][0] == float(final.t) and torch.equal(rec.calls[-1][3], final.pos)
+    assert torch.equal(rec.calls[2][2], traj.quat[2, -1]) and torch.equal(rec.calls[2][3], traj.pos[2, -1])
 
 
 @pytest.mark.slow

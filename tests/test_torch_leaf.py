@@ -1,7 +1,16 @@
 """Port parity, leaf modules: quaternions, vector helpers, template meshes,
 analytic SDFs and their gradients (diffsdfsim_torch vs diffsdfsim_tpu,
 float64 on the CPU, atol 1e-12: same formulas, rounding-level differences
-only)."""
+only).
+
+The JAX side's results (eager JAX compiles each operation once, seconds
+in all) are read from ``tests/golden/leaf_jax.pkl``, which
+``tests/golden/gen_torch_leaf_golden.py`` writes by running these tests with
+the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate it when a
+test's inputs change.
+"""
+
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -18,9 +27,11 @@ from diffsdfsim_tpu.physics import shapes as jshapes
 from diffsdfsim_tpu.utils import meshes as jmeshes
 from diffsdfsim_tpu.utils import quaternion as jq
 from diffsdfsim_tpu.utils import spherical as jsph
-from torch_jax_bridge import one_torch_thread  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread  # noqa: F401
 
 ATOL = 1e-12
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "leaf_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 
 def _close(t, j, atol=ATOL):
@@ -41,27 +52,39 @@ def rng_data():
 def test_quaternion_maps(rng_data):
     q, w, pts = rng_data
     T = torch.tensor
-    _close(tq.quat_to_matrix(T(q)), jq.quat_to_matrix(jnp.asarray(q)))
-    _close(tq.quat_multiply(T(q), T(q[::-1].copy())), jq.quat_multiply(jnp.asarray(q), jnp.asarray(q[::-1])))
-    _close(tq.quat_invert(T(q)), jq.quat_invert(jnp.asarray(q)))
-    _close(tq.quat_apply(T(q), T(pts[:16])), jq.quat_apply(jnp.asarray(q), jnp.asarray(pts[:16])))
-    _close(tq.quat_exp_map(T(w)), jq.quat_exp_map(jnp.asarray(w)))
-    _close(tq.integrate_quat(T(q), T(w), 1 / 30), jq.integrate_quat(jnp.asarray(q), jnp.asarray(w), 1 / 30))
-    _close(tq.so3_exp_map(T(w)), jq.so3_exp_map(jnp.asarray(w)))
-    R = jq.quat_to_matrix(jnp.asarray(q))
-    _close(tq.matrix_to_quat(T(np.asarray(R))), jq.matrix_to_quat(R))
-    _close(tq.so3_log_map(T(np.asarray(R))), jq.so3_log_map(R), atol=1e-10)
-    _close(tq.quat_from_euler(T(w)), jq.quat_from_euler(jnp.asarray(w)))
+
+    def jax_side():
+        jqq, jw = jnp.asarray(q), jnp.asarray(w)
+        R = jq.quat_to_matrix(jqq)
+        return (R, jq.quat_multiply(jqq, jnp.asarray(q[::-1])), jq.quat_invert(jqq),
+                jq.quat_apply(jqq, jnp.asarray(pts[:16])), jq.quat_exp_map(jw), jq.integrate_quat(jqq, jw, 1 / 30),
+                jq.so3_exp_map(jw), jq.matrix_to_quat(R), jq.so3_log_map(R), jq.quat_from_euler(jw))
+
+    R, jmul, jinv, japp, jexp, jint, jso3, jm2q, jlog, jeul = _from_jax(jax_side)
+    _close(tq.quat_to_matrix(T(q)), R)
+    _close(tq.quat_multiply(T(q), T(q[::-1].copy())), jmul)
+    _close(tq.quat_invert(T(q)), jinv)
+    _close(tq.quat_apply(T(q), T(pts[:16])), japp)
+    _close(tq.quat_exp_map(T(w)), jexp)
+    _close(tq.integrate_quat(T(q), T(w), 1 / 30), jint)
+    _close(tq.so3_exp_map(T(w)), jso3)
+    _close(tq.matrix_to_quat(T(R)), jm2q)
+    _close(tq.so3_log_map(T(R)), jlog, atol=1e-10)
+    _close(tq.quat_from_euler(T(w)), jeul)
 
 
 def test_spherical_helpers(rng_data):
     _, w, pts = rng_data
     T = torch.tensor
-    _close(tsph.normalize(T(pts)), jsph.normalize(jnp.asarray(pts)))
-    _close(tsph.normalize(torch.zeros(3, dtype=torch.float64)), jsph.normalize(jnp.zeros(3)))
-    _close(tsph.orthogonal(T(pts)), jnp.stack([jsph.orthogonal(jnp.asarray(p)) for p in pts]))
-    _close(tsph.skew_symmetric_mat(T(w)), jsph.skew_symmetric_mat(jnp.asarray(w)))
-    for a, b in zip(tsph.cart_to_spherical(T(pts[4:])), jsph.cart_to_spherical(jnp.asarray(pts[4:]))):
+    jn, jz, jo, jsk, jcs = _from_jax(lambda: (
+        jsph.normalize(jnp.asarray(pts)), jsph.normalize(jnp.zeros(3)),
+        jnp.stack([jsph.orthogonal(jnp.asarray(p)) for p in pts]), jsph.skew_symmetric_mat(jnp.asarray(w)),
+        jsph.cart_to_spherical(jnp.asarray(pts[4:]))))
+    _close(tsph.normalize(T(pts)), jn)
+    _close(tsph.normalize(torch.zeros(3, dtype=torch.float64)), jz)
+    _close(tsph.orthogonal(T(pts)), jo)
+    _close(tsph.skew_symmetric_mat(T(w)), jsk)
+    for a, b in zip(tsph.cart_to_spherical(T(pts[4:])), jcs):
         _close(a, b)
 
 
@@ -86,13 +109,18 @@ SHAPES = [
 def test_shape_sdf_and_gradient(name, params, rng_data):
     _, _, pts = rng_data
     tshape = getattr(tshapes, name)(**{k: torch.tensor(v, dtype=torch.float64) for k, v in params.items()})
-    jshape = getattr(jshapes, name)(**{k: jnp.asarray(v) for k, v in params.items()})
-    tp, jp = torch.tensor(pts), jnp.asarray(pts)
-    _close(tshape.scale(), jshape.scale())
-    _close(tshape.sdf(tp), jshape.sdf(jp))
-    _close(tshape.sdf_grad(tp), jshape.sdf_grad(jp))
+    tp = torch.tensor(pts)
+
+    def jax_side():
+        jshape = getattr(jshapes, name)(**{k: jnp.asarray(v) for k, v in params.items()})
+        jp = jnp.asarray(pts)
+        return (jshape.scale(), jshape.sdf(jp), jshape.sdf_grad(jp)) + tuple(jshapes.query_sdfs(jshape, jp * 1.3))
+
+    jscale, jsdf_, jgrad, js, jg = _from_jax(jax_side)
+    _close(tshape.scale(), jscale)
+    _close(tshape.sdf(tp), jsdf_)
+    _close(tshape.sdf_grad(tp), jgrad)
     ts, tg = tshapes.query_sdfs(tshape, tp * 1.3)
-    js, jg = jshapes.query_sdfs(jshape, jp * 1.3)
     _close(ts, js)
     _close(tg, jg)
 
@@ -101,8 +129,10 @@ def test_sdf_primitives_failsafe(rng_data):
     """The box gradient's diagonal failsafe at ties and _sign_nonzero at 0."""
     _, _, pts = rng_data
     dims = np.array([0.6, 0.4, 0.5])
-    _close(tsdf.box_sdf_grad(torch.tensor(pts), torch.tensor(dims)), jsdf.box_sdf_grad(jnp.asarray(pts), jnp.asarray(dims)))
     x = np.array([-1.0, 0.0, 2.0])
-    _close(tsdf._sign_nonzero(torch.tensor(x)), jsdf._sign_nonzero(jnp.asarray(x)))
-    _close(tsdf.brick_sdf(torch.tensor(pts), torch.tensor(dims), torch.tensor(0.05, dtype=torch.float64)),
-           jsdf.brick_sdf(jnp.asarray(pts), jnp.asarray(dims), jnp.asarray(0.05)))
+    jbox, jsign, jbrick = _from_jax(lambda: (
+        jsdf.box_sdf_grad(jnp.asarray(pts), jnp.asarray(dims)), jsdf._sign_nonzero(jnp.asarray(x)),
+        jsdf.brick_sdf(jnp.asarray(pts), jnp.asarray(dims), jnp.asarray(0.05))))
+    _close(tsdf.box_sdf_grad(torch.tensor(pts), torch.tensor(dims)), jbox)
+    _close(tsdf._sign_nonzero(torch.tensor(x)), jsign)
+    _close(tsdf.brick_sdf(torch.tensor(pts), torch.tensor(dims), torch.tensor(0.05, dtype=torch.float64)), jbrick)

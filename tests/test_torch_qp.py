@@ -9,7 +9,14 @@ builds them, from a numpy seed. Tolerance: x, y, z and s within atol 1e-9
 LCPs the friction duals z and s are not unique (eight pyramid directions
 span a 2-D tangent plane), so rounding moves them along the solution set:
 there z and s are held at atol 1e-6 and through the KKT residual.
+
+The JAX side's results (each jitted solve compiles for seconds) are read
+from ``tests/golden/qp_jax.pkl``, which ``tests/golden/gen_torch_qp_golden.py``
+writes by running these tests with the JAX calls live
+(``torch_jax_bridge.JaxGolden``); regenerate it when a test's inputs change.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -20,9 +27,11 @@ import torch
 from diffsdfsim_torch.ops import qp as tqp
 from diffsdfsim_torch.ops import qp_cuda
 from diffsdfsim_tpu.ops import qp as jqp
-from torch_jax_bridge import one_torch_thread, torch_bench_world  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread, torch_bench_world  # noqa: F401
 
 ATOL = 1e-9
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "qp_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 
 def fric_pm_problem(rng, nb, nz=12, neq=6, k=4, fd=8):
@@ -72,13 +81,13 @@ def bench_contact_lcps():
 
 
 def _check(args, structure, jax_solve, max_iter=10, eps=1e-12, dual_atol=ATOL):
-    jsol = jax_solve(*[jnp.asarray(a) for a in args], max_iter, eps, 3, structure)
+    jsol = _from_jax(lambda: jax_solve(*[jnp.asarray(a) for a in args], max_iter, eps, 3, structure))
     targs = [torch.tensor(a) for a in args]
     tsol = tqp.pdipm_solve_raw(*targs, max_iter, eps, 3, structure)
     for name, t, j in zip("xyzs", tsol, jsol):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=ATOL if name in "xy" else dual_atol,
                                    err_msg=name)
-    jres = np.asarray(jqp.lcp_residuals(*[jnp.asarray(a) for a in args], jsol))
+    jres = _from_jax(lambda: jqp.lcp_residuals(*[jnp.asarray(a) for a in args], tuple(jnp.asarray(j) for j in jsol)))
     assert np.all(tqp.lcp_residuals(*targs, tsol).numpy() <= 10 * jres + 1e-12)
     return tsol
 
@@ -109,7 +118,8 @@ def test_residuals_and_blockdiag_inverse():
     rng = np.random.default_rng(4)
     args = fric_pm_problem(rng, 2)
     sol = tqp.pdipm_solve_raw(*[torch.tensor(a) for a in args], 10, 1e-12, 3, ("fric", 4, 8))
-    jres = jqp.lcp_residuals(*[jnp.asarray(a) for a in args], tuple(jnp.asarray(s.numpy()) for s in sol))
+    jres = _from_jax(lambda: jqp.lcp_residuals(*[jnp.asarray(a) for a in args],
+                                               tuple(jnp.asarray(s.numpy()) for s in sol)))
     np.testing.assert_allclose(
         tqp.lcp_residuals(*[torch.tensor(a) for a in args], sol).numpy(), np.asarray(jres), rtol=1e-9, atol=1e-14
     )
@@ -119,8 +129,8 @@ def test_residuals_and_blockdiag_inverse():
     Q = np.zeros((2, 12, 12))
     for i in range(4):
         Q[:, 3 * i : 3 * i + 3, 3 * i : 3 * i + 3] = blocks[:, i]
-    np.testing.assert_allclose(tqp.blockdiag_inv3(torch.tensor(Q)).numpy(), np.asarray(blockdiag_inv3(jnp.asarray(Q))),
-                               rtol=0, atol=1e-12)
+    np.testing.assert_allclose(tqp.blockdiag_inv3(torch.tensor(Q)).numpy(),
+                               _from_jax(lambda: blockdiag_inv3(jnp.asarray(Q))), rtol=0, atol=1e-12)
 
 
 def test_kernel_wrapper_on_cpu_takes_plain_version():
@@ -166,7 +176,7 @@ def test_degenerate_contact_row_gives_jax_answer(jax_solve):
     h[0, rows] = 0.0
     p[0], A[0] = 0.0, 0.0  # x = 0 and s = h: exact zeros, d = z / s infinite
     args = (Q, p, G, h, A, b, F)
-    jsol = jax_solve(*[jnp.asarray(a) for a in args], 10, 1e-9, 3, ("fric", k, fd))
+    jsol = _from_jax(lambda: jax_solve(*[jnp.asarray(a) for a in args], 10, 1e-9, 3, ("fric", k, fd)))
     tsol = tqp.pdipm_solve_raw(*[torch.tensor(a) for a in args], 10, 1e-9, 3, ("fric", k, fd))
     for name, t, j in zip("xyzs", tsol, jsol):
         np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=0, atol=ATOL, equal_nan=True, err_msg=name)

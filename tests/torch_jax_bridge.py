@@ -7,6 +7,9 @@ The port's bodies and states are built here and handed to the JAX package
 eager JAX world construction out of the tier-1 time.
 """
 
+import os
+import pickle
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -124,3 +127,62 @@ def sphere_grid(res):
     lin = np.linspace(-1.0, 1.0, res)
     pts = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), axis=-1)
     return np.sqrt(np.maximum(np.sum(pts * pts, axis=-1), 1e-24)) - 0.5 / 0.75
+
+
+class JaxGolden:
+    """The JAX side of a test module's comparisons, kept in a golden file.
+
+    Each JAX program such a module compiles takes seconds to build, while
+    its inputs are made from numpy seeds. ``jax_golden(fn)`` is the running
+    test's next JAX result (nested tuples of numpy arrays), keyed by test
+    name and call: with ``DIFFSDFSIM_RECORD_GOLDEN=1`` (the module's golden
+    generator) it runs fn() live and the module writes every result to
+    ``path`` at its end; otherwise it reads them from there. The module
+    binds the two fixtures ``fixtures()`` returns to module-level names."""
+
+    RECORD = os.environ.get("DIFFSDFSIM_RECORD_GOLDEN") == "1"
+
+    def __init__(self, path):
+        self.path, self.results, self.test, self.n = path, {}, None, 0
+
+    def fixtures(self):
+        @pytest.fixture(autouse=True, scope="module")
+        def jax_golden_file():
+            if not self.RECORD:
+                with open(self.path, "rb") as f:
+                    self.results.update(pickle.load(f))
+            yield
+            if self.RECORD:
+                with open(self.path, "wb") as f:
+                    pickle.dump(self.results, f)
+
+        @pytest.fixture(autouse=True)
+        def jax_golden_call(request):
+            self.test, self.n = request.node.name, 0
+
+        return jax_golden_file, jax_golden_call
+
+    @staticmethod
+    def _plain(x):
+        if isinstance(x, (tuple, list)):
+            return tuple(JaxGolden._plain(e) for e in x)
+        return np.asarray(x)
+
+    def __call__(self, fn):
+        key = f"{self.test}/{self.n}"
+        self.n += 1
+        if self.RECORD:
+            self.results[key] = self._plain(fn())
+        return self.results[key]
+
+
+def record_golden(test_file):
+    """Run ``tests/<test_file>`` with its JAX calls live, rewriting its
+    JaxGolden file (a golden generator's body); returns pytest's exit code."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, DIFFSDFSIM_RECORD_GOLDEN="1", JAX_PLATFORMS="cpu")
+    return subprocess.call([sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-p", "no:xdist", "-m",
+                            "", os.path.join("tests", test_file)], cwd=root, env=env)

@@ -14,7 +14,8 @@ forward and fwd+bwd, lanes against the single path), the grid drop
 some, all but ``batched`` by default. Besides the
 paths: ``k3`` and ``k4`` run the checkout's K3 and K4 kernel phases (their
 kernel and wrapper times go to the log), ``kernel_times`` times K3's launch
-at the bench pairs (R = 3) and K4's at N = 100, 576 and 2304 with CUDA
+at the bench pairs (R = 3), K4's at N = 100, 576 and 2304, K1's at one bench
+LCP and K2's at one and six bench LCPs and one room LCP with CUDA
 events around 200 back-to-back launches, the same way in every checkout
 (the profiler's trace can drop launches), ``grid_query`` times one
 ``GridShape`` query (``query_sdfs`` with its gradient, float64, a 64^3
@@ -91,6 +92,23 @@ def kernel_times():
                          device="cuda")
         ms = cs.cuda_ms(lambda: igr_mlp.run(params, x), n=200, warm=10)
         print(f"kernel times: K4 float64 N={n}: {ms:.4f} ms (CUDA events, 200 launches)")
+    from diffsdfsim_torch.ops.qp import blockdiag_inv3, pdipm_solve_raw
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
+    for case, B in ((4, 1), (4, 6), ("room", 1)):
+        Q, p, G, h, A, b, F, invQ = cs.case_lcps(case, B, seed=B, device="cuda", dtype=torch.float64)
+        k = G.shape[-2] // 10
+        st = ("fric", k, 8)
+        if case == 4 and B == 1:
+            prep = pdipm_fric.prepare(Q, p, G, h, A, b, F, invQ, 10, 1e-12, 3, st)
+            ms = cs.cuda_ms(lambda: pdipm_fric.launch(prep), n=200, warm=10)
+            print(f"kernel times: K1 float64 k=4 B=1: {ms:.4f} ms (CUDA events, 200 launches)")
+        x, y, z, s_ = pdipm_solve_raw(Q, p, G, h, A, b, F, 10, 1e-12, 3, st)
+        d = torch.clamp(torch.clamp(z, min=1e-8) / torch.clamp(s_, min=1e-8), max=1e12)
+        rx = torch.tensor(np.random.default_rng(B).normal(size=tuple(x.shape)), dtype=torch.float64, device="cuda")
+        prep = kkt_grad_fric.prepare(blockdiag_inv3(Q), G, A, F, d, rx, st)
+        ms = cs.cuda_ms(lambda: kkt_grad_fric.launch(prep), n=200, warm=10)
+        print(f"kernel times: K2 float64 {case if case == 'room' else f'k={k}'} B={B}: {ms:.4f} ms "
+              f"(CUDA events, 200 launches)")
 
 
 def grid_query():
