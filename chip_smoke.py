@@ -10,8 +10,10 @@ It builds the hand-written CUDA kernels from ``diffsdfsim_torch/ops/csrc``
 plain PyTorch version on the card (K3 also with a sphere of another radius
 in each lane, at a sweep's probe stage of 48 and 192 poses, and with the
 sysid floor and cube both lane bodies at 48 and 96; K1 and K2 also at
-optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4), then
-drives nine paths of the port on CUDA (float64):
+optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4; K2 also
+on a case whose contacts' friction cones are all tight, against the exact
+solution in float64 and float32; K4 also refusing weights that require
+grad), then drives eleven paths of the port on CUDA (float64):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
   (PDIPM) and K3 (Frank-Wolfe search), held against the plain CPU rollout
@@ -45,7 +47,17 @@ drives nine paths of the port on CUDA (float64):
   rendered through K4 / K5 (one launch per SDF query, counted), its main
   with its iterations cut through K1, K3 and K2, its first-frame and
   trajectory losses and gradients against the JAX golden, and
-  optim_pointcloud_real's main on a synthetic recording.
+  optim_pointcloud_real's main on a synthetic recording;
+- shape from inertia: optim_primitives (box, sphere, cylinder; the mesh's
+  Mirtich inertia, the analytic one, the analytic mesh) and
+  optim_shapespace_inertia at the reference's decoder width, two Adam
+  steps each, single and as 50- and 8-seed sweeps, against the JAX goldens
+  and the single path; worlds with no contact pair, so no K1, K2 or K3,
+  and one K4 launch per decoder query of a whole sweep batch;
+- the trained shape space and the body builders: igr_train at full width
+  on the card against the CPU port, the trained space's drop and Adam step
+  (K4, K1, K2), the marble in the bowl and the 14^3 marching torus's drop
+  and d / d scale against the JAX goldens, and the 64^3 torus (K5, K1).
 
 Each path runs with the kernels' launch counts set to 0 just before it and
 read just after. Every check that fails raises, so any failure exits
@@ -53,6 +65,7 @@ non-zero. Without a CUDA device it exits non-zero before printing any
 result.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -264,6 +277,51 @@ def physics_lcps(B, seed, device, dtype, k=4, fd=8):
             out[i].append(a[0])
         out[7].append(mass_matrix_inv([floor, sphere], quat))
     return [torch.stack(o).to(device=device, dtype=dtype).contiguous() for o in out]
+
+
+def structured_lcps(B, neq, k, fd, dtype, seed, device="cuda"):
+    """B seeded mixed LCPs with the physics friction layout (as in
+    tests/test_qp_fric_reduced.py: nz = 12, a block-diagonal Q, k contacts
+    of fd friction directions, neq random equality rows); the emulator's
+    structured cases (tests/cuda_emu/emu_check.py)."""
+    import torch
+    from diffsdfsim_torch.ops.qp import blockdiag_inv3
+
+    rng = np.random.default_rng(seed)
+    nz = 12
+    blocks = rng.normal(size=(B, 4, 3, 3))
+    Q = np.zeros((B, nz, nz))
+    for i in range(4):
+        Q[:, 3 * i : 3 * i + 3, 3 * i : 3 * i + 3] = blocks[:, i] @ blocks[:, i].transpose(0, 2, 1) + 3 * np.eye(3)
+    Jc = rng.normal(size=(B, k, nz))
+    Jb = rng.normal(size=(B, k, fd // 2, nz))
+    G = np.concatenate([Jc, np.concatenate([Jb, -Jb], axis=2).reshape(B, k * fd, nz), np.zeros((B, k, nz))], axis=1)
+    nineq = k * (2 + fd)
+    E = np.repeat(np.eye(k), fd, axis=0)
+    F = np.zeros((B, nineq, nineq))
+    F[:, k : k + k * fd, -k:] = E
+    F[:, -k:, :k] = np.eye(k) * rng.uniform(0.1, 0.9, size=(B, 1, k))
+    F[:, -k:, k : k + k * fd] = -E.T
+    h = np.concatenate([rng.uniform(size=(B, k)) + 0.5, np.zeros((B, k * fd + k))], axis=1)
+    out = [Q, rng.normal(size=(B, nz)), G, h, rng.normal(size=(B, neq, nz)), np.zeros((B, neq)), F]
+    out = [torch.tensor(x, dtype=dtype, device=device) for x in out]
+    return out + [blockdiag_inv3(out[0])]
+
+
+def tight_k2_case(dtype, device="cuda"):
+    """The emulator's "tight neq=6 k=4 fd=4" K2 case (B = 2): the structured
+    LCPs, d drawn log-uniform in [0.01, 100] with every contact's cone row
+    at 3e8 (float64) or at the backward's float32 cap 1e5 (a whole contact's
+    cone tight), and a seeded rx. Returns (invQ, G, A, F, d, rx), structure."""
+    import torch
+
+    B, k, neq, fd = 2, 4, 6, 4
+    Q, p, G, h, A, b, F, invQ = structured_lcps(B, neq, k, fd, dtype, seed=B + k, device=device)
+    rng = np.random.default_rng(B)
+    d = torch.tensor(np.exp(rng.uniform(np.log(0.01), np.log(100.0), size=tuple(h.shape))))
+    d[:, -k:] = 3e8 if dtype == torch.float64 else 1e5
+    rx = torch.tensor(rng.normal(size=tuple(p.shape)), dtype=dtype, device=device)
+    return (invQ, G, A, F, d.to(device=device, dtype=dtype), rx), ("fric", k, fd), Q
 
 
 def room_lcps(B, seed, device, dtype):
@@ -864,7 +922,38 @@ def phase_k2():
                   f"{tag}: kernel differs from the plain version by {err} (relative)")
             rows[(dtype, case, B)] = dict(err=abs_err, rel_err=err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                           bytes_ms=bytes_ms, ops_ms=ops_ms, library_ms=library_ms)
+    for dtype in (torch.float64, torch.float32):
+        k2_tight(dtype)
     return rows
+
+
+def k2_tight(dtype):
+    """K2 on the tight case (tight_k2_case) against the KKT system's exact
+    solution (kkt_exact of the float64-widened inputs): float64 within 1e-9
+    relative; float32 within 1e-4 and no farther from it than the plain
+    float32 path (K2 computes in float64 for float32 inputs; a float32
+    reduced factor was 4.2x its answer off here after two refinement
+    steps, the plain float32 path 0.7x)."""
+    import torch
+    from diffsdfsim_torch.ops.qp import kkt_grad_plain, kkt_grad_reduced
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    ins, structure, Q = tight_k2_case(dtype)
+    nz, nineq = Q.shape[-1], ins[1].shape[-2]
+    ins64 = [t.double() for t in ins]
+    kkt, rhs = kkt_system(Q.double(), *ins64[1:])
+    ex = kkt_exact(kkt, rhs)
+    ex = (ex[:, :nz], ex[:, nz : nz + nineq], ex[:, nz + nineq :])
+    rel = lambda outs: max(float((a.double() - r).abs().max()) / float(r.abs().max())  # noqa: E731
+                           for a, r in zip(outs, ex) if r.numel())
+    e_k, e_red = rel(kkt_grad_fric(*ins, structure)), rel(kkt_grad_reduced(*ins, structure))
+    e_plain, e_plain64 = rel(kkt_grad_plain(*ins, structure)), rel(kkt_grad_plain(*ins64, structure))
+    f64 = dtype == torch.float64
+    tol = 1e-9 if f64 else 1e-4
+    tag = f"K2 {str(dtype).split('.')[1]} tight cones (d = {'3e8' if f64 else '1e5'}) neq=6 k=4 fd=4 B=2"
+    print(f"{tag}: rel err vs the exact solution: kernel {e_k:.3e} (tol {tol:g}), kkt_grad_reduced {e_red:.3e}, "
+          f"the plain path in {str(dtype).split('.')[1]} {e_plain:.3e}, in float64 {e_plain64:.3e}")
+    check(e_k <= tol and (f64 or e_k <= e_plain), f"{tag}: kernel {e_k} from the exact solution (plain {e_plain})")
 
 
 # K2 at the room's size, float64: the kernel within RTOL_K2_ROOM of the
@@ -1017,7 +1106,31 @@ def phase_k4():
               f"{fmt_k4_info(igr_mlp.info(wide, dtype, 0, 2304))}")
         for n in (576, 2304):
             rows[(dtype, "512", n)] = k4_case(wide, n, K4_RTOL[str(dtype).split(".")[1]], tiles=(0, 8))
+    k4_guard()
     return rows
+
+
+def k4_guard():
+    """K4 differentiates with respect to x only: a call whose weights require
+    grad in grad mode raises on the card (and launches nothing); under
+    no_grad it runs."""
+    import torch
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    p = igr_net(torch.float64).params()
+    p = p._replace(weights=tuple(w.detach().clone().requires_grad_(True) for w in p.weights))
+    x = torch.rand((64, 5), dtype=torch.float64, device="cuda")
+    n0 = igr_mlp.launches
+    try:
+        igr_mlp(p, x)
+        raised = False
+    except ValueError:
+        raised = True
+    check(raised and igr_mlp.launches == n0, "K4 ran with weights that require grad in grad mode")
+    with torch.no_grad():
+        igr_mlp(p, x)
+    check(igr_mlp.launches == n0 + 1, "K4 under no_grad did not launch")
+    print("K4 guard: weights that require grad raise in grad mode (no launch); under no_grad one launch")
 
 
 # ---------------------------------------------------------------- phase 3d
@@ -2993,6 +3106,359 @@ def fitting_losses(oss, z, quats, net, c, cfg, tgt):
     return lane_losses(traj, tgt, body=1) + c["latent_reg"] * (z**2).sum(-1)
 
 
+# ---------------------------------------------------------------- phases 12-13
+
+
+INERTIA_GOLDEN = os.path.join(ROOT, "tests", "golden", "inertia_{}_f64.npz")
+MESH_GOLDEN = os.path.join(ROOT, "tests", "golden", "meshes_{}_f64.npz")
+# optim_primitives' cases on the card: box, sphere and cylinder with the
+# Mirtich inertia of the projection mesh and with custom_inertia, the box
+# also with its analytic mesh (custom_mesh)
+PRIM_CASES = ("box", "box_ci", "box_cm", "sphere", "sphere_ci", "cylinder", "cylinder_ci")
+PRIM_B, SSI_B = 50, 8
+# against the JAX golden: primitives' loss and gradient at the start, both
+# steps' losses and the first step's parameters, relative (the second
+# step's parameters are printed: at the cylinder's first step the cube
+# template's 8 rim vertices project 1 ulp from JAX's, onto an exact tie of
+# the failsafe normal in JAX and off it here, which moves d inertia / d
+# params by 2.3e-3 and the second step by 2.4e-6; ROADMAP queue 3);
+# the latent body's (the decoder's 8 layers between the latent and the
+# inertia); a sweep lane against the single path on the card
+RTOL_PRIM, RTOL_SSI, RTOL_INERTIA_LANE = 1e-8, 1e-6, 1e-9
+# the golden generator's scenes (tests/golden/gen_torch_meshes_golden.py)
+TORUS_CFG = dict(fric_dirs=4, max_contacts_per_pair=4, max_contacts_total=4, mesh_subdiv=2, max_substeps=2,
+                 max_bisect=4, tol=1e-6, time_of_contact_diff=False)
+BOWL_CFG = dict(fric_dirs=4, max_contacts_per_pair=4, max_contacts_total=8, mesh_subdiv=2, max_substeps=4,
+                max_bisect=6, time_of_contact_diff=False)
+IGR_STEPS = 3  # igr_train's steps on the card and on the CPU
+ATOL_MESH_POSE = 1e-7
+
+
+def no_contact_kernels(tag, counts):
+    check(counts["pdipm_fwd"] == counts["fw_search"] == counts["kkt_bwd"] == 0,
+          f"{tag}: a world with no contact pair launched K1, K3 or K2: {counts}")
+
+
+@contextlib.contextmanager
+def counted_decodes():
+    """A context whose value ([n]) counts decoder queries (``igr.decode``
+    calls; under vmap one call is the query of every lane)."""
+    from diffsdfsim_torch.models import igr
+
+    n, decode = [0], igr.decode
+
+    def counted(*a, **k):
+        n[0] += 1
+        return decode(*a, **k)
+
+    igr.decode = counted
+    try:
+        yield n
+    finally:
+        igr.decode = decode
+
+
+def lanes_vs_single(tag, sweep, singles, keys, rtol):
+    """Each (lane, single-path result) of a sweep: rel errors of ``keys``."""
+    failed = []
+    for i, ref in singles:
+        errs = {k: rel_err(sweep[k][:, i].cpu().numpy() if k.endswith("_hist") else sweep[k][i].cpu().numpy(),
+                           ref[k].cpu().numpy()) for k in keys}
+        print(f"{tag} lane {i} vs the single path: " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f" (tol {rtol:g})")
+        failed += [f"lane {i} {k}" for k, v in errs.items() if not v <= rtol]
+    return failed
+
+
+def phase_inertia():
+    """The inertia-fitting experiments on CUDA, worlds of one pinned body
+    and no contact pair (every step the joint solve; no K1, K3 or K2):
+    optim_primitives at its defaults (27 frames) for PRIM_CASES, two Adam
+    steps single and as a PRIM_B-seed batched-native sweep, lane 0 carrying
+    the JAX golden's draws (tests/golden/inertia_prim_<case>_f64.npz: loss
+    and gradient at the start, both steps' losses, the first step's
+    parameters, RTOL_PRIM) and lanes 0 and
+    PRIM_B - 1 held against the single path (RTOL_INERTIA_LANE); then
+    optim_shapespace_inertia at its defaults (the reference's decoder,
+    latent 2, (128,)*8, skip at 4; mesh_subdiv 2; 60 frames), two Adam steps
+    single and at SSI_B seeds, against inertia_ssi_full_f64.npz (RTOL_SSI)
+    and the single path, with K4 launches counted against decoder queries:
+    one per query, the whole sweep batch's included."""
+    import torch
+    from diffsdfsim_torch.experiments import optim_primitives as op
+    from diffsdfsim_torch.experiments import optim_shapespace_inertia as ssi
+    from diffsdfsim_torch.models.igr import ImplicitNet
+
+    failed = []
+    prim_keys = ("loss_hist", "grad_hist", "param_hist")
+    for case in PRIM_CASES:
+        g = dict(np.load(INERTIA_GOLDEN.format("prim_" + case)))
+        shape, _, variant = case.partition("_")
+        c = dict(op.DEFAULTS, shape=shape, custom_inertia=variant == "ci", custom_mesh=variant == "cm", n_par=PRIM_B)
+        cfg = op.build_cfg(c)
+        targets, starts, axes = (x.clone() for x in op.draws(c, "cuda"))
+        for x, k in ((targets, "target"), (starts, "start"), (axes, "axis")):
+            x[0] = torch.tensor(g[k], device="cuda")
+        reset_counts()
+        single, w1, r1 = synced(lambda: op.fit(targets[0], starts[0], axes[0], c, cfg, "cuda", max_iter=2))
+        n1 = read_counts()
+        reset_counts()
+        sweep, wb, rb = synced(lambda: op.fit_batched(targets, starts, axes, c, cfg, "cuda", max_iter=2))
+        nb = read_counts()
+        no_contact_kernels(f"primitives {case}", n1)
+        no_contact_kernels(f"primitives {case} sweep", nb)
+        last = op.fit(targets[-1], starts[-1], axes[-1], c, cfg, "cuda", max_iter=2)
+        errs = dict(loss0=rel_err(single["loss_hist"][0].cpu(), g["loss0"]),
+                    grad0=rel_err(single["grad_hist"][0].cpu(), g["grad0"]),
+                    loss_hist=rel_err(single["loss_hist"].cpu(), g["loss_hist"]),
+                    step1=rel_err(single["param_hist"][0].cpu(), g["param_hist"][0]))
+        step2 = rel_err(single["param_hist"][1].cpu(), g["param_hist"][1])
+        print(f"primitives {case}: single 2 steps {w1:.3f} s ({r1} device reads), sweep B={PRIM_B} 2 steps "
+              f"{wb:.3f} s ({rb} device reads) = {PRIM_B * 2 / wb:.1f} lane-steps/s; launches {nb}; vs JAX golden "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {RTOL_PRIM:g}); the second step's "
+              f"parameters {step2:.2e}, not held: a rim vertex's failsafe normal there can turn on a rounding tie "
+              f"(ROADMAP queue 3)")
+        failed += [f"{case} {k}" for k, v in errs.items() if not v <= RTOL_PRIM]
+        failed += lanes_vs_single(f"primitives {case}", sweep, ((0, single), (PRIM_B - 1, last)), prim_keys,
+                                  RTOL_INERTIA_LANE)
+
+    g0, c0 = dict(np.load(INERTIA_GOLDEN.format("prim_box"))), dict(op.DEFAULTS, shape="box")
+    g = dict(np.load(INERTIA_GOLDEN.format("ssi_full")))
+    n = sum(1 for k in g if k[0] == "w" and k[1:].isdigit())
+    net = ImplicitNet.from_arrays([g[f"w{i}"] for i in range(n)], [g[f"b{i}"] for i in range(n)],
+                                  skip_in=tuple(int(i) for i in g["skip_in"]), device="cuda")
+    c = dict(ssi.DEFAULTS, n_par=SSI_B)
+    cfg = ssi.build_cfg(c)
+    codes = torch.tensor(g["codes"], device="cuda")
+    targets, starts, axes = (x.clone() for x in ssi.draws(codes, c))
+    for x, k in ((targets, "target"), (starts, "start"), (axes, "axis")):
+        x[0] = torch.tensor(g[k], device="cuda")
+    with counted_decodes() as q1:
+        reset_counts()
+        single, w1, r1 = synced(lambda: ssi.fit(net, targets[0], starts[0], axes[0], c, cfg, "cuda", max_iter=2))
+        n1 = read_counts()
+    with counted_decodes() as qb:
+        reset_counts()
+        sweep, wb, rb = synced(lambda: ssi.fit_batched(net, targets, starts, axes, c, cfg, "cuda", max_iter=2))
+        nb = read_counts()
+    no_contact_kernels("shape-space inertia", n1)
+    no_contact_kernels("shape-space inertia sweep", nb)
+    check(n1["igr_mlp"] == q1[0] > 0 and nb["igr_mlp"] == qb[0] == q1[0],
+          f"shape-space inertia: K4 launches {n1['igr_mlp']} single / {nb['igr_mlp']} sweep for {q1[0]} / {qb[0]} "
+          f"decoder queries (one launch per query of the whole batch)")
+    errs = dict(loss0=rel_err(single["loss_hist"][0].cpu(), g["loss0"]),
+                grad0=rel_err(single["grad_hist"][0].cpu(), g["grad0"]))
+    errs.update({k: rel_err(single[k].cpu(), g[k]) for k in ("loss_hist", "dist_hist", "latent_err_hist",
+                                                             "final_latent", "final_chamfer")})
+    print(f"shape-space inertia, {int(round(c['run_time'] * 30))} frames: single 2 steps {w1:.3f} s ({r1} device "
+          f"reads; {q1[0]} decoder queries = K4 launches), sweep B={SSI_B} 2 steps {wb:.3f} s ({rb} device reads; "
+          f"{qb[0]} K4 launches); d loss / d latent {single['grad_hist'][0].tolist()} vs JAX {g['grad0'].tolist()}; "
+          "vs JAX golden " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + f" (tol {RTOL_SSI:g})")
+    failed += [f"shape-space inertia {k}" for k, v in errs.items() if not v <= RTOL_SSI]
+    last = ssi.fit(net, targets[-1], starts[-1], axes[-1], c, cfg, "cuda", max_iter=2)
+    failed += lanes_vs_single("shape-space inertia", sweep, ((0, single), (SSI_B - 1, last)),
+                              ("loss_hist", "grad_hist", "dist_hist", "final_latent"), RTOL_INERTIA_LANE)
+    check(not failed, "inertia: " + "; ".join(failed))
+    for tag, fn in (("a primitives (box) step", lambda: op.fit(*(torch.tensor(g0[k], device="cuda") for k in (
+                        "target", "start", "axis")), c0, op.build_cfg(c0), "cuda", max_iter=1)),
+                    ("a shape-space inertia step", lambda: ssi.fit(net, targets[0], starts[0], axes[0], c, cfg,
+                                                                   "cuda", max_iter=1))):
+        pwall, busy, _ = busy_share(fn)
+        print(f"inertia, profiled {tag} (target spin, spin and backward): wall {pwall:.1f} ms, device busy "
+              f"{busy:.1f} ms (idle {100 - 100 * busy / pwall:.1f}%)")
+    return dict(single=n1, sweep=nb)
+
+
+def torus_grid(res, r_maj=0.55, r_min=0.25):
+    """tests/test_marching_body.py's torus SDF on a res^3 grid over [-1, 1]^3."""
+    lin = np.linspace(-1.0, 1.0, res)
+    x, y, z = np.meshgrid(lin, lin, lin, indexing="ij")
+    return np.sqrt((np.sqrt(x**2 + z**2) - r_maj) ** 2 + y**2) - r_min
+
+
+def mesh_traj_check(tag, traj, g, prefix):
+    """Discrete decisions equal to the golden's, poses within ATOL_MESH_POSE."""
+    for k in DECISIONS:
+        check(np.array_equal(getattr(traj, k).cpu().numpy(), g[f"{prefix}_{k}"]), f"{tag}: {k} differs from JAX")
+    valid = g[f"{prefix}_valid"]
+    errs = {k: float(np.abs(getattr(traj, k).detach().cpu().numpy() - g[f"{prefix}_{k}"])[valid].max())
+            for k in ("pos", "quat")}
+    check(max(errs.values()) <= ATOL_MESH_POSE, f"{tag}: poses differ from JAX: {errs}")
+    return errs
+
+
+def torus_world(grid, scale, device, **body_kw):
+    import torch
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.physics import (BoxShape, Gravity3D, GridShape, TotalConstraint3D, make_body,
+                                          make_world)
+
+    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, device=device)
+    tor = make_body(GridShape(grid, scale), mesher="marching", device=device, **body_kw)
+    return make_world([floor, tor], [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]],
+                      np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),), forces=((), (Gravity3D(10.0),)),
+                      cfg=SimConfig(**TORUS_CFG), device=device)
+
+
+def phase_meshes():
+    """The trained shape space and the remaining body builders on CUDA:
+    igr_train at full width (latent 2, (128,)*8, skip at 4, 4 shapes, 512
+    points a step) for IGR_STEPS steps on the card and on the CPU port from
+    the same draws (it trains through the plain decoder: no K4 launch); the
+    trained space through optim_shapespace's trained_space branch (its
+    cache) dropped and one Adam step (K4, K1, K2; no K3); the marble in the
+    bowl (30 frames) and the 14^3 torus drop with d loss / d scale (16
+    frames) against the JAX goldens (the same discrete decisions, poses
+    within ATOL_MESH_POSE, the derivative within 1e-6 relative); and the
+    torus on a 64^3 grid (the grid path's size) with the default max_tris:
+    its MeshSDF correction one K5 launch, its drop's K5 launches counted
+    against grid queries, K1 launched, K3 never (grid and bowl pairs take
+    the plain search)."""
+    import tempfile
+
+    import torch
+    from diffsdfsim_torch import interop
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.experiments import optim_shapespace as oss
+    from diffsdfsim_torch.models.igr_train import train_tiny_shapespace
+    from diffsdfsim_torch.ops import grid_cuda
+    from diffsdfsim_torch.physics import (BowlShape, Gravity3D, GridShape, SphereShape, TotalConstraint3D,
+                                          make_body, make_world, rollout)
+
+    # igr_train, card against CPU
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        reset_counts()
+        t0 = time.perf_counter()
+        runs[dev] = train_tiny_shapespace(torch.Generator().manual_seed(7), dims=(128,) * 8, n_steps=IGR_STEPS,
+                                          n_pts=512, device=dev)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            check(read_counts()["igr_mlp"] == 0, "igr_train launched K4: it trains through implicit_net_apply")
+        runs[dev + "_s"] = time.perf_counter() - t0
+    (net, codes, loss), (net_c, codes_c, loss_c) = runs["cuda"], runs["cpu"]
+    e_loss = rel_err(float(loss), float(loss_c))
+    e_w = max(float((a.cpu() - b).abs().max()) for a, b in zip(net.params().weights + net.params().biases + (codes,),
+                                                              net_c.params().weights + net_c.params().biases + (codes_c,)))
+    print(f"igr_train (128,)*8, 4 shapes, 512 points, {IGR_STEPS} steps: card {runs['cuda_s']:.2f} s, CPU "
+          f"{runs['cpu_s']:.2f} s; last loss {float(loss):.6e} vs CPU rel {e_loss:.2e} (tol 1e-9); weights, biases "
+          f"and codes max abs diff {e_w:.2e} (tol 1e-9)")
+    check(e_loss <= 1e-9 and e_w <= 1e-9, "igr_train: the card's training differs from the CPU port's")
+
+    # the trained space through optim_shapespace's trained_space branch
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "space.pkl")
+        interop.write_space(cache, net, codes)
+        c = dict(oss.DEFAULTS, trained_space=True, space_cache=cache)
+        dec, dcodes = oss.load_decoder(c, "cuda")
+    cfg = oss.build_cfg(c)
+    target, start, quat0 = oss.draw_problem(dcodes, torch.Generator().manual_seed(0))
+    with counted_decodes() as q:
+        reset_counts()
+        out, wall, reads = synced(lambda: oss.fit(dec, target, start, quat0, c, cfg, "cuda", max_iter=1))
+        counts = read_counts()
+    check(counts["igr_mlp"] == q[0] > 0 and counts["pdipm_fwd"] > 0 and counts["kkt_bwd"] > 0
+          and counts["fw_search"] == 0, f"trained-space fit: launches {counts} for {q[0]} decoder queries")
+    check(bool(torch.isfinite(out["loss_hist"]).all() and torch.isfinite(out["grad_hist"]).all()),
+          "trained-space fit: loss or gradient not finite")
+    print(f"trained-space drop ({int(round(c['run_time'] * 30))} frames) and one Adam step: {wall:.3f} s, "
+          f"{reads} device reads; launches {counts} ({q[0]} decoder queries); loss {float(out['loss_hist'][0]):.6e}, "
+          f"d loss / d latent {out['grad_hist'][0].tolist()}")
+
+    # the marble in the bowl
+    g = dict(np.load(MESH_GOLDEN.format("bowl")))
+    reset_counts()
+
+    def marble():
+        bowl = make_body(BowlShape(torch.tensor(1.0), torch.tensor(0.1)), custom_mesh=True, device="cuda")
+        ball = make_body(SphereShape(torch.tensor(0.2)), subdiv=1, fric_coeff=0.3, device="cuda")
+        s = float(np.sqrt(0.5))
+        spec, state = make_world([bowl, ball], [[s, -s, 0, 0, 0.0, 0.0, 0.0], [1.0, 0, 0, 0, 0.15, 1.2, 0.0]],
+                                 np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
+                                 forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**BOWL_CFG), device="cuda")
+        with torch.no_grad():
+            return rollout(spec, state, 30)[1]
+
+    traj, wall, reads = synced(marble)
+    counts = read_counts()
+    check(counts["pdipm_fwd"] > 0 and counts["fw_search"] == 0, f"marble in bowl: launches {counts}")
+    errs = mesh_traj_check("marble in bowl", traj, g, "bowl")
+    print(f"marble in bowl, 30 frames: {wall:.3f} s, {reads} device reads, {int(traj.valid.sum())} substeps; "
+          f"launches {counts}; vs JAX golden " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    # the torus: 14^3 against JAX, then 64^3
+    g = dict(np.load(MESH_GOLDEN.format("torus")))
+    queries, query = [0], grid_cuda.grid_query
+
+    def counted_query(*a, **k):
+        queries[0] += 1
+        return query(*a, **k)
+
+    grid_cuda.grid_query = counted_query
+    try:
+        grid14 = torch.tensor(torus_grid(14), device="cuda")
+        scale = torch.tensor(1.0, dtype=torch.float64, device="cuda", requires_grad=True)
+        reset_counts()
+        queries[0] = 0
+
+        def torus14():
+            spec, state = torus_world(grid14, scale, "cuda")
+            final, traj = rollout(spec, state, 16)
+            loss = torch.sum(final.pos[1] ** 2)
+            return spec, traj, loss, torch.autograd.grad(loss, scale)[0]
+
+        (spec, traj, loss, dscale), wall, reads = synced(torus14)
+        counts, nq = read_counts(), queries[0]
+        check(counts["grid_query"] == nq > 0 and counts["pdipm_fwd"] > 0 and counts["kkt_bwd"] > 0
+              and counts["fw_search"] == 0, f"torus 14^3: launches {counts} for {nq} grid queries")
+        tris = spec.bodies[1].verts.detach().reshape(-1, 3, 3).cpu()
+        check(tris.shape == g["torus_tris"].shape
+              and float((tris - torch.tensor(g["torus_tris"])).abs().max()) <= 1e-12,
+              "torus 14^3: triangles differ from JAX's valid ones")
+        errs = mesh_traj_check("torus 14^3", traj, g, "torus")
+        e_d = rel_err(float(dscale), float(g["torus_dscale"]))
+        print(f"torus 14^3 ({tris.shape[0]} triangles), 16 frames with d loss / d scale: {wall:.3f} s, {reads} device "
+              f"reads; launches {counts} ({nq} grid queries); vs JAX golden "
+              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+              + f", d loss / d scale {float(dscale):.10e} vs {float(g['torus_dscale']):.10e} rel {e_d:.2e} (tol 1e-6)")
+        check(e_d <= 1e-6, "torus 14^3: d loss / d scale differs from JAX")
+
+        grid64 = torch.tensor(torus_grid(64), device="cuda")
+        one = torch.tensor(1.0, dtype=torch.float64, device="cuda")
+        reset_counts()
+        queries[0] = 0
+        t0 = time.perf_counter()
+        tor = make_body(GridShape(grid64, one), mesher="marching", device="cuda")
+        torch.cuda.synchronize()
+        build_s, build_counts = time.perf_counter() - t0, read_counts()
+        check(build_counts["grid_query"] == queries[0] == 1, f"torus 64^3 body: {build_counts} for {queries[0]} queries")
+        reset_counts()
+        queries[0] = 0
+
+        def torus64():
+            spec, state = torus_world(grid64, one, "cuda")
+            with torch.no_grad():
+                return rollout(spec, state, 16)[1]
+
+        traj, wall, reads = synced(torus64)
+        counts, nq = read_counts(), queries[0]
+    finally:
+        grid_cuda.grid_query = query
+    check(counts["grid_query"] == nq > 0 and counts["pdipm_fwd"] > 0 and counts["fw_search"] == 0,
+          f"torus 64^3: launches {counts} for {nq} grid queries")
+    ys = torch.where(traj.valid, traj.pos[:, :, 1, 1], torch.full_like(traj.pos[:, :, 1, 1], float("inf")))
+    min_y = float(ys.min())
+    print(f"torus 64^3 body: {tor.faces.shape[0]} triangles (max_tris {8 * 64 * 64}) built in {build_s:.3f} s "
+          f"({build_counts['grid_query']} K5 launch); 16 frames {wall:.3f} s, {reads} device reads, "
+          f"{int(traj.valid.sum())} substeps; launches {counts} ({nq} grid queries); lowest centre {min_y:.4f} m")
+    check(0.2 < min_y < 0.35, f"torus 64^3: not resting on the floor (lowest centre {min_y})")
+    for tag, fn in (("the marble in the bowl", marble), ("the 64^3 torus's 16 frames", torus64)):
+        pwall, busy, _ = busy_share(fn)
+        print(f"meshes, profiled {tag}: wall {pwall:.1f} ms, device busy {busy:.1f} ms "
+              f"(idle {100 - 100 * busy / pwall:.1f}%)")
+    return counts
+
+
 def main():
     import torch
 
@@ -3027,6 +3493,8 @@ def main():
     timed(phase_sysid_sweep)
     timed(phase_shapespace_sweep)
     timed(phase_pointcloud)
+    timed(phase_inertia)
+    timed(phase_meshes)
 
     f64 = torch.float64
     k1r = k1[(f64, 4, 3)]

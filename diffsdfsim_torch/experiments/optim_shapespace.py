@@ -12,8 +12,9 @@ the codes and the start N(mean, 0.1 std) (reference :241-248).
 ``--model_path .../ModelParameters/x.pth --latent_path .../LatentCodes/x.pth``
 loads real IGR weights (``models/igr.load_torch_checkpoint``); otherwise a
 geometrically initialized net (an approximate sphere of radius 0.55) keeps
-the pipeline runnable. The in-repo trained space (``trained_space``) waits
-for the port of ``models/igr_train.py``.
+the pipeline runnable. ``trained_space`` takes the in-repo trained space
+(``models/igr_train.load_or_train``: 2500 steps, cached at
+``space_cache`` in the JAX package's format).
 
 ``n_par > 1`` runs a seed sweep, the JAX package's ``jax.vmap(run_one)``
 (B independent fits), as one batched-native rollout per Adam step
@@ -90,14 +91,19 @@ def build_cfg(c, dtype=None) -> SimConfig:
 
 def load_decoder(c, device=None, dtype=None):
     """(ImplicitNet, codes (n, latent_size)) on ``device``: the checkpoint at
-    ``model_path`` / ``latent_path``, or a geometric-init net and 16 codes
-    drawn N(0, 0.3^2)."""
+    ``model_path`` / ``latent_path``, the trained space (``trained_space``),
+    or a geometric-init net and 16 codes drawn N(0, 0.3^2)."""
     device = resolve_device(device)
     dtype = dtype or default_dtype()
     if c["model_path"]:
         return load_torch_checkpoint(c["model_path"], c["latent_path"], dtype=dtype, device=device)
     if c.get("trained_space"):
-        raise NotImplementedError("trained_space needs models/igr_train.py, which is not ported yet")
+        # the in-repo trained space (sphere, box, cylinder, torus codes) at
+        # the reference's bob_spot_setup.conf size ((128,)*8, skip at 4)
+        from ..models.igr_train import load_or_train
+
+        return load_or_train(str(c.get("space_cache", "outputs/igr_space4.pkl")), dims=(128,) * 8, n_steps=2500,
+                             device=device, dtype=dtype)
     net = init_implicit_net(3 + c["latent_size"], radius_init=0.55, generator=torch.Generator().manual_seed(1234),
                             dtype=dtype)
     codes = torch.randn((16, c["latent_size"]), generator=torch.Generator().manual_seed(4321), dtype=dtype) * 0.3

@@ -15,22 +15,31 @@ Layouts:
   ``faces`` (F,3), ``mass``, ``ang_inertia`` (3,3), ``restitution``,
   ``fric_coeff``, ``is_sdf``, and ``lanes`` for a seed sweep's lane body
   (every array but ``faces`` then carries the lane axis first; 0 or absent
-  for one body);
+  for one body). A JAX marching body's dict may hold ``face_valid`` (F,):
+  its triangle soup padded with invalid triangles, which the port's body
+  does not hold (``body_from_numpy`` keeps the valid ones, in order);
 - contacts: ``normal``, ``p1``, ``p2`` (K,3), ``pen``, ``valid``, ``i1``,
   ``i2``, ``pair_id`` (K,), ``max_pen_all`` (), ``pair_active`` (P,);
 - state: ``quat`` (B,4), ``pos`` (B,3), ``v`` (B,6), ``t``, ``last_dt``,
   ``had_toc`` and ``contacts`` (a contacts dict); a seed sweep's state has
   the lane axis first on every array (the dicts carry any shape).
+
+The trained shape space's cache file (``read_space`` / ``write_space``) is
+the JAX package's ``models/igr_train.load_or_train`` pickle: a dict of
+``weights`` and ``biases`` (lists of numpy arrays), ``skip_in`` (list),
+``d_in`` (int) and ``codes`` (numpy), so a cache written by one package
+loads in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import pickle
 
 import numpy as np
 import torch
 
-from .config import resolve_device
+from .config import default_dtype, resolve_device
 from .models.igr import ImplicitNet
 from .physics import shapes as shapes_mod
 from .physics.bodies import BodyDef
@@ -41,7 +50,8 @@ _SHAPES = {
     cls.__name__: cls
     for cls in (
         shapes_mod.SphereShape, shapes_mod.BoxShape, shapes_mod.RoundedBoxShape,
-        shapes_mod.CylinderShape, shapes_mod.BrickShape, shapes_mod.GridShape, shapes_mod.LatentShape,
+        shapes_mod.CylinderShape, shapes_mod.BrickShape, shapes_mod.BowlShape, shapes_mod.GridShape,
+        shapes_mod.LatentShape,
     )
 }
 _CONTACT_INT = ("i1", "i2", "pair_id")
@@ -61,10 +71,14 @@ def body_from_numpy(d: dict, device=None, dtype=torch.float64) -> BodyDef:
     if cls is shapes_mod.LatentShape:
         kw["decoder"] = ImplicitNet.from_arrays(d["weights"], d["biases"], tuple(int(i) for i in d["skip_in"]),
                                                 dtype=dtype, device=device)
+    verts, faces = np.asarray(d["verts"]), np.asarray(d["faces"], dtype=np.int64)
+    if d.get("face_valid") is not None:
+        used = faces[np.asarray(d["face_valid"], dtype=bool)].reshape(-1)
+        verts, faces = verts[used], np.arange(used.size, dtype=np.int64).reshape(-1, 3)
     return BodyDef(
         shape=cls(**kw),
-        verts=_t(d["verts"], device, dtype),
-        faces=np.asarray(d["faces"], dtype=np.int64),
+        verts=_t(verts, device, dtype),
+        faces=faces,
         mass=_t(d["mass"], device, dtype),
         ang_inertia=_t(d["ang_inertia"], device, dtype),
         restitution=_t(d["restitution"], device, dtype),
@@ -124,3 +138,24 @@ def state_to_numpy(state: WorldState) -> dict:
     }
     out["contacts"] = contacts_to_numpy(state.contacts)
     return out
+
+
+def write_space(path, net: ImplicitNet, codes) -> None:
+    """Write a shape space (decoder and codes) as the cache pickle."""
+    p = net.params()
+    with open(path, "wb") as f:
+        pickle.dump(dict(weights=[w.detach().cpu().numpy() for w in p.weights],
+                         biases=[b.detach().cpu().numpy() for b in p.biases], skip_in=list(p.skip_in),
+                         d_in=int(p.d_in), codes=codes.detach().cpu().numpy()), f)
+
+
+def read_space(path, device=None, dtype=None):
+    """(ImplicitNet, codes) from the cache pickle, on ``device`` (as
+    body_from_numpy) in ``dtype`` (default: the package's)."""
+    device = resolve_device(device)
+    dtype = dtype or default_dtype()
+    with open(path, "rb") as f:
+        data = pickle.load(f)
+    net = ImplicitNet.from_arrays([np.asarray(w) for w in data["weights"]], [np.asarray(b) for b in data["biases"]],
+                                  skip_in=tuple(int(i) for i in data["skip_in"]), dtype=dtype, device=device)
+    return net, _t(data["codes"], device, dtype)

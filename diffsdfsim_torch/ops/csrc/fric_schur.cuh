@@ -247,15 +247,16 @@ struct Inv {
 };
 
 // load the problem's [A; G], Q^-1 and mu (from F's cone rows) into shared
-// memory; the caller syncs before `setup`
-template <class S, typename T>
-__device__ void load(const S& D, Work<T>& w, int t, const T* __restrict__ gA, const T* __restrict__ gG,
-                     const T* __restrict__ ginvQ, const T* __restrict__ gF) {
+// memory, in the work type T (inputs of type In); the caller syncs before
+// `setup`
+template <class S, typename T, typename In>
+__device__ void load(const S& D, Work<T>& w, int t, const In* __restrict__ gA, const In* __restrict__ gG,
+                     const In* __restrict__ ginvQ, const In* __restrict__ gF) {
   const int nz = D.nz(), neq = D.neq(), nineq = D.nineq(), k = D.k(), ldz = D.ldz();
-  for (int e = t; e < neq * nz; e += NT) w.AG[(e / nz) * ldz + e % nz] = gA[e];
-  for (int e = t; e < nineq * nz; e += NT) w.AG[(neq + e / nz) * ldz + e % nz] = gG[e];
-  for (int e = t; e < nz * nz; e += NT) w.invQ[(e / nz) * ldz + e % nz] = ginvQ[e];
-  for (int c = t; c < k; c += NT) w.mu[c] = gF[(size_t)(k * (1 + D.fd()) + c) * nineq + c];
+  for (int e = t; e < neq * nz; e += NT) w.AG[(e / nz) * ldz + e % nz] = (T)gA[e];
+  for (int e = t; e < nineq * nz; e += NT) w.AG[(neq + e / nz) * ldz + e % nz] = (T)gG[e];
+  for (int e = t; e < nz * nz; e += NT) w.invQ[(e / nz) * ldz + e % nz] = (T)ginvQ[e];
+  for (int c = t; c < k; c += NT) w.mu[c] = (T)gF[(size_t)(k * (1 + D.fd()) + c) * nineq + c];
   for (int i = t; i < (nineq > nz ? nineq : nz); i += NT) w.zero[i] = 0;
 }
 

@@ -28,6 +28,13 @@
 // the residual of the unreduced system restores. m2 + 12 + 7 NREFINE
 // barriers per launch, counted at run time.
 //
+// The kernel computes in float64 whatever its inputs' type (`Real` below):
+// float32 inputs are widened as they are loaded and the outputs rounded as
+// they are stored. In float32 the reduced factor of a tight cone (d at the
+// backward's float32 cap 1e5) is too far from the unreduced system for
+// refinement to converge (370x the answer off the exact solution after the
+// first solve, 4.2x after two steps), while in float64 two steps reach it.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 
 #include <cuda_runtime.h>
@@ -59,6 +66,9 @@ __host__ __device__ size_t smem_elems(const S& D) {
   return (size_t)(p - (T*)nullptr);
 }
 
+// the type every shared array, the factor and each solve are computed in
+using Real = double;
+
 template <typename T, class S>
 __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T* __restrict__ ginvQ, const T* __restrict__ gG,
                                                      const T* __restrict__ gA, const T* __restrict__ gF,
@@ -68,26 +78,26 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
   const int prob = blockIdx.x;
   const int nz = D.nz(), neq = D.neq(), nineq = D.nineq();
 
-  T* p = reinterpret_cast<T*>(smem_raw);
-  fric::Work<T> w = fric::carve_work(p, D);
-  T* rx = carve(p, nz);
-  T* dx0 = carve(p, nz);
-  T* w0 = carve(p, D.m());
-  Ctx<T> c{(int)threadIdx.x, w.red, 0, 0};
+  Real* p = reinterpret_cast<Real*>(smem_raw);
+  fric::Work<Real> w = fric::carve_work(p, D);
+  Real* rx = carve(p, nz);
+  Real* dx0 = carve(p, nz);
+  Real* w0 = carve(p, D.m());
+  Ctx<Real> c{(int)threadIdx.x, w.red, 0, 0};
   const int t = c.t;
 
   fric::load(D, w, t, gA + (size_t)prob * neq * nz, gG + (size_t)prob * nineq * nz, ginvQ + (size_t)prob * nz * nz,
              gF + (size_t)prob * nineq * nineq);
-  for (int i = t; i < nz; i += NT) rx[i] = grx[(size_t)prob * nz + i];
+  for (int i = t; i < nz; i += NT) rx[i] = (Real)grx[(size_t)prob * nz + i];
   for (int i = t; i < nineq; i += NT) {
-    const T d = gd[(size_t)prob * nineq + i];
+    const Real d = (Real)gd[(size_t)prob * nineq + i];
     w.d[i] = d;
     w.dinv[i] = fric::recip(d);
   }
   c.sync();
   fric::setup(D, w, c);
   c.sync();
-  fric::Inv<S, T> K;
+  fric::Inv<S, Real> K;
   fric::factor(D, w, K, c);
   // w = -S^-1 hvec, then NREFINE steps of iterative refinement. Where a
   // friction cone is tight (d ~1e8) the reduced solve recovers its cone row
@@ -103,7 +113,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
   fric::schur_solve(D, w, K, c);
   const int k = D.k(), fd = D.fd(), nf = D.nf(), m = D.m(), ldz = D.ldz(), neq_real = D.neq_real();
   for (int step = 0; step < NREFINE; ++step) {
-    fric::kkt_out(D, w, c, rx, w.zero, dx0, (T*)nullptr, (T*)nullptr, (T*)nullptr);
+    fric::kkt_out(D, w, c, rx, w.zero, dx0, (Real*)nullptr, (Real*)nullptr, (Real*)nullptr);
     fric::rows<double, 4>(
         t, m,
         [&](int r, int l) {
@@ -112,7 +122,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
           return s0;
         },
         [&](int r, double acc) {
-          const T* wv = w.wvec;
+          const Real* wv = w.wvec;
           double pin = 0;
           if (r < neq) {
             if (r >= neq_real) pin = wv[r];
@@ -128,7 +138,7 @@ __global__ void __launch_bounds__(NT, S::MIN_BLOCKS) kkt_bwd_kernel(S D, const T
             }
             pin += (double)wv[r] / (double)w.d[i];
           }
-          w.hvec[r] = (T)(pin - acc);  // -rho
+          w.hvec[r] = (Real)(pin - acc);  // -rho
           w0[r] = wv[r];
         });
     c.sync();
@@ -146,7 +156,7 @@ int launch(const fric::Dims& dims, int B, const void* invQ, const void* G, const
            const void* d, const void* rx, void* dx, void* dlam, void* dnu, void* syncs, void* stream) {
   return fric::with_shape(dims, [&](auto D) {
     using S = decltype(D);
-    const size_t bytes = smem_elems<S, T>(D) * sizeof(T);
+    const size_t bytes = smem_elems<S, Real>(D) * sizeof(Real);
     cudaError_t err =
         cudaFuncSetAttribute(kkt_bwd_kernel<T, S>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
@@ -161,7 +171,7 @@ template <typename T>
 int info(const fric::Dims& dims, long long* out) {
   return fric::with_shape(dims, [&](auto D) {
     using S = decltype(D);
-    return fric::resources<S>(kkt_bwd_kernel<T, S>, smem_elems<S, T>(D) * sizeof(T), out);
+    return fric::resources<S>(kkt_bwd_kernel<T, S>, smem_elems<S, Real>(D) * sizeof(Real), out);
   });
 }
 

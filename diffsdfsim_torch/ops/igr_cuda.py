@@ -9,7 +9,9 @@ kernel (or raises), a CPU tensor takes the plain version,
 On CUDA the launch sits in an autograd Function: its forward is the kernel,
 its backward the vector-Jacobian product of the plain version with respect
 to x, recomputed from the saved input (the JAX package has no backward
-kernel either). The weights take no gradient: the decoder is frozen.
+kernel either). The weights take no gradient: the decoder is frozen, and
+a call whose weights require grad while grad mode is on raises rather than
+return a result without their gradient (the CPU path would give one).
 
 Under ``torch.func.vmap`` (a seed sweep's latent lane bodies query their
 SDFs through a vmap of the single-body code, ``physics/bodies.py``) the
@@ -115,9 +117,14 @@ class _IgrKernel:
         return self._fn
 
     def __call__(self, params: ImplicitNetParams, x):
-        """(N, d_in) -> (N,)."""
+        """(N, d_in) -> (N,). The launch differentiates with respect to x
+        only, so on CUDA it refuses weights that require grad while grad mode
+        is on (a trainer calls ``implicit_net_apply``)."""
         if not x.is_cuda:
             return implicit_net_apply(params, x)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in params.weights + params.biases):
+            raise ValueError("IGR kernel: the decoder's weights require grad, which the launch does not "
+                             "differentiate; train through models.igr.implicit_net_apply")
         return _IgrMlp.apply(x, params, self)
 
     def _pack(self, params: ImplicitNetParams):

@@ -452,7 +452,13 @@ def kkt_grad_reduced(invQ, G, A, F, d, rx, structure):
     of its outputs and loses their digits; each step solves for the residual
     of the unreduced KKT rows at (dx, dlam, dnu), rho = [A; G] dx - [0; (F +
     D^-1) dlam] (dx meets the first row by construction), with the same
-    reduced factor and adds the correction (ROADMAP queue 3, item 13)."""
+    reduced factor and adds the correction (ROADMAP queue 3, item 13).
+    Like the kernel it computes in float64 and returns the inputs' type: in
+    float32 a tight cone's reduced factor is too far off for refinement to
+    converge (ROADMAP queue 3, item 18)."""
+    if G.dtype != torch.float64:
+        outs = kkt_grad_reduced(*(t.double() for t in (invQ, G, A, F, d, rx)), structure)
+        return tuple(o.to(G.dtype) for o in outs)
     neq = A.shape[-2]
     AG = torch.cat([A, G], dim=-2)
     AGt = AG.transpose(-1, -2)

@@ -1,6 +1,6 @@
 """Analytic signed distance functions and their gradients.
 
-PyTorch counterpart of the analytic and voxel-grid SDFs of
+PyTorch counterpart of the analytic (the bowl included) and voxel-grid SDFs of
 ``diffsdfsim_tpu/ops/sdf.py`` (reference
 ``sdf_physics/physics3d/bodies.py:38-257``). Points and shape parameters
 are in the normalized local frame (metric / body scale). Each primitive has
@@ -21,6 +21,17 @@ def _safe_norm(v, dim=-1):
     return torch.sqrt(torch.clamp(n2, min=1e-24))
 
 
+def _pos(x):
+    """max(x, 0) as ``jnp.maximum(x, 0.0)``: half the gradient at x = 0,
+    where a clamp passes all of it."""
+    return torch.maximum(x, x.new_zeros(()))
+
+
+def _neg(x):
+    """min(x, 0) as ``jnp.minimum(x, 0.0)``, half the gradient at x = 0."""
+    return torch.minimum(x, x.new_zeros(()))
+
+
 def _sign_nonzero(x):
     """sign(x) with sign(0) = 1 (reference bodies.py:56-57)."""
     one = torch.ones_like(x)
@@ -31,8 +42,8 @@ def box_sdf(pts, dims):
     """Axis-aligned box of side lengths ``dims`` centered at the origin."""
     q = torch.abs(pts) - dims / 2.0
     max_dist = torch.amax(q, dim=-1)
-    m = torch.clamp(q, min=0.0)
-    return _safe_norm(m) + torch.clamp(max_dist, max=0.0)
+    m = _pos(q)
+    return _safe_norm(m) + _neg(max_dist)
 
 
 def box_sdf_grad(pts, dims):
@@ -41,7 +52,7 @@ def box_sdf_grad(pts, dims):
     signs = _sign_nonzero(pts)
     max_dist = torch.amax(q, dim=-1, keepdim=True)
     max_dirs = (q == max_dist).to(pts.dtype)
-    m = torch.clamp(q, min=0.0)
+    m = _pos(q)
     grads_ov = (normalize(m) + (max_dist <= 0).to(pts.dtype) * max_dirs) * signs
     return normalize(grads_ov)
 
@@ -68,8 +79,8 @@ def cylinder_sdf(pts, rad, height):
     """Capped cylinder along z (reference :87-100)."""
     q = _cyl_q(pts, rad, height)
     max_dist = torch.amax(q, dim=-1)
-    m = torch.clamp(q, min=0.0)
-    return _safe_norm(m) + torch.clamp(max_dist, max=0.0)
+    m = _pos(q)
+    return _safe_norm(m) + _neg(max_dist)
 
 
 def cylinder_sdf_grad(pts, rad, height):
@@ -78,12 +89,44 @@ def cylinder_sdf_grad(pts, rad, height):
     signs = _sign_nonzero(pts[..., 2])
     max_dist = torch.amax(q, dim=-1, keepdim=True)
     max_dirs = (q == max_dist).to(pts.dtype)
-    m = torch.clamp(q, min=0.0)
+    m = _pos(q)
     g2 = normalize(m) + (max_dist <= 0).to(pts.dtype) * max_dirs
     grads = torch.cat(
         [g2[..., 0:1] * normalize(pts[..., :2]), (g2[..., 1] * signs)[..., None]], dim=-1
     )
     return normalize(grads)
+
+
+def _bowl_p0(pts, r, d):
+    """(z, ps_norm, p0) of the bowl: the point's z shifted by -r/2, its
+    distance from the shell's center, and the shell-thickness distance
+    |dist - r| - d (from the center below it, from the z axis above)."""
+    z = pts[..., 2] - r / 2.0
+    r_xy = _safe_norm(pts[..., :2])
+    ps_norm = _safe_norm(torch.stack([r_xy, z], dim=-1))
+    p0 = torch.abs(torch.where(z < 0, ps_norm, r_xy) - r) - d
+    return z, ps_norm, p0
+
+
+def bowl_sdf(pts, r, d):
+    """Hemispherical shell (open top), thickness 2d, radius r, opening along
+    +z with its center shifted by r/2 along z (reference :128-142)."""
+    z, _, p0 = _bowl_p0(pts, r, d)
+    q = torch.stack([p0, z], dim=-1)
+    return _safe_norm(_pos(q)) + _neg(torch.amax(q, dim=-1))
+
+
+def bowl_sdf_grad(pts, r, d):
+    """Bowl gradient (reference :145-163): the shifted point signed by
+    which side of the shell it is on, with no radial part inside the rim
+    and an upward z above the center."""
+    z, ps_norm, p0 = _bowl_p0(pts, r, d)
+    pts_s = torch.cat([pts[..., :2], z[..., None]], dim=-1)
+    grads = pts_s * _sign_nonzero(ps_norm - r)[..., None]
+    inside_rim = (z >= 0) & (p0 < 0)
+    gxy = torch.where(inside_rim[..., None], torch.zeros_like(grads[..., :2]), grads[..., :2])
+    gz = torch.where(z >= 0, torch.abs(grads[..., 2]), grads[..., 2])
+    return normalize(torch.cat([gxy, gz[..., None]], dim=-1))
 
 
 def rounded_box_sdf(pts, r, inner_dims):
@@ -97,12 +140,12 @@ def brick_sdf(pts, dims, r):
     half = torch.cat([half[..., :2] - r, half[..., 2:]], dim=-1)
     q = torch.abs(pts) - half
     max01 = torch.amax(q[..., :2], dim=-1)
-    m01 = torch.clamp(q[..., :2], min=0.0)
-    sdf01 = _safe_norm(m01) + torch.clamp(max01, max=0.0) - r
+    m01 = _pos(q[..., :2])
+    sdf01 = _safe_norm(m01) + _neg(max01) - r
     q2 = torch.stack([sdf01, q[..., 2]], dim=-1)
     maxd = torch.amax(q2, dim=-1)
-    m = torch.clamp(q2, min=0.0)
-    return _safe_norm(m) + torch.clamp(maxd, max=0.0)
+    m = _pos(q2)
+    return _safe_norm(m) + _neg(maxd)
 
 
 # --------------------------------------------------------------------------

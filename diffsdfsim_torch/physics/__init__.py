@@ -1,4 +1,5 @@
 from .shapes import (
+    BowlShape,
     BoxShape,
     BrickShape,
     CylinderShape,

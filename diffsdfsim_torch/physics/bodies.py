@@ -1,10 +1,14 @@
 """Body definitions: shape + surface mesh + mass properties.
 
 PyTorch counterpart of ``diffsdfsim_tpu/physics/bodies.py``. ``make_body``
-builds the surface mesh by template projection (``ops/surface.py``) or takes
-explicit verts/faces for a plain mesh body, and computes Mirtich inertia (or
-the analytic inertia with ``custom_inertia``). The ``custom_mesh`` analytic
-meshes and the marching mesher wait for later slices.
+builds the surface mesh by template projection (``ops/surface.py``), as an
+analytic mesh (``custom_mesh``, and always for a bowl;
+``physics/analytic_meshes.py``), by marching tetrahedra (``mesher=
+"marching"``; ``ops/marching.py``), or takes explicit verts/faces for a
+plain mesh body, and computes Mirtich inertia (or the analytic inertia with
+``custom_inertia``). A marching body holds only the triangles extracted: the
+JAX package's padding triangles (parked at the origin and masked by
+``face_valid``) are not made, so none can reach a contact candidate.
 
 A body of a seed sweep (``physics/batched.py``) has a leading lane axis on
 every tensor (``lanes`` > 0): ``verts`` (L, V, 3), ``mass`` (L,),
@@ -29,7 +33,8 @@ from ..config import Defaults3D, default_dtype, resolve_device
 from ..ops.inertia import ang_inertia_from_mesh
 from ..ops.surface import surface_mesh
 from ..utils import meshes
-from .shapes import KIND_NONE, LatentShape, ShapeBase, SphereShape, query_sdfs
+from .shapes import (KIND_NONE, BowlShape, BoxShape, CylinderShape, GridShape, LatentShape, ShapeBase, SphereShape,
+                     query_sdfs)
 
 
 @dataclasses.dataclass
@@ -99,6 +104,10 @@ class BodyDef:
             return self.verts[lane, self.faces_t[face_idx]]
         return self.verts[self.faces_t[face_idx]]
 
+    def lane(self, i: int) -> "BodyDef":
+        """Lane i of a lane body, as one body (differentiable into it)."""
+        return self.with_tensors({k: v[i] for k, v in self.tensors().items()}, 0)
+
     def repeat_lanes(self, d: int) -> "BodyDef":
         """The lane body with each lane repeated d times (lane-major), one
         lane per pose of a probe stage of d rungs."""
@@ -143,11 +152,15 @@ def make_body(
     restitution=Defaults3D.RESTITUTION,
     fric_coeff=Defaults3D.FRIC_COEFF,
     custom_inertia: bool = Defaults3D.CUSTOM_INERTIA,
+    custom_mesh: bool = Defaults3D.CUSTOM_MESH,
     template: str = "auto",
     subdiv: int = 3,
     project_iters: int = 12,
     verts=None,
     faces: Optional[np.ndarray] = None,
+    mesher: str = "template",
+    grid_res: int = 16,
+    max_tris: Optional[int] = None,
     device=None,
     dtype: Optional[torch.dtype] = None,
 ) -> BodyDef:
@@ -155,14 +168,30 @@ def make_body(
 
     ``template`` picks the projection template: 'ico' (icosphere) or 'cube'
     (cube-sphere); 'auto' takes 'ico' for spheres and 'cube' otherwise.
-    Explicit ``verts``/``faces`` make a plain mesh body (not an SDF body).
-    ``device=None`` means CUDA (see ``config.resolve_device``)."""
+    ``custom_mesh`` takes the analytic mesh of a box, sphere or cylinder (a
+    bowl always has its own). ``mesher="marching"`` extracts the surface by
+    marching tetrahedra from the shape's SDF on a ``grid_res``^3 lattice
+    over [-1, 1]^3 (a grid shape's own grid), at most ``max_tris`` triangles
+    (default 8 res^2), then moves each vertex by the MeshSDF correction
+    v - sdf(v) n (v and n detached), so that the vertices take the shape
+    parameters' gradient. Explicit ``verts``/``faces`` make a plain mesh
+    body (not an SDF body). ``device=None`` means CUDA (see
+    ``config.resolve_device``)."""
     device = resolve_device(device)
     dtype = dtype or default_dtype()
     shape = shape.to(device, dtype)
     mass = torch.as_tensor(mass, dtype=dtype, device=device)
 
-    if verts is None:
+    analytic = None
+    if verts is None and (custom_mesh or isinstance(shape, BowlShape)):
+        analytic = _analytic_mesh(shape, subdiv)
+    if analytic is not None:
+        verts, faces = analytic
+        is_sdf = True
+    elif verts is None and mesher == "marching":
+        verts, faces = _marching_mesh(shape, grid_res, max_tris)
+        is_sdf = True
+    elif verts is None:
         if template == "auto":
             template = "ico" if isinstance(shape, SphereShape) else "cube"
         if template == "ico":
@@ -199,6 +228,58 @@ def make_body(
         fric_coeff=torch.as_tensor(fric_coeff, dtype=dtype, device=device),
         is_sdf=is_sdf,
     )
+
+
+def make_body_lanes(shape_fn, params, **kw) -> BodyDef:
+    """The lane body of ``make_body(shape_fn(p), **kw)`` for each p of
+    ``params`` (lane axis first), built by ``torch.func.vmap`` of the
+    single-body construction: each SDF query of the mesh projection is one
+    call for all lanes (one K4 launch for a latent shape on the card)."""
+    single = {}
+
+    def one(p):
+        bd = make_body(shape_fn(p), **kw)
+        single["body"] = bd  # its static fields: faces, SDF flag, decoder
+        return bd.tensors()
+
+    tensors = torch.func.vmap(one)(params)
+    return single["body"].with_tensors(tensors, params.shape[0])
+
+
+def _analytic_mesh(shape: ShapeBase, subdiv: int):
+    """(verts, faces) of a shape's analytic mesh, or None for a shape that
+    has none (the JAX package's choice of resolution per kind)."""
+    from . import analytic_meshes as am
+
+    if isinstance(shape, BoxShape):
+        return am.box_mesh(shape.dims, n=2**subdiv)
+    if isinstance(shape, SphereShape):
+        return am.sphere_mesh(shape.rad, subdivisions=subdiv + 1)
+    if isinstance(shape, CylinderShape):
+        return am.cylinder_mesh(shape.rad, shape.height)
+    if isinstance(shape, BowlShape):
+        return am.bowl_mesh(shape.r, shape.d)
+    return None
+
+
+def _marching_mesh(shape: ShapeBase, grid_res: int, max_tris: Optional[int]):
+    """(verts, faces) by marching tetrahedra and the MeshSDF correction. A
+    grid shape's correction is one grid query (one K5 launch on the card)."""
+    from ..ops.marching import grid_to_mesh
+
+    with torch.no_grad():
+        if isinstance(shape, GridShape):
+            grid = shape.grid
+        else:
+            lin = torch.linspace(-1.0, 1.0, grid_res, dtype=shape.scale().dtype, device=shape.scale().device)
+            pts = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), dim=-1).reshape(-1, 3)
+            grid = shape.sdf(pts).reshape(grid_res, grid_res, grid_res)
+        res = grid.shape[0]
+        # a closed surface in an N^3 grid cuts O(N^2) cells; 6 tetrahedra x
+        # up to 2 triangles a cut cell, with slack for oblique surfaces
+        soup, faces = grid_to_mesh(grid, scale=shape.scale(), max_tris=8 * res * res if max_tris is None else max_tris)
+    d, n = query_sdfs(shape, soup)
+    return soup - d[:, None] * n.detach(), faces
 
 
 def lane_map(fn, bodies: Sequence[BodyDef], *args):

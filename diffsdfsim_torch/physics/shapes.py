@@ -7,7 +7,7 @@ cylinder and brick, the kinds the Frank-Wolfe kernel K3 knows; the voxel-grid
 shape, whose every query is one launch of kernel K5 (``ops/grid_cuda.py``)
 on CUDA tensors;
 and the shape-space shape, an IGR decoder whose values are kernel K4
-(``ops/igr_cuda.py``) on CUDA tensors. The bowl waits for a later slice.
+(``ops/igr_cuda.py``) on CUDA tensors; and the bowl, which K3 does not know.
 
 Each shape is a dataclass of tensors. ``query_sdfs`` reproduces
 ``SDF3D.query_sdfs`` (bodies.py:721-760): metric local points in, metric sdf
@@ -195,6 +195,28 @@ class CylinderShape(ShapeBase):
     def kernel_params(self):
         s = self.scale()
         return [self.rad / s, self.height / s]
+
+
+@dataclasses.dataclass
+class BowlShape(ShapeBase):
+    """Hemispherical shell of mid-radius ``r`` and half-thickness ``d``,
+    opening along +z. K3 has no bowl kind: its pairs take the plain
+    Frank-Wolfe search, as in the JAX package. Its mesh is the analytic
+    ``bowl_mesh`` (``make_body``), which the projection cannot give."""
+
+    r: torch.Tensor
+    d: torch.Tensor
+
+    def scale(self):
+        return (self.r + self.d) * 1.3333
+
+    def sdf(self, pts):
+        s = self.scale()
+        return sdf_ops.bowl_sdf(pts, self.r / s, self.d / s)
+
+    def sdf_grad(self, pts):
+        s = self.scale()
+        return sdf_ops.bowl_sdf_grad(pts, self.r / s, self.d / s)
 
 
 @dataclasses.dataclass

@@ -1,0 +1,25 @@
+#!/usr/bin/env python
+"""Write the JAX side of ``tests/test_torch_render.py`` as a golden file.
+
+That test holds the port's observation layer against the JAX package on
+seeded inputs; each jitted JAX renderer compiles for seconds. This script
+runs the test file once with its JAX calls live
+(``tests/torch_jax_bridge.JaxGolden``), which writes each JAX result, keyed
+by test and call, to ``tests/golden/render_jax.pkl``; the tier-1 run reads
+them from there.
+
+Run from the repository root (~30 s):
+
+    python tests/golden/gen_torch_render_golden.py
+"""
+
+import os
+import sys
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+                                "tests"))
+
+from torch_jax_bridge import record_golden  # noqa: E402
+
+if __name__ == "__main__":
+    sys.exit(record_golden("test_torch_render.py"))

@@ -585,3 +585,55 @@ def test_grid_query_kernel_vjp(cuda, output):
         grads.append(torch.autograd.grad(loss, [p, s] if output == "scale" else [p]))
     for a, b in zip(*grads):
         assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1.0)
+
+
+def test_igr_kernel_refuses_weights_that_require_grad(cuda):
+    """K4 differentiates with respect to x only: in grad mode a decoder
+    whose weights require grad raises (no launch, rather than a result with
+    no weight gradient); under no_grad it launches; the plain decoder
+    (``implicit_net_apply``, what a trainer calls) gives the weights their
+    gradient on the card."""
+    import numpy as np
+
+    from diffsdfsim_torch.models.igr import implicit_net_apply, init_implicit_net
+    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
+
+    net = init_implicit_net(5, (32,) * 4, (2,), radius_init=0.55, generator=np.random.default_rng(0)).to(cuda)
+    p = net.params()
+    p = p._replace(weights=tuple(w.detach().clone().requires_grad_(True) for w in p.weights))
+    x = torch.rand((9, 5), dtype=torch.float64, device=cuda) * 2 - 1
+    before = igr_mlp.launches
+    with pytest.raises(ValueError, match="require grad"):
+        igr_mlp(p, x)
+    assert igr_mlp.launches == before
+    with torch.no_grad():
+        igr_mlp(p, x)
+    assert igr_mlp.launches == before + 1
+    (g,) = torch.autograd.grad(implicit_net_apply(p, x).sum(), p.weights[0])
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_kkt_grad_kernel_tight_cones(cuda, dtype):
+    """K2 on the tight case (every contact's cone row at d = 3e8 in float64,
+    at the float32 cap 1e5 in float32) against the KKT system's exact
+    solution: float64 within 1e-9 relative; float32 (computed in float64)
+    within 1e-4 and no farther than the plain float32 path."""
+    from diffsdfsim_torch.ops.qp import kkt_grad_plain
+    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric
+
+    cs = _chip_smoke()
+    ins, structure, Q = cs.tight_k2_case(dtype, device=cuda)
+    nz, nineq = Q.shape[-1], ins[1].shape[-2]
+    kkt, rhs = cs.kkt_system(Q.double(), *(t.double() for t in ins[1:]))
+    ex = cs.kkt_exact(kkt, rhs)
+    ex = (ex[:, :nz], ex[:, nz : nz + nineq], ex[:, nz + nineq :])
+
+    def rel(outs):
+        return max(float((a.double() - r).abs().max()) / float(r.abs().max()) for a, r in zip(outs, ex))
+
+    e_k = rel(kkt_grad_fric(*ins, structure))
+    if dtype == torch.float64:
+        assert e_k <= 1e-9
+    else:
+        assert e_k <= 1e-4 and e_k <= rel(kkt_grad_plain(*ins, structure))

@@ -30,6 +30,12 @@ package, float64 on the CPU.
   for the value and the backward (a stand-in kernel counts the launches on
   the CPU); ``stack_lanes`` refuses lanes whose decoders differ.
 - The entry points run on the CPU only when asked (``device="cpu"``).
+
+The JAX side of the live comparisons (eager JAX compiles each operation
+once, seconds in all) is read from ``tests/golden/experiments_jax.pkl``,
+which ``tests/golden/gen_torch_experiments_jax_golden.py`` writes by running
+these tests with the JAX calls live (``torch_jax_bridge.JaxGolden``);
+regenerate it when a test's inputs change.
 """
 
 import json
@@ -42,13 +48,15 @@ import numpy as np
 import pytest
 import torch
 
-from torch_jax_bridge import one_torch_thread  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "sweep_{}_f64.npz")
 SYSID_SWEEP = dict(run_time=0.3, mesh_subdiv=1, n_par=2)
 SPHERE_SWEEP = dict(run_time=1.0, mesh_subdiv=1, n_par=2)
 RTOL_GOLDEN = 1e-9
 RTOL_LANE = 1e-9
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "experiments_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 
 def _golden(case):
@@ -65,7 +73,7 @@ def test_force_axes_match_jax(name):
 
     like = torch.zeros((), dtype=torch.float64)
     got = getattr(tf, name)(like)
-    assert got.dtype == torch.float64 and np.array_equal(got.numpy(), np.asarray(getattr(jf, name)()))
+    assert got.dtype == torch.float64 and np.array_equal(got.numpy(), _from_jax(lambda: getattr(jf, name)()))
 
 
 def test_impulses_match_jax():
@@ -77,8 +85,8 @@ def test_impulses_match_jax():
     ts = [0.0, 0.05, 0.1, 0.2]
     for name in ("vert_impulse", "hor_impulse", "rot_impulse"):
         lanes = getattr(tf, name)(torch.tensor(ts, dtype=torch.float64))
-        for i, t in enumerate(ts):
-            want = np.asarray(getattr(jf, name)(jnp.asarray(t)))
+        wants = _from_jax(lambda: tuple(getattr(jf, name)(jnp.asarray(t)) for t in ts))  # noqa: B023
+        for i, (t, want) in enumerate(zip(ts, wants)):
             assert np.array_equal(getattr(tf, name)(torch.tensor(t, dtype=torch.float64)).numpy(), want)
             assert np.array_equal(lanes[i].numpy(), want)
 
@@ -90,7 +98,8 @@ def test_chamfer_distance_matches_jax():
     rng = np.random.default_rng(0)
     x, y = rng.normal(size=(50, 3)), rng.normal(size=(37, 3))
     np.testing.assert_allclose(float(chamfer_distance(torch.tensor(x), torch.tensor(y))),
-                               float(jmeshes.chamfer_distance(jnp.asarray(x), jnp.asarray(y))), rtol=1e-15)
+                               float(_from_jax(lambda: jmeshes.chamfer_distance(jnp.asarray(x), jnp.asarray(y)))),
+                               rtol=1e-15)
 
 
 def test_optimizer_rules_and_freeze_match_optax():
@@ -110,18 +119,23 @@ def test_optimizer_rules_and_freeze_match_optax():
 
         x, losses, xs, _ = descend(vg, torch.tensor(x0), make_optimizer(name, 0.1), 30, clip=(-1.0, 1.2),
                                    conv_thresh=1e-3)
-        jx, js, last, done = jnp.asarray(x0), opt.init(jnp.asarray(x0)), jnp.full(3, 1e10), jnp.zeros(3, bool)
-        want_l, want_x = [], []
-        for _ in range(30):
-            val, g = jnp.asarray(a) * (jx - 0.3) ** 2, 2 * jnp.asarray(a) * (jx - 0.3)
-            done = done | (jnp.abs(last - val) < 1e-3)
-            upd, new_s = opt.update(g, js)
-            jx = jnp.where(done, jx, jnp.clip(jx + upd, -1.0, 1.2))
-            js = jax.tree_util.tree_map(lambda p, q: jnp.where(done, p, q), js, new_s)
-            last = val
-            want_l.append(np.asarray(val))
-            want_x.append(np.asarray(jx))
-        assert bool(done.any()), f"{name}: no lane converged, the freeze is not exercised"
+
+        def jax_side():
+            jx, js, last, done = jnp.asarray(x0), opt.init(jnp.asarray(x0)), jnp.full(3, 1e10), jnp.zeros(3, bool)  # noqa: B023
+            want_l, want_x = [], []
+            for _ in range(30):
+                val, g = jnp.asarray(a) * (jx - 0.3) ** 2, 2 * jnp.asarray(a) * (jx - 0.3)
+                done = done | (jnp.abs(last - val) < 1e-3)
+                upd, new_s = opt.update(g, js)  # noqa: B023
+                jx = jnp.where(done, jx, jnp.clip(jx + upd, -1.0, 1.2))
+                js = jax.tree_util.tree_map(lambda p, q: jnp.where(done, p, q), js, new_s)  # noqa: B023
+                last = val
+                want_l.append(val)
+                want_x.append(jx)
+            return bool(done.any()), want_l, want_x
+
+        any_done, want_l, want_x = _from_jax(jax_side)
+        assert bool(any_done), f"{name}: no lane converged, the freeze is not exercised"
         np.testing.assert_allclose(losses.numpy(), np.asarray(want_l), rtol=0, atol=1e-15, err_msg=name)
         np.testing.assert_allclose(xs.numpy(), np.asarray(want_x), rtol=0, atol=1e-15, err_msg=name)
 

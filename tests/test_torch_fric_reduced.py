@@ -13,7 +13,15 @@ relative to the largest entry, against
 - the plain full Schur solve: S assembled and solved by LU
   (``ops/qp._factor_S`` with no structure), and its friction-structured
   Cholesky + Woodbury branch.
+
+The JAX side's results (its compiled reduced solve takes seconds to build)
+are read from ``tests/golden/fric_reduced_jax.pkl``, which
+``tests/golden/gen_torch_fric_reduced_golden.py`` writes by running these
+tests with the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate
+it when a test's inputs change.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -23,8 +31,11 @@ import torch
 
 from diffsdfsim_torch.ops import qp as tqp
 from diffsdfsim_tpu.ops.qp_pallas import _make_fric_ops
+from torch_jax_bridge import JaxGolden
 
 RTOL = 1e-10
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "fric_reduced_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 
 def _problem(neq, k, fd, nb=2, nz=12, seed=0):
@@ -78,7 +89,7 @@ def test_fric_reduced_solve_matches_jax_and_full_schur(neq, k, fd):
     t = [torch.tensor(x) for x in (invQ, G, A, F, d, hvec)]
     w = tqp.fric_reduced_solve(*t, ("fric", k, fd)).numpy()
 
-    assert _rel(w, _jax_reduced(invQ, G, A, F, d, hvec, neq, k, fd)) <= RTOL
+    assert _rel(w, _from_jax(lambda: _jax_reduced(invQ, G, A, F, d, hvec, neq, k, fd))) <= RTOL
 
     AG = torch.cat([t[2], t[1]], dim=-2)
     for structure in (None, ("fric", k, fd)):

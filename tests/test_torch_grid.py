@@ -11,6 +11,12 @@ voxelized-sphere drop of
 Tolerances: leaf functions and the query 1e-12 absolute (the same products
 in the same order); body verts and inertia 1e-12; the 16-frame drop:
 identical discrete decisions, poses and velocities within 1e-9.
+
+The JAX side's results (its compiled references take seconds to build) are
+read from ``tests/golden/grid_jax.pkl``, which
+``tests/golden/gen_torch_grid_golden.py`` writes by running these tests with
+the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate it when a
+test's inputs change.
 """
 
 import os
@@ -26,10 +32,12 @@ from diffsdfsim_torch.ops import sdf as tsdf
 from diffsdfsim_torch.physics import shapes as tshapes
 from diffsdfsim_tpu.ops import sdf as jsdf
 from diffsdfsim_tpu.physics import shapes as jshapes
-from torch_jax_bridge import one_torch_thread, sphere_grid  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread, sphere_grid  # noqa: F401
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "grid33_f64.npz")
 ATOL = 1e-12
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "grid_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 
 @pytest.fixture(scope="module")
@@ -44,19 +52,23 @@ def data():
     stack = np.stack([grid, 2 * grid, -grid])
     cot = rng.normal(size=len(pts))
     sphere = sphere_grid(17)
-    jshape = jshapes.GridShape(grid=jnp.asarray(sphere), scale_=jnp.asarray(0.75))
 
-    @jax.jit
-    def ref(grid, stack, inds, pts, cot):
-        return dict(
-            interp=jsdf.grid_interp(grid, inds), interp_stack=jsdf.grid_interp(stack, inds),
-            grid_sdf_raw=jsdf.grid_sdf_raw(pts, grid), grid_sdf_grad=jsdf.grid_sdf_grad(pts, grid),
-            volume=jsdf.grid_grad_volume(grid), vjp=jax.vjp(jsdf.grid_sdf, pts, grid)[1](cot),
-            query=jshapes.query_sdfs(jshape, pts),
-        )
+    def jax_side():
+        jshape = jshapes.GridShape(grid=jnp.asarray(sphere), scale_=jnp.asarray(0.75))
+
+        @jax.jit
+        def ref(grid, stack, inds, pts, cot):
+            return dict(
+                interp=jsdf.grid_interp(grid, inds), interp_stack=jsdf.grid_interp(stack, inds),
+                grid_sdf_raw=jsdf.grid_sdf_raw(pts, grid), grid_sdf_grad=jsdf.grid_sdf_grad(pts, grid),
+                volume=jsdf.grid_grad_volume(grid), vjp=jax.vjp(jsdf.grid_sdf, pts, grid)[1](cot),
+                query=jshapes.query_sdfs(jshape, pts),
+            )
+
+        return ref(grid, stack, inds, pts, cot)
 
     return dict(grid=grid, pts=pts, inds=inds, stack=stack, cot=cot, sphere=sphere,
-                ref=ref(grid, stack, inds, pts, cot))
+                ref=_from_jax.keyed("fixture data", jax_side))
 
 
 def _close(t, j, atol=ATOL):
@@ -92,7 +104,7 @@ def test_grid_sdf_vjp_matches_custom_vjp(data):
     torch.sum(tsdf.grid_sdf(tp, tg) * torch.tensor(data["cot"])).backward()
     jp, jg = data["ref"]["vjp"]
     _close(tp.grad, jp)
-    assert float(tg.grad.abs().max()) == 0.0 and float(jnp.abs(jg).max()) == 0.0
+    assert float(tg.grad.abs().max()) == 0.0 and float(np.abs(jg).max()) == 0.0
 
 
 def test_grid_shape_query_sdfs_matches_jax(data):
@@ -121,21 +133,27 @@ def query_data():
         pts[i, axes] = scale * rng.choice([-1.0, 1.0], size=len(axes))
     pts[120:130] = scale * (1.0 + 1e-15 * rng.uniform(1, 8, (10, 3)))  # just outside
     cot_s, cot_g = rng.normal(size=len(pts)), rng.normal(size=(len(pts), 3))
-    jshape = jshapes.GridShape(grid=jnp.asarray(sphere), scale_=jnp.asarray(scale))
 
-    @jax.jit
-    def ref(pts):
-        query = lambda p: jshapes.query_sdfs(jshape, p)  # noqa: E731
-        (s, g), vjp = jax.vjp(query, pts)
-        pts_in = pts / scale
-        return dict(
-            value=s, grads=g, value_only=jshapes.query_sdfs(jshape, pts, return_grads=False),
-            vjp_value=vjp((jnp.asarray(cot_s), jnp.zeros_like(g)))[0],
-            vjp_grads=vjp((jnp.zeros_like(s), jnp.asarray(cot_g)))[0],
-            normalized_frame=(jsdf.grid_sdf(pts_in, jnp.asarray(sphere)), jsdf.grid_sdf_grad(pts_in, jnp.asarray(sphere))),
-        )
+    def jax_side():
+        jshape = jshapes.GridShape(grid=jnp.asarray(sphere), scale_=jnp.asarray(scale))
 
-    return dict(sphere=sphere, scale=scale, pts=pts, cot_s=cot_s, cot_g=cot_g, ref=ref(pts))
+        @jax.jit
+        def ref(pts):
+            query = lambda p: jshapes.query_sdfs(jshape, p)  # noqa: E731
+            (s, g), vjp = jax.vjp(query, pts)
+            pts_in = pts / scale
+            return dict(
+                value=s, grads=g, value_only=jshapes.query_sdfs(jshape, pts, return_grads=False),
+                vjp_value=vjp((jnp.asarray(cot_s), jnp.zeros_like(g)))[0],
+                vjp_grads=vjp((jnp.zeros_like(s), jnp.asarray(cot_g)))[0],
+                normalized_frame=(jsdf.grid_sdf(pts_in, jnp.asarray(sphere)),
+                                  jsdf.grid_sdf_grad(pts_in, jnp.asarray(sphere))),
+            )
+
+        return ref(pts)
+
+    return dict(sphere=sphere, scale=scale, pts=pts, cot_s=cot_s, cot_g=cot_g,
+                ref=_from_jax.keyed("fixture query_data", jax_side))
 
 
 QUERY_CASES = ["value", "grads", "value_only", "vjp_value", "vjp_grads", "normalized_frame"]

@@ -24,6 +24,12 @@ the JAX package, float64 on the CPU.
   phase), and ``evaluate`` reads their run directories as the JAX one does;
   ``render_result.main`` writes its frames, and its ``render_world`` the
   frames JAX's writes for the same trajectory.
+
+The JAX side of the live comparisons (each jitted JAX program compiles for
+seconds) is read from ``tests/golden/pointcloud_jax.pkl``, which
+``tests/golden/gen_torch_pointcloud_jax_golden.py`` writes by running these
+tests with the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate
+it when a test's inputs change.
 """
 
 import os
@@ -34,7 +40,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_jax_bridge import one_torch_thread  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread  # noqa: F401
+
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "pointcloud_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "pointcloud_{}_f64.npz")
 RTOL_FRAME, RTOL_TRAJ, ATOL_TGT = 1e-8, 1e-6, 1e-9
@@ -67,7 +76,7 @@ def test_erode_and_match_pointcloud_match_jax():
     masks = [rng.uniform(size=(12, 16)) < 0.7, np.zeros((9, 9), bool)]
     masks[1][2:7, 2:7] = True
     for m in masks:
-        assert np.array_equal(top.erode_mask(torch.tensor(m)).numpy(), np.asarray(jop.erode_mask(jnp.asarray(m))))
+        assert np.array_equal(top.erode_mask(torch.tensor(m)).numpy(), _from_jax(lambda: jop.erode_mask(jnp.asarray(m))))
     assert int(top.erode_mask(torch.tensor(masks[1])).sum()) == 9
     cam, pose = top.camera_setup(dict(top.DEFAULTS, width=16, height=12), device="cpu")
     pc = rng.normal(size=(12, 16, 3)) * 0.3 + np.array([0.0, 0.0, 6.0])
@@ -82,7 +91,7 @@ def test_erode_and_match_pointcloud_match_jax():
             return jop.match_pointcloud(jnp.asarray(pc), jnp.asarray(seg), jnp.asarray(pose.numpy()),
                                         jop._make_shape(c, xx[7]), xx[:3], q)
 
-        jv, jg = jax.jit(jax.value_and_grad(jloss))(jnp.asarray(x))
+        jv, jg = _from_jax(lambda: jax.jit(jax.value_and_grad(jloss))(jnp.asarray(x)))
         xt = torch.tensor(x, requires_grad=True)
         v = top.frame_loss(xt, c, torch.tensor(pc), torch.tensor(seg), pose)
         (g,) = torch.autograd.grad(v, xt)
@@ -97,16 +106,21 @@ def test_plane_and_wall_match_jax(monkeypatch):
     pts = np.concatenate([rng.uniform(-2, 2, (80, 1)), rng.normal(size=(80, 1)) * 1e-3 + 0.1,
                           rng.uniform(-2, 2, (80, 1))], axis=1)
     n, d = topr.estimate_plane(pts)
-    jn, jd = jopr.estimate_plane(pts)
+    jn, jd = _from_jax(lambda: jopr.estimate_plane(pts))
     np.testing.assert_allclose(n, jn, rtol=0, atol=1e-12)
     assert d == pytest.approx(jd, abs=1e-12) and n[1] > 0.99
     # the wall's pose; the JAX body is not built (make_body stands in)
     monkeypatch.setattr(jopr, "make_body", lambda shape, subdiv: shape)
     for normal, offset in ((n, d), ([0.0, -1.0, 0.0], 0.3), ([0.3, 0.2, -0.9], -1.0)):
         body, pose = topr.wall_from_plane(normal, offset, 1.0, device="cpu")
-        jshape, jpose = jopr.wall_from_plane(normal, offset, 1.0)
-        np.testing.assert_allclose(pose.numpy(), np.asarray(jpose), rtol=0, atol=1e-12)
-        np.testing.assert_allclose(body.shape.dims.numpy(), np.asarray(jshape.dims), rtol=0, atol=0)
+
+        def jax_wall():
+            jshape, jpose = jopr.wall_from_plane(normal, offset, 1.0)
+            return jpose, jshape.dims
+
+        jpose, jdims = _from_jax(jax_wall)
+        np.testing.assert_allclose(pose.numpy(), jpose, rtol=0, atol=1e-12)
+        np.testing.assert_allclose(body.shape.dims.numpy(), jdims, rtol=0, atol=0)
 
 
 def test_target_rollout_and_renders_match_golden(golden):
@@ -291,14 +305,17 @@ def test_render_result_matches_jax(tmp_path, monkeypatch):
     lift = torch.zeros_like(traj.pos)
     lift[..., 1, 1] = 15.0
     traj = traj._replace(pos=traj.pos + lift)
-    jspec = type("Spec", (), {"bodies": [jax_body_from_torch(b) for b in spec.bodies]})
-    jtraj = type("Traj", (), {k: jnp.asarray(getattr(traj, k).numpy()) for k in ("t", "quat", "pos")})
-    monkeypatch.setattr(jrr, "render_depth_seg", _jitted_render(jrr.render_depth_seg))
+    def jax_frames():
+        jspec = type("Spec", (), {"bodies": [jax_body_from_torch(b) for b in spec.bodies]})
+        jtraj = type("Traj", (), {k: jnp.asarray(getattr(traj, k).numpy()) for k in ("t", "quat", "pos")})
+        monkeypatch.setattr(jrr, "render_depth_seg", _jitted_render(jrr.render_depth_seg))
+        jrr.render_world(jspec, jtraj, tmp_path / "jax")
+        return tuple((np.load(tmp_path / "jax" / f"seg_{i:04d}.npy"), np.load(tmp_path / "jax" / f"depth_{i:04d}.npy"))
+                     for i in (0, 5))
+
     trr.render_world(spec, traj, tmp_path / "port")
-    jrr.render_world(jspec, jtraj, tmp_path / "jax")
-    for i in (0, 5):
-        seg_a, seg_b = (np.load(tmp_path / d / f"seg_{i:04d}.npy") for d in ("port", "jax"))
-        depth_a, depth_b = (np.load(tmp_path / d / f"depth_{i:04d}.npy") for d in ("port", "jax"))
+    for i, (seg_b, depth_b) in zip((0, 5), _from_jax(jax_frames)):
+        seg_a, depth_a = (np.load(tmp_path / "port" / f"{k}_{i:04d}.npy") for k in ("seg", "depth"))
         assert int((seg_a != seg_b).sum()) <= 2 and (seg_a == 1).sum() > 50
         both = (seg_a >= 0) & (seg_b >= 0)
         np.testing.assert_allclose(depth_a[both], depth_b[both], rtol=0, atol=1e-9)

@@ -23,9 +23,16 @@ on the CPU, live at 24 x 18 pixels.
   same states, depth and segmentation as above and the camera poses within
   1e-12; the pacing quirk (every call records, whatever the time between
   calls) in both.
+
+The JAX side's results (each jitted JAX renderer compiles for seconds) are
+read from ``tests/golden/render_jax.pkl``, which
+``tests/golden/gen_torch_render_golden.py`` writes by running these tests
+with the JAX calls live (``torch_jax_bridge.JaxGolden``); regenerate it when
+a test's inputs change.
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -33,7 +40,10 @@ import numpy as np
 import pytest
 import torch
 
-from torch_jax_bridge import jax_body_from_torch, one_torch_thread, torch_bench_world  # noqa: F401
+from torch_jax_bridge import JaxGolden, jax_body_from_torch, one_torch_thread, torch_bench_world  # noqa: F401
+
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "render_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 W, H = 24, 18
 MAX_SEG_DIFF = 2
@@ -42,8 +52,8 @@ ATOL_DEPTH = 1e-9
 
 @pytest.fixture(scope="module")
 def scene():
-    """The port's floor, sphere and rounded box (CPU), their poses, and the
-    JAX bodies holding the same values."""
+    """The port's floor, sphere and rounded box (CPU), their poses, and a
+    function making the JAX bodies that hold the same values."""
     from diffsdfsim_torch.physics import BoxShape, RoundedBoxShape, SphereShape, make_body
 
     f64 = torch.float64
@@ -53,7 +63,7 @@ def scene():
     q = torch.tensor([[1.0, 0, 0, 0], [0.9, 0.3, -0.2, 0.1], [0.8, -0.1, 0.5, 0.2]], dtype=f64)
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     p = torch.tensor([[0.0, -0.5, 0.0], [-0.6, 2.2, 0.3], [0.9, 2.6, -0.4]], dtype=f64)
-    return bodies, q, p, [jax_body_from_torch(b) for b in bodies]
+    return bodies, q, p, lambda: [jax_body_from_torch(b) for b in bodies]
 
 
 def _camera():
@@ -83,8 +93,8 @@ def test_render_depth_seg_and_pointcloud_match_jax(scene):
     pos = p.clone().requires_grad_(True)
     depth, seg = render_depth_seg(bodies, q, pos, cam, pose)
     (g,) = torch.autograd.grad(depth.sum(), pos)
-    jq, jp, jpose = jnp.asarray(q.numpy()), jnp.asarray(p.numpy()), jnp.asarray(pose.numpy())
-    jdepth, jseg = jax.jit(lambda a, b, c: jrender_depth_seg(jbodies, a, b, cam, c))(jq, jp, jpose)
+    jdepth, jseg = _from_jax(lambda: jax.jit(lambda a, b, c: jrender_depth_seg(jbodies(), a, b, cam, c))(
+        jnp.asarray(q.numpy()), jnp.asarray(p.numpy()), jnp.asarray(pose.numpy())))
     assert seg.dtype == torch.int32 and set(np.unique(seg.numpy())) == {-1, 1, 2}
     _close_where_hit(depth.detach(), seg, jdepth, jseg)
     # d (sum of depth) / d pos against central differences (JAX's gradient
@@ -103,13 +113,18 @@ def test_render_depth_seg_and_pointcloud_match_jax(scene):
     np.testing.assert_allclose(g.numpy(), fd, rtol=0, atol=1e-5 * float(np.abs(fd).max()))
 
     # the point cloud: at zero noise, and with JAX's draws handed over
-    jd = jnp.asarray(depth.detach().numpy())
-    np.testing.assert_allclose(get_pointcloud(depth.detach(), cam).numpy(), np.asarray(jget_pointcloud(jd, cam)),
+    dnp = depth.detach().numpy()
+    np.testing.assert_allclose(get_pointcloud(depth.detach(), cam).numpy(),
+                               _from_jax(lambda: jget_pointcloud(jnp.asarray(dnp), cam)), rtol=0, atol=1e-12)
+
+    def noisy_jax():
+        key = jax.random.PRNGKey(3)
+        return (jax.random.normal(key, dnp.shape, jnp.float64),
+                jget_pointcloud(jnp.asarray(dnp), cam, key=key, noise_factor=0.002))
+
+    noise, jnoisy = _from_jax(noisy_jax)
+    np.testing.assert_allclose(get_pointcloud(depth.detach(), cam, noise_factor=0.002, noise=noise).numpy(), jnoisy,
                                rtol=0, atol=1e-12)
-    key = jax.random.PRNGKey(3)
-    noise = np.asarray(jax.random.normal(key, jd.shape, jnp.float64))
-    np.testing.assert_allclose(get_pointcloud(depth.detach(), cam, noise_factor=0.002, noise=noise).numpy(),
-                               np.asarray(jget_pointcloud(jd, cam, key=key, noise_factor=0.002)), rtol=0, atol=1e-12)
     gen = torch.Generator().manual_seed(0)
     noisy = get_pointcloud(depth.detach(), cam, gen, noise_factor=0.002)
     assert noisy.shape == (H, W, 3) and not torch.equal(noisy, get_pointcloud(depth.detach(), cam))
@@ -122,8 +137,8 @@ def test_render_color_matches_jax(scene):
     bodies, q, p, jbodies = scene
     cam, pose = _camera()
     rgb, depth, seg = render_color(bodies, q, p, cam, pose)
-    jrgb, jdepth, jseg = jax.jit(lambda a, b, c: jrender_color(jbodies, a, b, cam, c))(
-        jnp.asarray(q.numpy()), jnp.asarray(p.numpy()), jnp.asarray(pose.numpy()))
+    jrgb, jdepth, jseg = _from_jax(lambda: jax.jit(lambda a, b, c: jrender_color(jbodies(), a, b, cam, c))(
+        jnp.asarray(q.numpy()), jnp.asarray(p.numpy()), jnp.asarray(pose.numpy())))
     _close_where_hit(depth, seg, jdepth, jseg)
     same = seg.numpy() == np.asarray(jseg)
     np.testing.assert_allclose(rgb.numpy()[same], np.asarray(jrgb)[same], rtol=0, atol=1e-9)
@@ -152,21 +167,25 @@ def test_scene_sdf_with_latent_body_matches_jax():
 
     net = tigr.init_implicit_net(5, (32,) * 4, (2,), radius_init=0.55, generator=np.random.default_rng(0))
     prm = net.params()
-    jprm = jigr.ImplicitNetParams(tuple(jnp.asarray(w.numpy()) for w in prm.weights),
-                                  tuple(jnp.asarray(b.numpy()) for b in prm.biases), (2,), 5)
     lat = np.array([0.2, -0.1])
     t_lat = tshapes.LatentShape(torch.tensor(lat), torch.tensor(0.8, dtype=torch.float64), net)
-    j_lat = jshapes.LatentShape(jnp.asarray(lat), jnp.asarray(0.8), jigr.make_decoder(jprm))
     t_sph = tshapes.SphereShape(torch.tensor(0.5, dtype=torch.float64))
-    j_sph = jshapes.SphereShape(jnp.asarray(0.5))
     bodies = [ShapeBody(t_lat, tshapes.query_sdfs), ShapeBody(t_sph, tshapes.query_sdfs)]
-    jbodies = [ShapeBody(j_lat, jshapes.query_sdfs), ShapeBody(j_sph, jshapes.query_sdfs)]
     q = np.array([[0.9, 0.1, 0.3, -0.2], [1.0, 0, 0, 0]])
     q /= np.linalg.norm(q, axis=-1, keepdims=True)
     p = np.array([[0.0, 0.0, 0.0], [1.1, 0.2, 0.0]])
     pts = np.random.default_rng(2).uniform(-1.5, 2.0, (200, 3))
     v, i = scene_sdf(bodies, torch.tensor(q), torch.tensor(p), torch.tensor(pts))
-    jv, ji = jax.jit(lambda a, b, c: jscene_sdf(jbodies, a, b, c))(jnp.asarray(q), jnp.asarray(p), jnp.asarray(pts))
+
+    def jax_side():
+        jprm = jigr.ImplicitNetParams(tuple(jnp.asarray(w.numpy()) for w in prm.weights),
+                                      tuple(jnp.asarray(b.numpy()) for b in prm.biases), (2,), 5)
+        j_lat = jshapes.LatentShape(jnp.asarray(lat), jnp.asarray(0.8), jigr.make_decoder(jprm))
+        j_sph = jshapes.SphereShape(jnp.asarray(0.5))
+        jbodies = [ShapeBody(j_lat, jshapes.query_sdfs), ShapeBody(j_sph, jshapes.query_sdfs)]
+        return jax.jit(lambda a, b, c: jscene_sdf(jbodies, a, b, c))(jnp.asarray(q), jnp.asarray(p), jnp.asarray(pts))
+
+    jv, ji = _from_jax(jax_side)
     np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=1e-12)
     assert np.array_equal(i.numpy(), np.asarray(ji)) and set(i.numpy().tolist()) == {0, 1}
 
@@ -188,29 +207,36 @@ def test_force_arrows_match_jax(scene):
         def force(self, t, body):
             return 3.0 * JRIGHT()
 
-    bodies, q, p, jbodies = scene
-    forces = ((), (Gravity3D(10.0), Push()), ())
-    jforces = ((), (JGravity3D(10.0), JPush()), ())
-    kw = dict(render_forces=True, render_torques=True)
-    arrows, aq, ap = force_arrows(bodies, forces, 0.0, q, p, **kw)
-    jarrows, jaq, jap = jforce_arrows(jbodies, jforces, 0.0, jnp.asarray(q.numpy()), jnp.asarray(p.numpy()), **kw)
-    assert len(arrows) == len(jarrows) == 1
-    np.testing.assert_allclose(aq.numpy(), np.asarray(jaq), rtol=0, atol=1e-12)
-    np.testing.assert_allclose(ap.numpy(), np.asarray(jap), rtol=0, atol=1e-12)
-    for f in ("length", "shaft_r", "head_r", "head_len"):
-        np.testing.assert_allclose(float(getattr(arrows[0], f)), float(getattr(jarrows[0], f)), rtol=1e-15)
-    pts = np.random.default_rng(4).uniform(-0.6, 1.6, (128, 3)) * np.array([0.5, 0.5, 1.0])
-    d, g = arrows[0].query_sdfs(torch.tensor(pts))
-    jd, jg = jax.jit(jarrows[0].query_sdfs)(jnp.asarray(pts))
-    np.testing.assert_allclose(d.numpy(), np.asarray(jd), rtol=0, atol=1e-12)
-    np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=0, atol=1e-12)
-    # an arrow along -z (the half-turn branch)
     from diffsdfsim_torch.rendering.arrows import _quat_align_z
     from diffsdfsim_tpu.rendering.arrows import _quat_align_z as j_quat_align_z
 
-    for v in ([0.0, 0.0, -1.0], [0.6, 0.0, 0.8]):
-        np.testing.assert_allclose(_quat_align_z(torch.tensor(v, dtype=torch.float64)).numpy(), np.asarray(jax.jit(j_quat_align_z)(jnp.asarray(v))),
-                                   rtol=0, atol=1e-15)
+    bodies, q, p, jbodies = scene
+    forces = ((), (Gravity3D(10.0), Push()), ())
+    kw = dict(render_forces=True, render_torques=True)
+    arrows, aq, ap = force_arrows(bodies, forces, 0.0, q, p, **kw)
+    pts = np.random.default_rng(4).uniform(-0.6, 1.6, (128, 3)) * np.array([0.5, 0.5, 1.0])
+    # an arrow along -z (the half-turn branch) and an oblique one
+    axes = ([0.0, 0.0, -1.0], [0.6, 0.0, 0.8])
+
+    def jax_side():
+        jforces = ((), (JGravity3D(10.0), JPush()), ())
+        jarrows, jaq, jap = jforce_arrows(jbodies(), jforces, 0.0, jnp.asarray(q.numpy()), jnp.asarray(p.numpy()),
+                                          **kw)
+        sizes = [float(getattr(jarrows[0], f)) for f in ("length", "shaft_r", "head_r", "head_len")]
+        return (len(jarrows), jaq, jap, sizes, *jax.jit(jarrows[0].query_sdfs)(jnp.asarray(pts)),
+                *(jax.jit(j_quat_align_z)(jnp.asarray(v)) for v in axes))
+
+    n_j, jaq, jap, sizes, jd, jg, *jquats = _from_jax(jax_side)
+    assert len(arrows) == int(n_j) == 1
+    np.testing.assert_allclose(aq.numpy(), jaq, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(ap.numpy(), jap, rtol=0, atol=1e-12)
+    for f, jf in zip(("length", "shaft_r", "head_r", "head_len"), sizes):
+        np.testing.assert_allclose(float(getattr(arrows[0], f)), float(jf), rtol=1e-15)
+    d, g = arrows[0].query_sdfs(torch.tensor(pts))
+    np.testing.assert_allclose(d.numpy(), jd, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(g.numpy(), jg, rtol=0, atol=1e-12)
+    for v, jqa in zip(axes, jquats):
+        np.testing.assert_allclose(_quat_align_z(torch.tensor(v, dtype=torch.float64)).numpy(), jqa, rtol=0, atol=1e-15)
 
 
 def _jitted_render(fn):
@@ -243,23 +269,32 @@ def test_recorder_through_run_world_matches_jax(monkeypatch):
     assert len(rec.frames) == 4
     from diffsdfsim_tpu.rendering import recorder as jrecorder
 
-    monkeypatch.setattr(jrecorder, "render_depth_seg", _jitted_render(jrecorder.render_depth_seg))
-    jrec = JRecorder3D(1.0 / 30, cam, pose, **kw)
-    jbodies = [jax_body_from_torch(b) for b in spec.bodies]
-    for i, frame in enumerate(rec.frames):
-        jframe = jrec.record(frame[0], jbodies, jnp.asarray(traj.quat[i, -1].numpy()),
-                             jnp.asarray(traj.pos[i, -1].numpy()))
-        assert frame[0] == jframe[0]
-        _close_where_hit(frame[1], frame[3], jframe[1], jframe[3])
-        np.testing.assert_allclose(frame[4], jframe[4], rtol=0, atol=1e-12)
-        assert frame[2].shape == (H, W, 3) and frame[5] is None and jframe[5] is None
     # the pacing: prev_t starts at -1e9 and grows by dt a call, so a call at
     # the same time as the last one records all the same
     t_last = rec.frames[-1][0]
-    for r, bodies in ((rec, spec.bodies), (jrec, jbodies)):
-        conv = torch.as_tensor if r is rec else jnp.asarray
-        out = r.record(t_last, bodies, conv(traj.quat[-1, -1].numpy()), conv(traj.pos[-1, -1].numpy()))
-        assert out is not None and len(r.frames) == 5 and r.prev_t == pytest.approx(-1e9 + 5 / 30)
+
+    def jax_side():
+        monkeypatch.setattr(jrecorder, "render_depth_seg", _jitted_render(jrecorder.render_depth_seg))
+        jrec = JRecorder3D(1.0 / 30, cam, pose, **kw)
+        jbodies = [jax_body_from_torch(b) for b in spec.bodies]
+        frames = []
+        for i, frame in enumerate(rec.frames):
+            jf = jrec.record(frame[0], jbodies, jnp.asarray(traj.quat[i, -1].numpy()),
+                             jnp.asarray(traj.pos[i, -1].numpy()))
+            frames.append((jf[0], jf[1], jf[3], jf[4], jf[5] is None))
+        out = jrec.record(t_last, jbodies, jnp.asarray(traj.quat[-1, -1].numpy()), jnp.asarray(traj.pos[-1, -1].numpy()))
+        return frames, (out is not None, len(jrec.frames), jrec.prev_t)
+
+    jframes, jpacing = _from_jax(jax_side)
+    for frame, (jt, jdepth, jseg, jpose, jnone) in zip(rec.frames, jframes):
+        assert frame[0] == float(jt)
+        _close_where_hit(frame[1], frame[3], jdepth, jseg)
+        np.testing.assert_allclose(frame[4], jpose, rtol=0, atol=1e-12)
+        assert frame[2].shape == (H, W, 3) and frame[5] is None and bool(jnone)
+    out = rec.record(t_last, spec.bodies, torch.as_tensor(traj.quat[-1, -1].numpy()),
+                     torch.as_tensor(traj.pos[-1, -1].numpy()))
+    for got, n, prev_t in ((out is not None, len(rec.frames), rec.prev_t), jpacing):
+        assert bool(got) and int(n) == 5 and float(prev_t) == pytest.approx(-1e9 + 5 / 30)
 
 
 def test_so3_relative_angle_matches_jax():
@@ -272,6 +307,6 @@ def test_so3_relative_angle_matches_jax():
     R2 = torch.cat([R[1:], R[:1]])
     R2[0] = R[0]
     got = so3_relative_angle(R, R2).numpy()
-    np.testing.assert_allclose(got, np.asarray(jso3_relative_angle(jnp.asarray(R.numpy()), jnp.asarray(R2.numpy()))),
+    np.testing.assert_allclose(got, _from_jax(lambda: jso3_relative_angle(jnp.asarray(R.numpy()), jnp.asarray(R2.numpy()))),
                                rtol=0, atol=1e-12)
     assert got[0] < 1e-3

@@ -164,6 +164,8 @@ class JaxGolden:
 
     @staticmethod
     def _plain(x):
+        if isinstance(x, dict):
+            return {k: JaxGolden._plain(v) for k, v in x.items()}
         if isinstance(x, (tuple, list)):
             return tuple(JaxGolden._plain(e) for e in x)
         return np.asarray(x)
@@ -171,6 +173,11 @@ class JaxGolden:
     def __call__(self, fn):
         key = f"{self.test}/{self.n}"
         self.n += 1
+        return self.keyed(key, fn)
+
+    def keyed(self, key, fn):
+        """fn()'s JAX result under an explicit key: a module-scoped fixture's,
+        which pytest sets up before any test's call counter."""
         if self.RECORD:
             self.results[key] = self._plain(fn())
         return self.results[key]

@@ -12,7 +12,10 @@ The runs (each ``main`` as a user calls it, in this one process):
 each (the shape space one); ``optim_pointcloud`` (sphere and cube) and
 ``optim_pointcloud_real`` (on ``synthetic_recording``'s recording: the
 reference's real-world recording is not in the repository) at their
-defaults. ``--only`` keeps the runs of the named modules. Each run's wall
+defaults; ``optim_primitives`` (box, sphere and cylinder, 50 seeds each) and
+``optim_shapespace_inertia`` (the geometric-init decoder, then the trained
+space, whose 2500 training steps run first and are cached under DIR) at
+their defaults. ``--only`` keeps the runs of the named modules. Each run's wall
 time and the parameter errors it prints are echoed; a run that raises is
 reported and the script goes on, then exits 1. The run directories go under
 DIR (default ``chiprun_out/experiments``). The device is the card unless
@@ -35,6 +38,13 @@ RUNS += [("optim_shapespace", "trajectory_fitting_shapespace", args) for args in
     ["n_par=1", "max_iter=1"], ["n_par=4", "max_iter=1"])]
 RUNS += [("optim_pointcloud", f"pointcloud_{shape}", [f"shape={shape}"]) for shape in ("sphere", "cube")]
 RUNS += [("optim_pointcloud_real", "pointcloud_real", ["data_path={recording}"])]
+# the inertia fits at their defaults: each primitive as a 50-seed sweep (100
+# Adam steps), the latent one single (200 steps) on the geometric-init
+# decoder and on the trained space (2500 training steps, cached under DIR)
+RUNS += [("optim_primitives", "inertia_fitting_primitives", [f"shape={shape}", "n_par=50"])
+         for shape in ("box", "sphere", "cylinder")]
+RUNS += [("optim_shapespace_inertia", "inertia_fitting_shapespace", args) for args in (
+    [], ["trained_space=True", "space_cache={base}/igr_space4.pkl"])]
 
 
 def main():
@@ -58,7 +68,7 @@ def main():
         if only is not None and module not in only:
             continue
         mod = importlib.import_module(f"diffsdfsim_torch.experiments.{module}")
-        args = [a.format(recording=recording) for a in args]
+        args = [a.format(recording=recording, base=opts.base) for a in args]
         argv = ["with", *args, f"base_dir={opts.base}"]
         t0 = time.perf_counter()
         try:
