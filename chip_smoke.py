@@ -59,8 +59,13 @@ grad), then drives eleven paths of the port on CUDA (float64):
   (K4, K1, K2), the marble in the bowl and the 14^3 marching torus's drop
   and d / d scale against the JAX goldens, and the 64^3 torus (K5, K1).
 
-Each path runs with the kernels' launch counts set to 0 just before it and
-read just after. Every check that fails raises, so any failure exits
+The kernel checks run first, with the card to themselves. The paths then
+run in four groups, each a process of this script (``--group``), all on the
+one card at once: each path keeps the host busy and the device idle most of
+its wall, so the groups barely slow one another. Each group's output is
+printed when all have ended; its walls are taken with the other groups
+running. Each path runs with the kernels' launch counts (per process) set
+to 0 just before it and read just after. Every check that fails raises, so any failure exits
 non-zero. Without a CUDA device it exits non-zero before printing any
 result.
 """
@@ -2776,7 +2781,7 @@ def phase_shapespace_sweep():
         _, traj_i = oss.simulate(zi, quats[i], net, c, cfg, DEVICE)
         li = trajectory_loss(traj_i, tgt_i, body=1) + c["latent_reg"] * torch.sum(zi**2)
         (gi,) = torch.autograd.grad(li, zi)
-        el, eg = rel_err(loss0[i], float(li)), rel_err(grad0[i], gi.cpu().numpy())
+        el, eg = rel_err(loss0[i], float(li.detach())), rel_err(grad0[i], gi.cpu().numpy())
         print(f"shape-space sweep lane {i} vs the single path: loss rel {el:.2e}, gradient rel {eg:.2e} "
               f"(tol {RTOL_SHAPE_LANE:g}); "
               + partings({"lane": {k: v[i] for k, v in batch.items()}, "single": traj_np(traj_i)}))
@@ -3459,42 +3464,148 @@ def phase_meshes():
     return counts
 
 
-def main():
+# The paths after the kernel checks, in groups that run as concurrent
+# processes on the one card: every path is host-bound (the device is idle
+# 93-96 % of each path's wall), so four processes share the card with
+# little contention and the script ends well inside its time limit. Each
+# group takes about the same wall; the kernel checks, whose times the
+# ``kernels`` line reports, run before them with the card to themselves.
+PATH_GROUPS = (
+    ("phase_batched", "phase_grid_path", "phase_meshes"),
+    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path"),
+    ("phase_sysid_sweep", "phase_inertia", "phase_main_path"),
+    ("phase_gradient", "phase_shapespace_sweep"),
+)
+# the paths whose results the kernels line reads (the others return None)
+PATH_RESULTS = ("phase_main_path", "phase_gradient", "phase_grid_path", "phase_latent_path")
+# the parent stops every group that is still running at this many seconds
+# of script time, and fails
+PATH_DEADLINE_S = 1120
+
+
+def setup_torch(threads=None):
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if threads:
+        torch.set_num_threads(threads)
+    return torch
+
+
+def timed(phase, t_start, tag=""):
+    t0 = time.perf_counter()
+    out = phase()
+    print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s ({tag}script so far {time.perf_counter() - t_start:.1f} s)",
+          flush=True)
+    return out
+
+
+def run_group(names, result_path, t_start, threads):
+    """One group of paths in this process (a child of ``run_path_groups``):
+    runs each phase in order and writes the results the kernels line reads
+    to ``result_path`` (a pickle). A failing check raises, so the process
+    exits non-zero."""
+    import pickle
+
+    torch = setup_torch(threads)
+    if not torch.cuda.is_available():
+        raise Failure("no CUDA device available")
+    out = {}
+    for name in names:
+        res = timed(globals()[name], t_start, "in its group; ")
+        out[name] = res if name in PATH_RESULTS else None
+    with open(result_path, "wb") as f:
+        pickle.dump(out, f)
+    return 0
+
+
+def run_path_groups(t_start):
+    """Run PATH_GROUPS as concurrent processes of this script on the one
+    card, each with its output in a file; print each group's output when
+    all have ended. Fails (after stopping the others) as soon as one group
+    fails, or when the deadline passes. Returns {phase name: result}."""
+    import pickle
+    import tempfile
+
+    threads = max(1, (os.cpu_count() or 8) // len(PATH_GROUPS))
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []
+        try:
+            for g, names in enumerate(PATH_GROUPS):
+                log = open(os.path.join(tmp, f"group{g}.log"), "w")
+                cmd = [sys.executable, "-u", os.path.abspath(__file__), "--group", str(g),
+                       "--result", os.path.join(tmp, f"group{g}.pkl"), "--t0", repr(time.time() - (time.perf_counter() - t_start)),
+                       "--threads", str(threads)]
+                procs.append((subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT, cwd=ROOT), log))
+            print(f"paths: {len(PATH_GROUPS)} groups as concurrent processes on the card ({threads} host threads each): "
+                  + "; ".join(", ".join(names) for names in PATH_GROUPS), flush=True)
+            failed = []
+            while True:
+                rcs = [p.poll() for p, _ in procs]
+                failed = [g for g, rc in enumerate(rcs) if rc not in (None, 0)]
+                if failed or all(rc == 0 for rc in rcs):
+                    break
+                if time.perf_counter() - t_start > PATH_DEADLINE_S:
+                    failed = [g for g, rc in enumerate(rcs) if rc is None]
+                    print(f"paths: groups {failed} still running at {PATH_DEADLINE_S} s of script time", flush=True)
+                    break
+                time.sleep(0.5)
+        finally:
+            for p, log in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+                log.close()
+        results = {}
+        for g, (p, _) in enumerate(procs):
+            with open(os.path.join(tmp, f"group{g}.log")) as f:
+                text = f.read()
+            print(f"---- group {g} ({', '.join(PATH_GROUPS[g])}): exit code {p.returncode}", flush=True)
+            sys.stdout.write(text if text.endswith("\n") or not text else text + "\n")
+            sys.stdout.flush()
+            if p.returncode == 0:
+                with open(os.path.join(tmp, f"group{g}.pkl"), "rb") as f:
+                    results.update(pickle.load(f))
+        check(not failed and all(p.returncode == 0 for p, _ in procs),
+              f"path groups {failed or [g for g, (p, _) in enumerate(procs) if p.returncode]} failed "
+              "(their output is above)")
+    print(f"paths: all groups ended at {time.perf_counter() - t_start:.1f} s of script time", flush=True)
+    return results
+
+
+def main():
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--group", type=int, help=argparse.SUPPRESS)
+    ap.add_argument("--result", help=argparse.SUPPRESS)
+    ap.add_argument("--t0", type=float, help=argparse.SUPPRESS)
+    ap.add_argument("--threads", type=int, help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.group is not None:
+        # a child: the script's start on this process's clock
+        return run_group(PATH_GROUPS[args.group], args.result, time.perf_counter() - (time.time() - args.t0),
+                         args.threads)
+
+    torch = setup_torch()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
 
     t_start = time.perf_counter()
-
-    def timed(phase):
-        t0 = time.perf_counter()
-        out = phase()
-        print(f"{phase.__name__}: {time.perf_counter() - t0:.1f} s (script so far {time.perf_counter() - t_start:.1f} s)",
-              flush=True)
-        return out
-
-    name, smi = timed(phase_device_and_build)
-    k1 = timed(phase_k1)
-    k3 = timed(phase_k3)
-    k2 = timed(phase_k2)
-    k4 = timed(phase_k4)
-    k5 = timed(phase_k5)
-    launches, wall, n_sub = timed(phase_main_path)  # in grad mode, as a forward-only caller runs it
-    grad_launches = timed(phase_gradient)
-    timed(phase_batched)
-    grid_launches = timed(phase_grid_path)
-    latent_launches, _ = timed(phase_latent_path)
-    timed(phase_sphere_sweep)
-    timed(phase_sysid_sweep)
-    timed(phase_shapespace_sweep)
-    timed(phase_pointcloud)
-    timed(phase_inertia)
-    timed(phase_meshes)
+    name, smi = timed(phase_device_and_build, t_start)
+    k1 = timed(phase_k1, t_start)
+    k3 = timed(phase_k3, t_start)
+    k2 = timed(phase_k2, t_start)
+    k4 = timed(phase_k4, t_start)
+    k5 = timed(phase_k5, t_start)
+    paths = run_path_groups(t_start)
+    launches = paths["phase_main_path"][0]  # in grad mode, as a forward-only caller runs it
+    grad_launches = paths["phase_gradient"]
+    grid_launches = paths["phase_grid_path"]
+    latent_launches = paths["phase_latent_path"][0]
 
     f64 = torch.float64
     k1r = k1[(f64, 4, 3)]
