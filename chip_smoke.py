@@ -13,7 +13,7 @@ sysid floor and cube both lane bodies at 48 and 96; K1 and K2 also at
 optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4; K2 also
 on a case whose contacts' friction cones are all tight, against the exact
 solution in float64 and float32; K4 also refusing weights that require
-grad), then drives eleven paths of the port on CUDA (float64):
+grad), then drives thirteen paths of the port on CUDA (float64):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
   (PDIPM) and K3 (Frank-Wolfe search), held against the plain CPU rollout
@@ -57,7 +57,17 @@ grad), then drives eleven paths of the port on CUDA (float64):
 - the trained shape space and the body builders: igr_train at full width
   on the card against the CPU port, the trained space's drop and Adam step
   (K4, K1, K2), the marble in the bowl and the 14^3 marching torus's drop
-  and d / d scale against the JAX goldens, and the 64^3 torus (K5, K1).
+  and d / d scale against the JAX goldens, and the 64^3 torus (K5, K1);
+- the 2D facade: the JAX package's 2D scenes uncut (circle drop, hull
+  stack, the narrowphase parity scenes under the Frank-Wolfe search and
+  the analytic narrowphase, pendulum, weld, the 65 x 65 grid drop) and
+  two gradients, against the JAX goldens and the CPU port, the search's
+  scenes up to their first contact tie (witnessed); K3 on circle / rect
+  pairs, none under the analytic narrowphase;
+- the solver fallback (K1 relaunched on the whole batch) on under-solved
+  LCPs and the under-iterated bench, single and at B = 16, and
+  post-stabilization on a 16-lane sweep, lane by lane against the single
+  path.
 
 The kernel checks run first, with the card to themselves. The paths then
 run in four groups, each a process of this script (``--group``), all on the
@@ -3464,6 +3474,298 @@ def phase_meshes():
     return counts
 
 
+SCENES2D_GOLDEN = os.path.join(ROOT, "tests", "golden", "scenes2d_f64.npz")
+FALLBACK_GOLDEN = os.path.join(ROOT, "tests", "golden", "fallback_f64.npz")
+# the JAX package's 2D scenes on the card, uncut (tests/scenes2d.py)
+PHASE_2D_CASES = ("circle_fw", "circle_analytic", "hull_stack_fw", "hull_stack_analytic", "stack_fw",
+                  "stack_analytic", "hulls_fw", "hulls_analytic", "pendulum", "fixed", "grid")
+# those the CPU port also runs in the phase, the card held against it (the
+# others' plain searches over hull and grid SDFs take 10-90 s of one CPU
+# thread each)
+PHASE_2D_CPU = ("circle_fw", "circle_analytic", "stack_fw", "stack_analytic", "hulls_analytic", "pendulum", "fixed",
+                "grid_low")
+# the gradients on the card: the circle's radius (analytic narrowphase), the
+# grid's values (plain search) from 1 m over 25 frames and from 0.05 m over 8
+PHASE_2D_GRADS = ("grad_circle", "grad_grid", "grad_grid_low")
+# poses and velocities against the JAX golden and the CPU port (the CPU
+# tests' tolerance; the CPU port reads 1e-10..1e-16 on these scenes); a
+# Frank-Wolfe scene up to its first contact parting (scenes2d.hold: a tie
+# must be witnessed there); gradients relative
+ATOL_2D_POSE, RTOL_2D_GRAD = 1e-8, 1e-6
+# K3 launches the scenes must make: a pair of circles and rects (cylinder and
+# box kinds) under the Frank-Wolfe search; hull and grid pairs take the plain
+# search, the analytic narrowphase none
+K3_2D_CASES = ("circle_fw", "stack_fw", "hulls_fw")
+K1_FREE_2D = ("pendulum", "fixed")  # no contact pair
+
+
+def sync():
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def scenes2d_module():
+    """tests/scenes2d.py (numpy only at import; the port's namespace)."""
+    tests = os.path.join(ROOT, "tests")
+    if tests not in sys.path:
+        sys.path.insert(0, tests)
+    import scenes2d
+
+    return scenes2d
+
+
+def phase_2d():
+    """The 2D facade on CUDA: the JAX package's 2D scenes uncut (the circle
+    drop on a 20 x 1 Rect, the hull-on-hull stack, the parity scenes under
+    both narrowphases, the revolute pendulum, the fixed joint, the 65 x 65
+    grid-circle drop), each against its JAX golden (scenes2d_f64.npz) and
+    the cheap ones also against the CPU port: the same discrete decisions,
+    poses within ATOL_2D_POSE, a Frank-Wolfe scene up to its first contact
+    parting where a tie is witnessed (scenes2d.hold). Launches per scene:
+    K3 on the circle / rect pairs under the search, none under the analytic
+    narrowphase, K1 on every contact scene. The gradients: d(final height) /
+    d(radius) of the circle drop under the analytic narrowphase and d(final
+    height) / d(grid values) of the grid drop (K1, K2; the grid's plain
+    search), against the golden and the CPU port within RTOL_2D_GRAD (the
+    25-frame grid gradient is past its touchdown's tie and reported)."""
+    import torch
+
+    S = scenes2d_module()
+    golden = dict(np.load(SCENES2D_GOLDEN))
+    Pg, Pc = S.namespace("torch", DEVICE), S.namespace("torch", "cpu")
+    failed = []
+    for case in PHASE_2D_CASES + tuple(c for c in PHASE_2D_CPU if c not in PHASE_2D_CASES):
+        runs = {}
+        for dev, P in ((DEVICE, Pg), ("cpu", Pc)):
+            if dev == "cpu" and case not in PHASE_2D_CPU:
+                continue
+            (spec, state), n = S.build(P, case)
+            syncs0 = spec.host_syncs
+            reset_counts()
+            if dev != "cpu":
+                (_, traj), wall, reads = synced(lambda: P.rollout(spec, state, n))
+                counts = read_counts()
+            else:
+                t0 = time.perf_counter()
+                _, traj = P.rollout(spec, state, n)
+                wall, reads = time.perf_counter() - t0, None
+            runs[dev] = (spec, S.traj_numpy(traj), wall)
+            if dev != "cpu":
+                tr = runs[dev][1]
+                print(f"2d {case} (cuda): {n} frames in {wall:.2f} s, {int(tr['valid'].sum())} substeps, launches "
+                      f"K1 {counts['pdipm_fwd']} K3 {counts['fw_search']} K2 {counts['kkt_bwd']}, host reads "
+                      f"{spec.host_syncs - syncs0}, device reads {reads}")
+                if case in K3_2D_CASES:
+                    check(counts["fw_search"] > 0, f"2d {case}: no K3 launch on a circle / rect pair")
+                if case.endswith("_analytic") or case.startswith(("hull_stack", "grid")) or case in K1_FREE_2D:
+                    check(counts["fw_search"] == 0, f"2d {case}: K3 launched ({counts['fw_search']})")
+                if case not in K1_FREE_2D:
+                    check(counts["pdipm_fwd"] > 0, f"2d {case}: no K1 launch")
+        for dev, (spec, tr, _) in runs.items():
+            ok, _, line = S.hold_run(spec, tr, golden, case, ATOL_2D_POSE)
+            print(f"2d {dev} vs JAX {line}")
+            if not ok:
+                failed.append(f"{case} {dev} vs JAX")
+        if "cpu" in runs:
+            (sg, trg, wg), (sc, trc, wc) = runs[DEVICE], runs["cpu"]
+            fw = case in S.FW_CASES
+            ok, _, line = S.hold(trg, trc, ATOL_2D_POSE, f"{case} card vs CPU port",
+                                 S.port_contacts_at(sg, trg) if fw else None,
+                                 S.port_contacts_at(sc, trc) if fw else None)
+            print(f"2d {line} (CPU {wc:.2f} s)")
+            if not ok:
+                failed.append(f"{case} card vs CPU")
+
+    for name in PHASE_2D_GRADS:
+        n = S.GRADS[name][2]
+        res = {}
+        for dev, P in ((DEVICE, Pg), ("cpu", Pc)):
+            if dev == "cpu" and name == "grad_grid":
+                continue  # 10 s of one CPU thread; the card is held against JAX up to its tie
+            param = torch.tensor(S.grad_param(name), dtype=torch.float64, device=dev, requires_grad=True)
+            reset_counts()
+            t0 = time.perf_counter()
+            spec, state = S.grad_world(P, name, param)
+            final, traj = P.rollout(spec, state, n)
+            (g,) = torch.autograd.grad(final.pos[1, 1], param)
+            if dev != "cpu":
+                sync()
+            wall = time.perf_counter() - t0
+            res[dev] = (float(final.pos[1, 1].detach()), g.detach().cpu().numpy(), spec, S.traj_numpy(traj))
+            if dev != "cpu":
+                counts = read_counts()
+                print(f"2d {name} (cuda): {n} frames fwd+bwd {wall:.2f} s, launches K1 {counts['pdipm_fwd']} "
+                      f"K3 {counts['fw_search']} K2 {counts['kkt_bwd']}")
+                check(counts["pdipm_fwd"] > 0 and counts["kkt_bwd"] > 0, f"2d {name}: K1 or K2 not launched")
+                check(counts["fw_search"] == 0, f"2d {name}: K3 launched (analytic narrowphase / grid pairs)")
+        val, g, spec, tr = res[DEVICE]
+        e_val = abs(val - float(golden[f"{name}/value"]))
+        e_g = rel_err(g, golden[f"{name}/grad"])
+        held = True
+        if name.startswith("grad_grid"):
+            ok, held, line = S.hold_run(spec, tr, golden, name[5:], ATOL_2D_POSE)
+            print(f"2d {name} cuda vs JAX {line}")
+            if not ok:
+                failed.append(f"{name} trajectory")
+        print(f"2d {name}: height {val:.12f} ({e_val:.2e} from JAX's), gradient {e_g:.2e} (relative) from JAX's"
+              + ("" if held else " (past the witnessed tie: reported)")
+              + ("" if "cpu" not in res else f", {rel_err(g, res['cpu'][1]):.2e} from the CPU port's"))
+        if held and not (e_val <= ATOL_2D_POSE and e_g <= RTOL_2D_GRAD):
+            failed.append(f"{name} against JAX")
+        if "cpu" in res and not rel_err(g, res["cpu"][1]) <= RTOL_2D_GRAD:
+            failed.append(f"{name} card vs CPU")
+    check(not failed, f"2d: {failed}")
+
+
+def phase_fallback():
+    """The solver fallback and post-stabilization on the lane axis on CUDA:
+    JAX tests/test_qp.py:139-165's under-iterated LCP through
+    pdipm_solve_checked (its generic rows are not K1's layout: the plain
+    solver on the card) against the JAX golden; bench LCPs under-solved by
+    K1 (one iteration) and relaunched once on the whole batch, against the
+    plain fallback within 1e-10; the bench world with solver_max_iter=2 and
+    the fallback, 20 frames, single (radius 0.5 and 0.58) and at B = 16
+    (lane 0 at 0.5, lane 15 at 0.58) against the JAX goldens at the bench's
+    tolerances and lanes against the single path, one fallback read per
+    probe solve, one re-solve (one K1 launch) of the whole batch per
+    triggering stage; and a 16-lane post-stabilized sweep (the sideways
+    sphere of tests/test_batched.py, 10 frames) lane by lane against the
+    single path, as phase_batched holds lanes, and the golden's three radii
+    against JAX."""
+    import torch
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.ops import qp as tqp
+    from diffsdfsim_torch.ops.qp_cuda import pdipm_fric
+    from diffsdfsim_torch.physics import (BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body, make_world,
+                                          make_world_batched, rollout, rollout_batched, trajectory_lanes_first)
+
+    g = dict(np.load(FALLBACK_GOLDEN))
+    dev = DEVICE
+    # the JAX package's test problem
+    args = [torch.tensor(g[f"qp/{k}"], dtype=torch.float64, device=dev) for k in "Q p G h A b F".split()]
+    for it in (1, 20):
+        sol, res, bad = tqp.pdipm_solve_checked(*args, max_iter=it, eps=1e-12, fallback_iters=25, fallback_thresh=1e-6)
+        err = max(float(np.abs(x.cpu().numpy() - g[f"qp/it{it}/{k}"]).max()) for k, x in zip("xyzs", sol))
+        print(f"fallback: test_qp's LCP at {it} iterations: fell back {bool(bad)} (JAX {bool(g[f'qp/it{it}/fell_back'])}),"
+              f" solution {err:.2e} from JAX's, residual {float(res.max()):.2e}")
+        check(bool(bad) == bool(g[f"qp/it{it}/fell_back"]) and err <= 1e-10, "fallback: test_qp's LCP differs from JAX")
+    # K1 relaunched on under-solved bench LCPs
+    for B in (3, 16):
+        Q, p, G, h, A, b, F, invQ = physics_lcps(B, seed=B, device=dev, dtype=torch.float64)
+        lcp, structure = (Q, p, G, h, A, b, F), ("fric", 4, 8)
+        rough = pdipm_fric(*lcp, invQ, 1, 1e-12, 3, structure)
+        n0 = pdipm_fric.launches
+        sol = tqp.escalated_resolve(*lcp, invQ, rough, iters_hi=30, eps=1e-12, thresh=1e-3, structure=structure,
+                                    read=bool)
+        sync()
+        relaunches = pdipm_fric.launches - n0
+        plain = tqp.pdipm_solve_raw(*lcp, 30, 1e-12, 6, structure)
+        err = float((sol[0] - plain[0]).abs().max())
+        print(f"fallback: K1 at 1 iteration on {B} bench LCPs: residual {float(tqp.lcp_residuals(*lcp, rough).max()):.2e}"
+              f", {relaunches} relaunch at 30 iterations: x {err:.2e} from the plain fallback's, residual "
+              f"{float(tqp.lcp_residuals(*lcp, sol).max()):.2e}")
+        check(relaunches == 1 and err <= 1e-10, f"fallback: K1's relaunch ({relaunches}) or its x ({err:.2e})")
+
+    fb_cfg = dict(BENCH_CFG, solver_max_iter=2, solver_fallback=True)
+    ps_cfg = dict(fric_dirs=4, max_contacts_per_pair=4, max_contacts_total=8, mesh_subdiv=1, max_substeps=4,
+                  max_bisect=4, post_stab=True)
+    floors = {}
+
+    def world(rad, cfg_kw, floor_subdiv, sphere_subdiv, v_side, device=dev):
+        key = (floor_subdiv, device)
+        if key not in floors:
+            floors[key] = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=floor_subdiv, fric_coeff=0.25,
+                                    device=device)
+        sphere = make_body(SphereShape(rad), subdiv=sphere_subdiv, fric_coeff=0.25, device=device)
+        vels = np.zeros((2, 6))
+        vels[1, 3] = v_side
+        return make_world([floors[key], sphere], [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]],
+                          vels, joints=(TotalConstraint3D(body1=0),), forces=((), (Gravity3D(10.0),)),
+                          cfg=SimConfig(**cfg_kw), device=device)
+
+    def np_traj(traj):
+        return {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
+
+    def golden_of(key):
+        return {k: g[f"{key}/{k}"] for k in ("pos", "quat", "v", "valid", "n_halvings", "bisect_failed",
+                                             "truncated")}
+
+    singles = {}
+    for rad in (0.5, 0.58):
+        spec, state = world(torch.tensor(rad, dtype=torch.float64, device=dev), fb_cfg, 3, 2, 0.0)
+        reset_counts()
+        t0 = time.perf_counter()
+        _, traj = rollout(spec, state, 20)
+        sync()
+        wall, counts = time.perf_counter() - t0, read_counts()
+        singles[rad] = np_traj(traj)
+        errs = compare_traj(singles[rad], golden_of(f"fb{rad}"), f"fallback single {rad}")
+        print(f"fallback: bench at radius {rad}, max_iter 2, 20 frames in {wall:.2f} s: launches K1 "
+              f"{counts['pdipm_fwd']} K3 {counts['fw_search']}, fallback reads {spec.host_reads['fallback']}, "
+              f"re-solves {spec.stages['resolve']}; against JAX: height {errs['pos_y']:.2e}, "
+              f"vertical velocity {errs['v_y']:.2e}")
+        check(spec.stages["resolve"] > 0, "fallback: the under-iterated bench triggered no re-solve")
+    rads = np.linspace(0.42, 0.58, 16)
+    rads[0] = 0.5
+    r = torch.tensor(rads, dtype=torch.float64, device=dev)
+    spec, bodies_b, state_b = make_world_batched(lambda x: world(x, fb_cfg, 3, 2, 0.0), r)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, traj = rollout_batched(spec, bodies_b, state_b, 20)
+    sync()
+    wall, counts = time.perf_counter() - t0, read_counts()
+    lanes = np_traj(trajectory_lanes_first(traj))
+    print(f"fallback: bench sweep B = 16, 20 frames in {wall:.2f} s: stages {dict(spec.stages)}, host reads "
+          f"{dict(spec.host_reads)}, launches K1 {counts['pdipm_fwd']} K3 {counts['fw_search']}")
+    check(spec.host_reads["fallback"] == spec.stages["lcp"] and 0 < spec.stages["resolve"] <= spec.stages["lcp"],
+          "fallback: not one read per probe solve, or no re-solve")
+    check(counts["pdipm_fwd"] == spec.stages["lcp"] + spec.stages["resolve"],
+          f"fallback: K1 launches {counts['pdipm_fwd']}, expected one per probe solve and one per re-solve")
+    for i, rad in ((0, 0.5), (15, 0.58)):
+        lane = {k: x[i] for k, x in lanes.items()}
+        e_jax = compare_traj(lane, golden_of(f"fb{rad}"), f"fallback lane {i}")
+        e_single = compare_traj(lane, singles[rad], f"fallback lane {i} vs single")
+        print(f"fallback: lane {i} (radius {rad}) against JAX: height {e_jax['pos_y']:.2e}; against the single path: "
+              f"height {e_single['pos_y']:.2e}, every component {max(e_single['pos'], e_single['v']):.2e}")
+
+    # post-stabilization on the lane axis
+    rads = np.linspace(0.45, 0.8, 16)
+    rads[7] = 0.6
+    r = torch.tensor(rads, dtype=torch.float64, device=dev)
+    spec, bodies_b, state_b = make_world_batched(lambda x: world(x, ps_cfg, 2, 1, 2.0), r)
+    reset_counts()
+    t0 = time.perf_counter()
+    _, traj = rollout_batched(spec, bodies_b, state_b, 10)
+    sync()
+    wall, counts = time.perf_counter() - t0, read_counts()
+    lanes = np_traj(trajectory_lanes_first(traj))
+    print(f"fallback: post-stabilized sweep B = 16, 10 frames in {wall:.2f} s: stages {dict(spec.stages)}, host reads "
+          f"{dict(spec.host_reads)}, launches K1 {counts['pdipm_fwd']} K3 {counts['fw_search']}")
+    check(spec.stages["post_stab_lcp"] > 0, "fallback: the post-stabilized sweep solved no LCP")
+    for i in (0, 7, 15):
+        s_spec, s_state = world(torch.tensor(rads[i], dtype=torch.float64, device=dev), ps_cfg, 2, 1, 2.0)
+        _, s_traj = rollout(s_spec, s_state, 10)
+        single = np_traj(s_traj)
+        lane = {k: x[i] for k, x in lanes.items()}
+        for k in DECISIONS:
+            check(np.array_equal(lane[k], single[k]), f"post_stab lane {i}: {k} differs from the single path")
+        d = max(float(np.abs(lane[k] - single[k]).max()) for k in ("pos", "quat", "v"))
+        dy = float(np.abs(lane["pos"][..., 1, 1] - single["pos"][..., 1, 1]).max())
+        line = f"post_stab lane {i} (radius {rads[i]:.4f}) vs the single path: height {dy:.2e}, every component {d:.2e}"
+        key = f"ps{rads[i]:g}"
+        if f"{key}/pos" in g:
+            ref = golden_of(key)
+            for k in DECISIONS:
+                check(np.array_equal(single[k], ref[k]), f"post_stab single {rads[i]}: {k} differs from JAX's")
+            dj = max(float(np.abs(single[k] - ref[k]).max()) for k in ("pos", "quat", "v"))
+            line += f"; the single path vs JAX {dj:.2e}"
+            check(dj <= 1e-8, f"post_stab single {rads[i]}: {dj:.2e} from JAX's")
+        print(line)
+        check(dy <= ATOL_Y and d <= ATOL_ALL, f"post_stab lane {i}: height {dy:.2e} / {d:.2e} from the single path")
+
+
 # The paths after the kernel checks, in groups that run as concurrent
 # processes on the one card: every path is host-bound (the device is idle
 # 93-96 % of each path's wall), so four processes share the card with
@@ -3472,9 +3774,9 @@ def phase_meshes():
 # ``kernels`` line reports, run before them with the card to themselves.
 PATH_GROUPS = (
     ("phase_batched", "phase_grid_path", "phase_meshes"),
-    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path"),
+    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path", "phase_shapespace_sweep"),
     ("phase_sysid_sweep", "phase_inertia", "phase_main_path"),
-    ("phase_gradient", "phase_shapespace_sweep"),
+    ("phase_gradient", "phase_2d", "phase_fallback"),
 )
 # the paths whose results the kernels line reads (the others return None)
 PATH_RESULTS = ("phase_main_path", "phase_gradient", "phase_grid_path", "phase_latent_path")

@@ -124,7 +124,7 @@ class SimConfig:
     max_contacts_total: int = 8
     max_filter_clusters: int = 4
     fw_iters: int = 32  # reference contacts.py:63
-    narrowphase2d: bool = False
+    narrowphase2d: bool = False  # planar pairs: analytic 2D candidates (physics2d/narrowphase.py)
     # mesh extraction
     mesh_subdiv: int = 3
     mesh_project_iters: int = 12
@@ -136,10 +136,6 @@ class SimConfig:
                     f"{name}={getattr(self, name)!r}: only 'auto' is supported; "
                     "the backend follows the tensors' device"
                 )
-        if self.solver_fallback:
-            raise ValueError("solver_fallback is not ported yet")
-        if self.narrowphase2d:
-            raise ValueError("narrowphase2d is not ported yet")
 
     def replace(self, **kw) -> "SimConfig":
         return dataclasses.replace(self, **kw)

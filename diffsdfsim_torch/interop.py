@@ -9,7 +9,9 @@ Layouts:
 
 - body: ``shape`` (shape class name), the shape's parameters under their
   field names (``rad``, ``dims``, ``r``, ``height``; ``grid``, ``scale_``
-  for a grid body; ``latent``, ``scale_`` for a latent body, whose decoder
+  for a grid body; ``verts2d``, ``scale_`` for a 2D hull body; ``grid``,
+  ``scale_``, ``coord_scale`` for a 2D grid body; ``latent``, ``scale_``
+  for a latent body, whose decoder
   is carried as ``weights`` and ``biases`` (lists of (out, in) and (out,)
   arrays) and ``skip_in``), ``verts`` (V,3),
   ``faces`` (F,3), ``mass``, ``ang_inertia`` (3,3), ``restitution``,
@@ -45,13 +47,14 @@ from .physics import shapes as shapes_mod
 from .physics.bodies import BodyDef
 from .physics.contacts import Contacts
 from .physics.world import WorldState
+from .physics2d import facade as facade2d
 
 _SHAPES = {
     cls.__name__: cls
     for cls in (
         shapes_mod.SphereShape, shapes_mod.BoxShape, shapes_mod.RoundedBoxShape,
         shapes_mod.CylinderShape, shapes_mod.BrickShape, shapes_mod.BowlShape, shapes_mod.GridShape,
-        shapes_mod.LatentShape,
+        shapes_mod.LatentShape, facade2d.HullShape, facade2d.GridShape2D,
     )
 }
 _CONTACT_INT = ("i1", "i2", "pair_id")

@@ -157,6 +157,11 @@ def ang_inertia_from_mesh(verts, faces, mass):
     return J
 
 
+def mesh_volume(verts, faces):
+    """Enclosed volume of a closed mesh (the divergence-theorem T0)."""
+    return volume_integrals(verts, faces)[0]
+
+
 def box_inertia(dims, mass):
     """bodies.py:796-797."""
     d = dims

@@ -23,7 +23,9 @@ The backward (``_lcp_bwd``) is one KKT solve with right-hand side
 ``kkt_grad_plain`` is that solve given Q^-1, the plain version of the CUDA
 kernel K2; ``LcpSolveFromSolution`` (re-emission of a cached solution, the
 replay's solve) and ``LcpSolve`` (a full solve, post-stabilization's) are
-the ``torch.autograd.Function``s around it.
+the ``torch.autograd.Function``s around it. ``escalated_resolve`` and
+``pdipm_solve_checked`` are the runtime accuracy fallback: a fresh solve
+of the whole batch at more iterations when a residual is too large.
 """
 
 from __future__ import annotations
@@ -555,6 +557,49 @@ def lcp_residuals(Q, p, G, h, A, b, F, sol):
     batch.py:164-167 + lcp.py:46-61)."""
     x, y, z, s = sol
     return _residuals(Q, p, G, h, A, b, F, x, s, z, y)[-1]
+
+
+def _solve(Q, p, G, h, A, b, F, invQ, max_iter, eps, not_improved_lim, structure):
+    """A batch solve: kernel K1 (``ops/qp_cuda.py``) for the physics friction
+    layout, which takes the plain version on CPU tensors; the plain version
+    for any other structure."""
+    from . import qp_cuda
+
+    if qp_cuda.fric_ok(structure, G.shape[-2]):
+        invQ = torch.linalg.inv(Q) if invQ is None else invQ
+        return qp_cuda.pdipm_fric(Q, p, G, h, A, b, F, invQ, max_iter, eps, not_improved_lim, structure)
+    return pdipm_solve_raw(Q, p, G, h, A, b, F, max_iter, eps, not_improved_lim, structure)
+
+
+def escalated_resolve(Q, p, G, h, A, b, F, invQ, sol, *, iters_hi, eps, thresh, structure, read):
+    """Runtime accuracy fallback (JAX ops/qp.py:601-649): re-solve the whole
+    batch from a fresh start with ``iters_hi`` iterations (and a stall limit
+    of 6) when any problem's KKT residual exceeds ``thresh``; otherwise
+    return ``sol``. ``read`` takes the trigger (a device bool) to the host
+    (the caller's counted read, ``WorldSpec.read_fallback`` on the path):
+    one read per call. A seed sweep calls it once on its flattened batch,
+    as the JAX package's ``custom_vmap`` flattens the lanes into one
+    re-solve."""
+    resids = lcp_residuals(Q, p, G, h, A, b, F, sol)
+    if not read(torch.amax(resids) > thresh):
+        return sol
+    return _solve(Q, p, G, h, A, b, F, invQ, iters_hi, eps, 6, structure)
+
+
+def pdipm_solve_checked(Q, p, G, h, A, b, F, max_iter=10, eps=1e-12, not_improved_lim=3, structure=None,
+                        fallback_iters=30, fallback_thresh=1e-3, invQ=None):
+    """Forward solve with a runtime accuracy fallback (JAX ops/qp.py:
+    652-676; the reference warns INACC_ERR and keeps the best iterate,
+    batch.py:164-167): when a residual exceeds ``fallback_thresh``, the batch
+    is solved again with ``fallback_iters`` iterations and twice the stall
+    limit. One host read decides. Returns (sol, resids, fell_back)."""
+    sol = _solve(Q, p, G, h, A, b, F, invQ, max_iter, eps, not_improved_lim, structure)
+    resids = lcp_residuals(Q, p, G, h, A, b, F, sol)
+    bad = torch.amax(resids) > fallback_thresh
+    if bool(bad):
+        sol = _solve(Q, p, G, h, A, b, F, invQ, fallback_iters, eps, 2 * not_improved_lim, structure)
+        resids = lcp_residuals(Q, p, G, h, A, b, F, sol)
+    return sol, resids, bad
 
 
 def blockdiag_inv3(Q):

@@ -15,15 +15,20 @@ mass, inertia and SDF parameter), stepped together.
   (``"substep"``), whether any lane starts with a contact (``"contact"``),
   whether any lane failed the shallow probe stage (``"deep"``), whether any
   lane selected a contact (``"recompute"``), whether any lane gained one
-  (``"toc"``) and whether any lane re-runs its frame (``"redo"``). Where the
+  (``"toc"``), whether any lane re-runs its frame (``"redo"``), whether
+  any lane has a contact to post-stabilize (``"post_stab"``) and whether a
+  probe solve needs the solver fallback's re-solve (``"fallback"``). Where the
   JAX package's vmapped ``lax.cond`` selects per lane, the lanes are
   selected here (``_select_lanes``);
 - a probe stage of the whole batch is one K1 launch over its B D problems
   and one K3 launch per directed pair over its B D poses, lane-major
   (``engine.probe_dynamics_lanes``, ``contacts.search_contacts_raw``); the
   replay's backward is one K2 launch over the B lanes
-  (``engine.replay_dynamics_lanes``); the eager ops of a substep do not
-  grow with B.
+  (``engine.replay_dynamics_lanes``); the solver fallback re-solves the
+  whole stage in one more K1 launch; post-stabilization is one batched
+  solve of every lane's LCP (the plain solver, as the JAX package's) and
+  one search of every lane's corrected pose (``_post_stab``); the eager
+  ops of a substep do not grow with B.
 
 K1 decides over its whole launch whether a problem's last step was checked
 for improvement (``ops/qp_cuda.py``), as the JAX solver's loop decides over
@@ -33,11 +38,12 @@ runs in.
 ``spec.stages`` counts the substeps and the probe stages (``"shallow"``,
 ``"deep"``) the batch ran, and the stages that solved the LCP (``"lcp"``:
 some lane started with a contact) and the taped replays that re-emit an LCP
-solution (``"replay_lcp"``, each one K2 launch in the backward). ``remat_*``, ``*_unroll`` and ``replay_mode``
+solution (``"replay_lcp"``, each one K2 launch in the backward), the
+fallback's re-solves (``"resolve"``) and the post-stabilization solves
+(``"post_stab_lcp"``). ``remat_*``, ``*_unroll`` and ``replay_mode``
 are no-ops here as on the single path (``config.SimConfig``). Per-lane force
 parameters travel as ``forces_b`` (``make_world_batched(...,
 return_forces=True)``); without it ``spec.forces`` applies to every lane.
-``post_stab`` is not ported to the lane axis.
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from .engine import (
     _lane_select,
     apply_forces_lanes,
     body_lanes,
+    post_stabilization_lanes,
     probe_dynamics_lanes,
     replay_dynamics_lanes,
 )
@@ -160,7 +167,8 @@ def _probe_rungs(spec: WorldSpec, bodies_b, forces, state: WorldState, dt_frame,
     D = hi - lo + 1
     ar = torch.arange(lo, hi + 1, dtype=dt_frame.dtype, device=dt_frame.device)
     dts = dt_frame[:, None] * torch.pow(0.5, ar)  # (B, D)
-    new_vs, sol = probe_dynamics_lanes(bodies_b, spec.joints, forces, state, dts, cfg, any_contact)
+    new_vs, sol = probe_dynamics_lanes(bodies_b, spec.joints, forces, state, dts, cfg, any_contact,
+                                       read_fallback=spec.read_fallback)
     spec.stages["lcp"] += any_contact
     q2, p2 = _integrate(state.quat[:, None], state.pos[:, None], new_vs.reshape(B, D, nb, 6), dts[:, :, None, None])
     raw = search_contacts_raw(bodies_b, q2.reshape(B * D, nb, 4), p2.reshape(B * D, nb, 3), spec.directed_pairs, cfg)
@@ -235,6 +243,25 @@ def _toc_recompute(spec: WorldSpec, bodies_b, forces, state: WorldState, new_v, 
     return q2t, p2t, dt_toc
 
 
+def _post_stab(spec: WorldSpec, bodies_b, st: WorldState, dt_k):
+    """Post-stabilization of every lane (``world.finish_step``'s, JAX
+    batched.py:292-305): one batched solve of the contact LCPs of all lanes
+    when any lane has a valid contact (one host read), the positional
+    correction, then one search of every lane's corrected pose (one K3
+    launch per directed pair on the card) and its recompute. Returns (quat,
+    pos, contacts)."""
+    cfg = spec.cfg
+    B, nb = st.pos.shape[:2]
+    any_contact = spec.host_bool(torch.any(st.contacts.valid), "post_stab")
+    spec.stages["post_stab_lcp"] += any_contact
+    dp = post_stabilization_lanes(bodies_b, spec.joints, st, st.contacts, cfg, any_contact).reshape(B, nb, 6) / 2.0
+    q2, p2 = _integrate(st.quat, st.pos, dp, dt_k[:, None, None])
+    with torch.no_grad():
+        raw = search_contacts_raw(bodies_b, q2.detach(), p2.detach(), spec.directed_pairs, cfg)
+        cache = finish_contacts_lanes(raw, cfg)
+    return q2, p2, find_contacts_lanes(bodies_b, q2, p2, spec.directed_pairs, spec.n_unordered, cfg, cache)
+
+
 def finish_step_batched(spec: WorldSpec, bodies_b, state_b: WorldState, dt_frame_b, k_b, ok_b, cache_b,
                         forces_b=None, any_contact: bool | None = None):
     """Differentiable substep tail of the whole batch (``world.finish_step``
@@ -244,8 +271,6 @@ def finish_step_batched(spec: WorldSpec, bodies_b, state_b: WorldState, dt_frame
     keep their values). ``any_contact``: the host's knowledge of whether any
     lane starts with a valid contact (read when not given)."""
     cfg = spec.cfg
-    if cfg.post_stab:
-        raise NotImplementedError("post_stab is not ported to the batched path")
     dtype = state_b.pos.dtype
     B, nb = state_b.pos.shape[:2]
     forces = _forces_arg(spec, forces_b)
@@ -290,6 +315,10 @@ def finish_step_batched(spec: WorldSpec, bodies_b, state_b: WorldState, dt_frame
     else:
         last_dt = state_b.last_dt
         had_toc = torch.zeros_like(state_b.had_toc)
+
+    if cfg.post_stab:
+        q2, p2, contacts = _post_stab(spec, bodies_b, WorldState(q2, p2, new_v, state_b.t, contacts, last_dt, had_toc),
+                                      dt_k)
 
     new_state = WorldState(quat=q2, pos=p2, v=new_v, t=state_b.t + dt_k.detach(), contacts=contacts,
                            last_dt=last_dt, had_toc=had_toc)

@@ -6,8 +6,10 @@ PyTorch counterpart of ``diffsdfsim_tpu/physics/contacts.py`` (reference
 - per directed body pair (body 1's surface mesh vs body 2's SDF) a
   gradient-free search: the Frank-Wolfe kernel K3 (``ops/fw_cuda.py``) for
   a pair of analytic kinds on CUDA tensors, its plain version
-  ``search_pair_raw_plain`` on CPU tensors and for every pair with a grid
-  or latent shape (whose SDF queries reach kernels K5 and K4 on CUDA);
+  ``search_pair_raw_plain`` on CPU tensors and for every pair with a grid,
+  latent, bowl, hull or 2D-grid shape (whose SDF queries reach kernels K5
+  and K4 on CUDA), or the analytic 2D narrowphase for a planar pair under
+  ``cfg.narrowphase2d`` (``search_pair_raw_2d``, no search);
 - filtering of the accepted rung's candidates to K representatives;
 - the contact recompute at the selected candidates, differentiable in the
   poses and the bodies (the search itself is gradient-free, as in the
@@ -165,6 +167,23 @@ def pair_polishes(bd1: BodyDef, cfg: SimConfig) -> bool:
     return cfg.contact_polish_iters > 0 and bd1.is_sdf
 
 
+def use_narrowphase2d(bd1: BodyDef, bd2: BodyDef, cfg: SimConfig) -> bool:
+    """Does this directed pair take the analytic 2D narrowphase
+    (``physics2d/narrowphase.py``) in place of the Frank-Wolfe search?"""
+    if not cfg.narrowphase2d or not bd1.is_sdf:
+        return False
+    from ..physics2d import narrowphase as np2d
+
+    return np2d.supported_pair(bd1, bd2)
+
+
+def pair_uses_anchors(bd1: BodyDef, bd2: BodyDef, cfg: SimConfig) -> bool:
+    """Does the contact recompute read the cached body-1-frame anchors
+    (``x1_sel``) in place of barycentric face points? For a polishing pair
+    and for the analytic 2D narrowphase, whose candidates are anchors."""
+    return pair_polishes(bd1, cfg) or use_narrowphase2d(bd1, bd2, cfg)
+
+
 def _fw_setup(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2):
     """Triangles of body 1's surface in body 2's local frame, (R,F,3,3)."""
     verts_b2 = quat_apply(
@@ -245,11 +264,42 @@ def per_pose(bd: BodyDef, R: int) -> BodyDef:
     return bd.repeat_lanes(R // bd.lanes)
 
 
+def search_pair_raw_2d(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimConfig) -> RawPairSearch:
+    """The analytic 2D narrowphase's search for R poses (the JAX package's
+    ``_search_pair_raw_2d``): up to K2D world candidates per pose from the
+    circle / separating-axis / clipping algorithms, then the no-grad contact
+    quantities at those anchors. The per-face arrays become K2D anchor
+    slots: ``cand`` is the candidates' mask, ``abc`` zeros, ``x1`` the
+    candidates in body 1's frame (planar worlds touch at z = 0)."""
+    from ..physics2d import narrowphase as np2d
+
+    R = q1.shape[0]
+    bd1, bd2 = per_pose(bd1, R), per_pose(bd2, R)
+    pts2, valid, _ = np2d.pair_candidates(bd1, q1, pos1, bd2, q2, pos2)
+    F = pts2.shape[1]
+    w3 = torch.cat([pts2, torch.zeros((R, F, 1), dtype=pts2.dtype, device=pts2.device)], dim=-1)
+    q1b, p1b, q2b, p2b = q1[:, None], pos1[:, None], q2[:, None], pos2[:, None]
+    x1 = quat_apply(quat_invert(q1b), w3 - p1b)
+    abc = torch.zeros_like(x1)
+    face_idx = torch.zeros((R, F), dtype=torch.long, device=x1.device)
+    n_ng, p1_ng, _, pen = _compute_contacts(
+        bd1, q1b, p1b, bd2, q2b, p2b, abc, face_idx, valid, cfg.eps, cfg.detach_contact_b2,
+        with_stability=False, anchor_b1=x1,
+    )
+    cmask = valid & (pen >= -cfg.eps)
+    max_pen = torch.amax(torch.where(cmask, pen, torch.full_like(pen, float("-inf"))), dim=-1)
+    return RawPairSearch(abc=abc, n_ng=n_ng, p1_ng=p1_ng, pen=pen, cand=valid, cmask=cmask, max_pen=max_pen,
+                         x1=x1)
+
+
 def search_pair_raw(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimConfig) -> RawPairSearch:
-    """One directed pair's gradient-free search for R poses: the K3 kernel
-    for a pair it supports on CUDA tensors (a static choice by shape kind,
-    as the JAX package's ``_use_fw_pallas``), otherwise the plain version on
+    """One directed pair's gradient-free search for R poses: the analytic 2D
+    narrowphase where the config asks for it and the pair is planar, else
+    the K3 kernel for a pair it supports on CUDA tensors (static choices by
+    shape kind, in the JAX package's order), otherwise the plain version on
     the tensors' device."""
+    if use_narrowphase2d(bd1, bd2, cfg):
+        return search_pair_raw_2d(bd1, q1, pos1, bd2, q2, pos2, cfg)
     if q1.is_cuda and fw_cuda.supported_pair(bd1, bd2):
         return fw_cuda.fw_search_pair(bd1, q1, pos1, bd2, q2, pos2, cfg)
     return search_pair_raw_plain(bd1, q1, pos1, bd2, q2, pos2, cfg)
@@ -349,7 +399,7 @@ def find_contacts_pair(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: SimC
     normals, p1c, p2c, pens = _compute_contacts(
         bd1, q1, pos1, bd2, q2, pos2, cache.abc_sel, cache.sel_idx, cache.sel_valid,
         cfg.eps, cfg.detach_contact_b2, with_stability=True,
-        anchor_b1=cache.x1_sel if pair_polishes(bd1, cfg) else None,
+        anchor_b1=cache.x1_sel if pair_uses_anchors(bd1, bd2, cfg) else None,
     )
     return normals, p1c, p2c, pens, cache.sel_valid, cache.max_pen
 

@@ -15,7 +15,9 @@ assembly of ``World``/``World3D``):
 in a single batched call, without gradients: the CUDA kernel K1
 (``ops/qp_cuda.py``) on CUDA tensors, its plain version on CPU tensors.
 Without a valid contact it takes the exact equality-constrained solve
-instead. ``solve_dynamics(lcp_sol=...)`` is the differentiable replay of the
+instead. With ``SimConfig.solver_fallback`` a probe solve whose residuals
+are too large is solved again, the whole batch in one more K1 launch
+(``_fallback``). ``solve_dynamics(lcp_sol=...)`` is the differentiable replay of the
 accepted rung: it re-emits the probe's solution through
 ``lcp_solve_from_solution``, whose backward is the KKT solve (kernel K2 on
 CUDA tensors).
@@ -25,7 +27,9 @@ at once (``physics/batched.py``): bodies may carry a lane axis
 (``physics/bodies.py``), states and contact buffers carry it first, and the
 KKT data is (B, ...). The probe expands it over the D rungs to B D problems,
 lane-major, for one K1 launch; the replay's backward is one K2 launch over
-the B lanes. Their eager ops do not grow with B.
+the B lanes; ``post_stabilization_lanes`` solves every lane's
+post-stabilization LCP in one batched call. Their eager ops do not grow
+with B.
 """
 
 from __future__ import annotations
@@ -36,7 +40,15 @@ import torch
 
 from ..config import SimConfig
 from ..ops import qp_cuda
-from ..ops.qp import _small_solve, blockdiag_inv3, inv3, lcp_solve, lcp_solve_from_solution, pdipm_solve_raw
+from ..ops.qp import (
+    _small_solve,
+    blockdiag_inv3,
+    escalated_resolve,
+    inv3,
+    lcp_solve,
+    lcp_solve_from_solution,
+    pdipm_solve_raw,
+)
 from ..utils.quaternion import quat_to_matrix
 from ..utils.spherical import normalize, orthogonal
 from .contacts import Contacts
@@ -270,13 +282,25 @@ def _replay_kkt_solve(Q, G, A, F, d, rx, structure):
     return qp_cuda.kkt_grad_fric(blockdiag_inv3(Q), G, A, F, d, rx, structure)
 
 
+def _fallback(args, invQ, sol, cfg: SimConfig, eps, structure, read):
+    """``cfg.solver_fallback``'s re-solve of a probe's batch (JAX
+    engine.py:436-447): K1 again, at ``solver_fallback_iters``, when a
+    residual exceeds ``solver_fallback_thresh``; ``read`` takes the trigger
+    to the host (one read per probe solve while the flag is on)."""
+    if not cfg.solver_fallback:
+        return sol
+    return escalated_resolve(*args, invQ, sol, iters_hi=cfg.solver_fallback_iters, eps=eps,
+                             thresh=cfg.solver_fallback_thresh, structure=structure, read=read)
+
+
 def probe_dynamics_batch(bodies, joints, forces, state, contacts: Contacts, dts, cfg: SimConfig,
-                         any_contact: bool | None = None):
+                         any_contact: bool | None = None, *, read_fallback):
     """Dynamics solve for a ladder of D candidate timesteps in one batched
     call: the KKT data (M, Je, Jc, Jf, F, h) is dt-independent; only
     u = M v + dt f varies. Returns (new_vs (D, 6B), sol) with sol leaves of
     leading D. ``any_contact`` may pass the host's knowledge of whether a
-    contact is valid (saving a device sync)."""
+    contact is valid (saving a device sync); ``read_fallback`` reads the
+    solver fallback's trigger (see ``_fallback``)."""
     nb = len(bodies)
     dtype, device = state.v.dtype, state.v.device
     v = state.v.reshape(-1)
@@ -300,10 +324,10 @@ def probe_dynamics_batch(bodies, joints, forces, state, contacts: Contacts, dts,
 
     G, F, hvec, _, _, _ = assemble_contact_lcp(bodies, contacts, v, cfg, stop_grads=True)
     bc = lambda a: a.expand((D,) + a.shape)
-    sol = qp_cuda.pdipm_fric(
-        bc(M), u, bc(G), bc(hvec), bc(Je), torch.zeros((D, neq), dtype=dtype, device=device), bc(F),
-        bc(Minv), cfg.solver_max_iter, _solver_eps(cfg, dtype), 3, ("fric", k, fd),
-    )
+    args = (bc(M), u, bc(G), bc(hvec), bc(Je), torch.zeros((D, neq), dtype=dtype, device=device), bc(F))
+    eps, structure = _solver_eps(cfg, dtype), ("fric", k, fd)
+    sol = qp_cuda.pdipm_fric(*args, bc(Minv), cfg.solver_max_iter, eps, 3, structure)
+    sol = _fallback(args, bc(Minv), sol, cfg, eps, structure, read_fallback)
     return -sol[0][:, :n], sol
 
 
@@ -435,9 +459,9 @@ def assemble_contact_lcp_lanes(bodies, contacts: Contacts, v, cfg: SimConfig, st
     return G, F, hvec + pad, k, fd, nineq
 
 
-def _eq_constrained_solve_lanes(Minv, Je, u):
+def _eq_constrained_solve_lanes(Minv, Je, u, b_eq=None):
     """``_eq_constrained_solve`` for B worlds: Minv (B, n, n), Je (B, neq,
-    n), u (B, D, n) -> x (B, D, n)."""
+    n), u (B, D, n), b_eq (B, neq) -> x (B, D, n)."""
     Minv_u = u @ Minv.transpose(-1, -2)
     neq = Je.shape[-2]
     if neq == 0:
@@ -445,6 +469,8 @@ def _eq_constrained_solve_lanes(Minv, Je, u):
     B, D, _ = u.shape
     S = Je @ Minv @ Je.transpose(-1, -2)
     rhs = Minv_u @ Je.transpose(-1, -2)
+    if b_eq is not None:
+        rhs = rhs - b_eq[:, None]
     y = -_small_solve(S[:, None].expand(B, D, neq, neq).reshape(B * D, neq, neq), rhs.reshape(B * D, neq))
     return Minv_u + (y.reshape(B, D, neq) @ Je) @ Minv.transpose(-1, -2)
 
@@ -454,10 +480,11 @@ def _lane_select(pred, a, b):
     return torch.where(pred.reshape(pred.shape + (1,) * (a.dim() - 1)), a, b)
 
 
-def probe_dynamics_lanes(bodies, joints, forces, state, dts, cfg: SimConfig, any_contact: bool):
+def probe_dynamics_lanes(bodies, joints, forces, state, dts, cfg: SimConfig, any_contact: bool, *, read_fallback):
     """``probe_dynamics_batch`` for B worlds: dts (B, D), the state with a
     lane axis. One K1 launch over the B D problems (lane-major) when the
-    host knows some lane starts with a contact (``any_contact``); each lane
+    host knows some lane starts with a contact (``any_contact``), and the
+    solver fallback's one re-solve of them all when it triggers; each lane
     takes the LCP's solution or, without a valid contact, the exact
     equality-constrained solve, as the JAX package's vmapped ``lax.cond``
     selects. Returns (new_vs (B, D, 6nb), sol with leaves (B, D, ...))."""
@@ -481,14 +508,44 @@ def probe_dynamics_lanes(bodies, joints, forces, state, dts, cfg: SimConfig, any
 
     G, F, hvec, _, _, _ = assemble_contact_lcp_lanes(bodies, state.contacts, v, cfg, stop_grads=True)
     bc = lambda a: a[:, None].expand((B, D) + a.shape[1:]).reshape((B * D,) + a.shape[1:])  # noqa: E731
-    sol = qp_cuda.pdipm_fric(
-        bc(M), u.reshape(B * D, n), bc(G), bc(hvec), bc(Je), torch.zeros((B * D, neq), dtype=dtype, device=device),
-        bc(F), bc(Minv), cfg.solver_max_iter, _solver_eps(cfg, dtype), 3, ("fric", k, fd),
-    )
+    args = (bc(M), u.reshape(B * D, n), bc(G), bc(hvec), bc(Je), torch.zeros((B * D, neq), dtype=dtype, device=device),
+            bc(F))
+    eps, structure = _solver_eps(cfg, dtype), ("fric", k, fd)
+    sol = qp_cuda.pdipm_fric(*args, bc(Minv), cfg.solver_max_iter, eps, 3, structure)
+    sol = _fallback(args, bc(Minv), sol, cfg, eps, structure, read_fallback)
     sol = tuple(x.reshape((B, D) + x.shape[1:]) for x in sol)
     contact = torch.any(state.contacts.valid, dim=-1)
     sol = tuple(_lane_select(contact, a, b) for a, b in zip(sol, sol_eq))
     return -sol[0][..., :n], sol
+
+
+def post_stabilization_lanes(bodies, joints, state, contacts: Contacts, cfg: SimConfig, any_contact: bool):
+    """``post_stabilization`` of B worlds (the state and contact buffer with
+    a lane axis): one batched solve of every lane's contact LCP (F = 0, the
+    ``("plain",)`` structure, as the JAX package's vmapped ``lcp_solve``:
+    its XLA solver, not the PDIPM kernel) when the host knows some lane has
+    a valid contact (``any_contact``); a lane without a valid contact takes
+    the exact equality-constrained solve. Returns (B, 6nb)."""
+    B, nb = state.pos.shape[:2]
+    n = 6 * nb
+    dtype, device = state.v.dtype, state.v.device
+    v = state.v.reshape(B, n)
+    M, Minv = mass_matrix_lanes(bodies, state.quat)
+    Je = joint_jacobian_lanes(joints, nb, state)
+    ge = (Je @ v[:, :, None])[..., 0]
+    x_eq = _eq_constrained_solve_lanes(Minv, Je, torch.zeros((B, 1, n), dtype=dtype, device=device), b_eq=ge)[:, 0]
+    if not any_contact:
+        return -x_eq
+    Jc = contact_jacobian(contacts, nb, cfg.stop_contact_grad)
+    rest = body_lanes(bodies, "restitution", B)
+    restitution = 0.5 * (torch.gather(rest, 1, contacts.i1) + torch.gather(rest, 1, contacts.i2))
+    jv = (Jc @ v[:, :, None])[..., 0]
+    gc = jv + jv * -restitution + (~contacts.valid).to(dtype)
+    k = Jc.shape[1]
+    x = lcp_solve(M, torch.zeros((B, n), dtype=dtype, device=device), Jc, gc, Je, ge,
+                  torch.zeros((B, k, k), dtype=dtype, device=device), cfg.solver_max_iter, cfg.solver_eps, 3,
+                  ("plain",))
+    return _lane_select(torch.any(contacts.valid, dim=-1), -x[:, :n], -x_eq)
 
 
 def replay_dynamics_lanes(bodies, joints, forces, state, dt, cfg: SimConfig, lcp_sol, any_contact: bool):

@@ -119,6 +119,14 @@ class WorldSpec:
             self.host_reads[kind] += 1
         return bool(x)
 
+    def read_fallback(self, x: torch.Tensor) -> bool:
+        """The solver fallback's trigger (``cfg.solver_fallback``) read on
+        the host, counted as a read of kind ``"fallback"``; a re-solve it
+        starts counts in ``stages["resolve"]``."""
+        bad = self.host_bool(x, "fallback")
+        self.stages["resolve"] += bad
+        return bad
+
 
 def _requires_grad(tensors) -> bool:
     return any(isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
@@ -202,7 +210,8 @@ def _probe_rungs(spec: WorldSpec, state: WorldState, dt_frame, thresh, lo: int, 
     ar = torch.arange(lo, hi + 1, dtype=dt_frame.dtype, device=dt_frame.device)
     dts = dt_frame * torch.pow(0.5, ar)
     new_vs, sol = probe_dynamics_batch(
-        spec.bodies, spec.joints, spec.forces, state, state.contacts, dts, cfg, any_contact=any_contact
+        spec.bodies, spec.joints, spec.forces, state, state.contacts, dts, cfg, any_contact=any_contact,
+        read_fallback=spec.read_fallback,
     )
     q2, p2 = _integrate(state.quat[None], state.pos[None], new_vs.reshape(D, -1, 6), dts[:, None, None])
     raw = search_contacts_raw(spec.bodies, q2, p2, spec.directed_pairs, cfg)

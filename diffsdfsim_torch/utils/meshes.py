@@ -102,6 +102,13 @@ def cube_template(n: int = 8):
     return verts, faces.astype(np.int32)
 
 
+def face_areas(verts, faces):
+    """(F,) triangle areas of a mesh (verts (V, 3), faces (F, 3))."""
+    faces = torch.as_tensor(faces, dtype=torch.long, device=verts.device)
+    v0, v1, v2 = verts[faces[:, 0]], verts[faces[:, 1]], verts[faces[:, 2]]
+    return 0.5 * torch.linalg.norm(torch.linalg.cross(v1 - v0, v2 - v0, dim=-1), dim=-1)
+
+
 def chamfer_distance(x, y):
     """Symmetric mean squared chamfer distance between point sets (N, 3)
     and (M, 3): the mean over x of the squared distance to the nearest

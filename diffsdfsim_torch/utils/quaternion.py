@@ -197,3 +197,9 @@ def random_quaternions(n: int, generator=None, dtype=torch.float64, device="cpu"
     q = torch.randn((n, 4), generator=generator, dtype=dtype, device=device)
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def rotation_2d(theta):
+    """2D rotation matrices (..., 2, 2) (reference physics/utils.py rotation_matrix)."""
+    c, s = torch.cos(theta), torch.sin(theta)
+    return torch.stack([torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2)

@@ -1,4 +1,5 @@
-"""Vector helpers: safe normalization, orthogonals, skew matrices.
+"""Vector helpers: safe normalization, orthogonals, skew matrices, polar
+coordinates and the 2D cross product.
 
 PyTorch counterpart of ``diffsdfsim_tpu/utils/spherical.py``. ``normalize``
 keeps the safe-norm form sqrt(max(sum v^2, eps^2)): its derivative is finite
@@ -56,3 +57,26 @@ def cart_to_spherical(v, positive=True):
 def spherical_to_cart(r, theta, phi):
     rcos = r * torch.cos(theta)
     return torch.stack([rcos * torch.cos(phi), rcos * torch.sin(phi), r * torch.sin(theta)], dim=-1)
+
+
+def cart_to_polar(v, positive=True):
+    """2-vector -> (r, theta), theta in [0, 2 pi) when ``positive``."""
+    r = torch.linalg.norm(v, dim=-1)
+    theta = torch.atan2(v[..., 1], v[..., 0])
+    if positive:
+        theta = torch.where(theta < 0, theta + 2.0 * math.pi, theta)
+    return r, theta
+
+
+def polar_to_cart(r, theta):
+    return torch.stack([r * torch.cos(theta), r * torch.sin(theta)], dim=-1)
+
+
+def left_orthogonal(v):
+    """2D left-orthogonal [v_y, -v_x] (reference physics/utils.py)."""
+    return torch.stack([v[..., 1], -v[..., 0]], dim=-1)
+
+
+def cross_2d(a, b):
+    """Scalar z-component of the 2D cross product."""
+    return a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]

@@ -15,7 +15,8 @@ rungs, K2 at 1 problem), optim_pointcloud's fd = 4 (K1 at 3 rungs, K2 at 6
 problems; K2 also on the sysid friction fit's taped replays, where the
 friction cones are tight), optim_sphere's room (nz 18, neq 12, k 8: K1
 at 3 and 150 problems, K2 at 1 and 50, the runtime-sized instantiation);
-a latent lane body's query (one K4 launch for all lanes); both bench
+a latent lane body's query (one K4 launch for all lanes); K1's solver
+fallback relaunch; both bench
 directed pairs (768-face floor,
 320-face sphere) at three rung poses, a 3072-face floor (K3 on a cluster
 per pose) and a 20,480-face sphere (past K3's one-face-per-thread cap);
@@ -69,6 +70,31 @@ def test_pdipm_kernel_matches_plain(cuda, k, B):
     sol_p = pdipm_solve_raw(*args, 10, 1e-12, 3, ("fric", k, 8))
     assert float((sol_k[0] - sol_p[0]).abs().max()) <= 1e-8
     assert bool(torch.all(lcp_residuals(*args, sol_k) <= 10 * lcp_residuals(*args, sol_p) + 1e-10))
+
+
+@pytest.mark.parametrize("B", [3, 16])
+def test_pdipm_kernel_fallback_relaunch(cuda, B):
+    """The solver fallback on the card (``ops/qp.escalated_resolve``): bench
+    LCPs under-solved by K1 at one iteration trigger one relaunch of K1 on
+    the whole batch at 30 iterations (stall limit 6), equal to the plain
+    fallback (a fresh plain solve at 30) within 1e-10; a converged batch
+    triggers none."""
+    from diffsdfsim_torch.ops.qp import escalated_resolve, lcp_residuals, pdipm_solve_raw
+    from diffsdfsim_torch.ops.qp_cuda import pdipm_fric
+
+    Q, p, G, h, A, b, F, invQ = _lcps(B, cuda)
+    args, structure = (Q, p, G, h, A, b, F), ("fric", 4, 8)
+    rough = pdipm_fric(*args, invQ, 1, 1e-12, 3, structure)
+    before = pdipm_fric.launches
+    sol = escalated_resolve(*args, invQ, rough, iters_hi=30, eps=1e-12, thresh=1e-3, structure=structure, read=bool)
+    torch.cuda.synchronize()
+    assert pdipm_fric.launches == before + 1
+    plain = pdipm_solve_raw(*args, 30, 1e-12, 6, structure)
+    assert float((sol[0] - plain[0]).abs().max()) <= 1e-10
+    assert float(lcp_residuals(*args, sol).max()) < 1e-8
+    assert escalated_resolve(*args, invQ, sol, iters_hi=30, eps=1e-12, thresh=1e-3, structure=structure,
+                             read=bool) is sol
+    assert pdipm_fric.launches == before + 1
 
 
 @pytest.mark.parametrize("B", [3, 150])
@@ -637,3 +663,29 @@ def test_kkt_grad_kernel_tight_cones(cuda, dtype):
         assert e_k <= 1e-9
     else:
         assert e_k <= 1e-4 and e_k <= rel(kkt_grad_plain(*ins, structure))
+
+
+def test_utility_entry_points_default_to_the_card(cuda, tmp_path):
+    """``viz.sample_sdf_volume``, ``marching2d.grid_from_sdf_fn``,
+    ``contour_2d`` on a numpy grid and ``checkpoint.load_state`` without
+    ``like`` work on the card when no device is named; ``load_state`` with
+    ``like`` follows the ``like`` tensors."""
+    from diffsdfsim_torch.ops.marching2d import grid_from_sdf_fn
+    from diffsdfsim_torch.physics2d import contour_2d
+    from diffsdfsim_torch.utils import checkpoint, viz
+
+    seen = []
+
+    def sdf(p, r):
+        seen.append(p.device.type)
+        return torch.linalg.norm(p, dim=-1) - r
+
+    assert viz.sample_sdf_volume(sdf, (0.5,), res=9).shape == (9, 9, 9) and seen == ["cuda"]
+    g = grid_from_sdf_fn(lambda p: torch.linalg.norm(p, dim=-1) - 0.3, 17)
+    assert g.is_cuda
+    segs, valid = contour_2d(g.cpu().numpy(), 2.0)
+    assert segs.is_cuda and valid.is_cuda and bool(valid.any())
+    path = tmp_path / "state.pkl"
+    checkpoint.save_state(path, {"a": torch.arange(3.0, device=cuda)})
+    assert checkpoint.load_state(path)["a"].is_cuda
+    assert checkpoint.load_state(path, like={"a": torch.zeros(3)})["a"].device.type == "cpu"

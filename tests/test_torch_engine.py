@@ -60,7 +60,7 @@ def test_probe_dynamics_batch(worlds, state, D):
 
     jv, jx = _from_jax(jax_side)
     tv, tsol = teng.probe_dynamics_batch(tspec.bodies, tspec.joints, tspec.forces, tst, tst.contacts,
-                                         torch.tensor(dts), tspec.cfg)
+                                         torch.tensor(dts), tspec.cfg, read_fallback=tspec.read_fallback)
     np.testing.assert_allclose(tv.numpy(), jv, rtol=0, atol=ATOL)
     np.testing.assert_allclose(tsol[0].numpy(), jx, rtol=0, atol=ATOL)
     if state == "contact":

@@ -6,32 +6,45 @@ numpy seed handed to both packages.
 Tolerances: values and first derivatives 1e-12 absolute (same formulas,
 matmul rounding only); the mixed second derivative d/d latent of the point
 gradient 1e-10; the checkpoint round trip against a torch forward 1e-10.
+
+The JAX side is read from ``tests/golden/igr_jax.pkl``
+(``gen_torch_igr_golden.py`` runs these tests with the JAX calls live,
+``torch_jax_bridge.JaxGolden``); the HOCON parser, plain Python in both
+packages, is held live.
 """
 
-import jax
-import jax.numpy as jnp
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from diffsdfsim_torch.models import igr as tigr
 from diffsdfsim_torch.ops.igr_cuda import igr_mlp
-from diffsdfsim_tpu.models import igr as jigr
-from torch_jax_bridge import one_torch_thread  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread  # noqa: F401
 
 DIMS, SKIP = (32,) * 4, (2,)
+_from_jax = JaxGolden(os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "igr_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
+
+
+def _jax_params(net):
+    """The JAX package's decoder parameters holding the port net's weights."""
+    import jax.numpy as jnp
+    from diffsdfsim_tpu.models import igr as jigr
+
+    p = net.params()
+    return jigr.ImplicitNetParams(tuple(jnp.asarray(w.numpy()) for w in p.weights),
+                                  tuple(jnp.asarray(b.numpy()) for b in p.biases), SKIP, 5)
 
 
 @pytest.fixture(scope="module")
 def nets():
     net = tigr.init_implicit_net(5, DIMS, SKIP, radius_init=0.55, generator=np.random.default_rng(0))
-    p = net.params()
-    jp = jigr.ImplicitNetParams(tuple(jnp.asarray(w.numpy()) for w in p.weights),
-                                tuple(jnp.asarray(b.numpy()) for b in p.biases), SKIP, 5)
     rng = np.random.default_rng(1)
     pts = rng.uniform(-1.0, 1.0, (64, 3))
     pts[0] = 0.0
-    return net, jp, pts, rng.normal(size=2) * 0.3
+    return net, None, pts, rng.normal(size=2) * 0.3
 
 
 def test_structure_and_frozen_weights(nets):
@@ -53,36 +66,52 @@ def test_geometric_init_approximates_sphere(nets):
 
 
 def test_values_point_and_latent_gradients_match_jax(nets):
-    net, jp, pts, lat = nets
-    jdec = jigr.make_decoder(jp)
+    net, _, pts, lat = nets
     z = torch.tensor(lat, requires_grad=True)
     vals = tigr.decode(net, torch.tensor(pts), z)
     grads = tigr.decode_grad(net, torch.tensor(pts), torch.tensor(lat))
     (gz,) = torch.autograd.grad(vals.sum(), z)
 
-    @jax.jit
-    def ref(p, zz):
-        f = lambda p, zz: jnp.sum(jdec(p, zz))  # noqa: E731
-        return jdec(p, zz), jax.grad(f, 0)(p, zz), jax.grad(f, 1)(p, zz)
+    def jax_side():
+        import jax
+        import jax.numpy as jnp
+        from diffsdfsim_tpu.models import igr as jigr
 
-    for a, b in zip((vals, grads, gz), ref(jnp.asarray(pts), jnp.asarray(lat))):
-        np.testing.assert_allclose(a.detach().numpy(), np.asarray(b), rtol=0, atol=1e-12)
+        jdec = jigr.make_decoder(_jax_params(net))
+
+        @jax.jit
+        def ref(p, zz):
+            f = lambda p, zz: jnp.sum(jdec(p, zz))  # noqa: E731
+            return jdec(p, zz), jax.grad(f, 0)(p, zz), jax.grad(f, 1)(p, zz)
+
+        return ref(jnp.asarray(pts), jnp.asarray(lat))
+
+    for a, b in zip((vals, grads, gz), _from_jax(jax_side)):
+        np.testing.assert_allclose(a.detach().numpy(), b, rtol=0, atol=1e-12)
 
 
 def test_point_gradient_differentiates_in_the_latent(nets):
     """d/d latent of sum(w * d decoder / d pts): the mixed second derivative
     the contact normals carry into d loss / d latent."""
-    net, jp, pts, lat = nets
-    jdec = jigr.make_decoder(jp)
+    net, _, pts, lat = nets
     w = np.random.default_rng(2).normal(size=pts.shape)
     z = torch.tensor(lat, requires_grad=True)
     (gz,) = torch.autograd.grad(torch.sum(tigr.decode_grad(net, torch.tensor(pts), z) * torch.tensor(w)), z)
 
-    def f(zz):
-        g = jax.grad(lambda p: jnp.sum(jdec(p, zz)))(jnp.asarray(pts))
-        return jnp.sum(g * w)
+    def jax_side():
+        import jax
+        import jax.numpy as jnp
+        from diffsdfsim_tpu.models import igr as jigr
 
-    np.testing.assert_allclose(gz.numpy(), np.asarray(jax.jit(jax.grad(f))(jnp.asarray(lat))), rtol=0, atol=1e-10)
+        jdec = jigr.make_decoder(_jax_params(net))
+
+        def f(zz):
+            g = jax.grad(lambda p: jnp.sum(jdec(p, zz)))(jnp.asarray(pts))
+            return jnp.sum(g * w)
+
+        return jax.jit(jax.grad(f))(jnp.asarray(lat))
+
+    np.testing.assert_allclose(gz.numpy(), _from_jax(jax_side), rtol=0, atol=1e-10)
 
 
 def test_kernel_wrapper_takes_the_plain_version_on_cpu(nets):
@@ -121,7 +150,15 @@ def test_checkpoint_roundtrip(tmp_path, weight_norm):
     torch.save({"latent_codes": {"weight": torch.randn(5, 2, dtype=torch.float64, generator=g)}}, lp)
 
     net, codes = tigr.load_torch_checkpoint(str(mp), str(lp), skip_in=(), device="cpu")
-    jparams, jcodes = jigr.load_torch_checkpoint(str(mp), str(lp), skip_in=())
+
+    def jax_side():
+        import jax.numpy as jnp
+        from diffsdfsim_tpu.models import igr as jigr
+
+        jparams, jcodes = jigr.load_torch_checkpoint(str(mp), str(lp), skip_in=())
+        return jcodes, jigr.implicit_net_apply(jparams, jnp.asarray(np.ones((3, 8))))
+
+    jcodes, jout = _from_jax(jax_side)
     assert codes.shape == (5, 2)
     np.testing.assert_array_equal(codes.numpy(), np.asarray(jcodes))
     x = torch.ones(3, 8, dtype=torch.float64)
@@ -131,8 +168,7 @@ def test_checkpoint_roundtrip(tmp_path, weight_norm):
         if i < len(ws) - 1:
             tx = torch.nn.functional.softplus(tx, beta=100)
     np.testing.assert_allclose(net(x).numpy(), tx[:, 0].numpy(), rtol=0, atol=1e-10)
-    np.testing.assert_allclose(net(x).numpy(), np.asarray(jigr.implicit_net_apply(jparams, jnp.asarray(x.numpy()))),
-                               rtol=0, atol=1e-10)
+    np.testing.assert_allclose(net(x).numpy(), jout, rtol=0, atol=1e-10)
 
 
 def test_hocon_lite_matches_jax():
@@ -144,6 +180,8 @@ def test_hocon_lite_matches_jax():
         "loss" : { lambda = 0.1 }
     }
     """
+    from diffsdfsim_tpu.models import igr as jigr
+
     assert tigr._parse_hocon_lite(text) == jigr._parse_hocon_lite(text)
 
 

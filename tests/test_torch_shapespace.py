@@ -5,8 +5,10 @@ the decoder ``(32,)*4`` with a skip at 2 and geometric init toward radius
 
 - ``query_sdfs`` of a latent body (the JAX body built through
   tests/torch_jax_bridge.py), the static kernel choice, the body's interop
-  round trip, ``parse_cli`` and ``trajectory_loss``: live against JAX,
-  1e-10 absolute (1e-14 for the losses).
+  round trip, ``parse_cli`` and ``trajectory_loss``: against JAX, 1e-10
+  absolute (1e-14 for the losses). The JAX side of these is read from
+  ``tests/golden/shapespace_jax.pkl`` (``gen_torch_shapespace_jax_golden.py``
+  runs these tests with the JAX calls live, ``torch_jax_bridge.JaxGolden``).
 - ``make_body`` (verts and inertia, 1e-10) and one latent-to-floor contact
   search (1e-9 for its per-face outputs, which go through 32 Frank-Wolfe and
   10 polish steps) against the JAX package's values in the golden file
@@ -22,17 +24,18 @@ the decoder ``(32,)*4`` with a skip at 2 and geometric init toward radius
 
 import os
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from diffsdfsim_torch.models import igr as tigr
 from diffsdfsim_torch.physics import shapes as tshapes
-from torch_jax_bridge import one_torch_thread  # noqa: F401
+from torch_jax_bridge import JaxGolden, one_torch_thread  # noqa: F401
 
-GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden", "latent32_f64.npz")
+HERE = os.path.dirname(os.path.abspath(__file__))
+GOLDEN = os.path.join(HERE, "golden", "latent32_f64.npz")
+_from_jax = JaxGolden(os.path.join(HERE, "golden", "shapespace_jax.pkl"))
+_jax_golden_file, _jax_golden_call = _from_jax.fixtures()
 
 
 @pytest.fixture(scope="module")
@@ -59,7 +62,13 @@ def test_latent_query_sdfs_matches_jax(net, golden):
 
     _, body = _bodies(net, golden["start_latent"])
     pts = np.random.default_rng(0).uniform(-1.1, 1.1, (100, 3))
-    for a, b in zip(body.query_sdfs(torch.tensor(pts)), jax.jit(jax_body_from_torch(body).query_sdfs)(pts)):
+
+    def jax_side():
+        import jax
+
+        return jax.jit(jax_body_from_torch(body).query_sdfs)(pts)
+
+    for a, b in zip(body.query_sdfs(torch.tensor(pts)), _from_jax(jax_side)):
         _close(a, b)
 
 
@@ -123,6 +132,7 @@ def test_latent_body_interop_roundtrip(net, golden):
 
 
 def test_parse_cli_matches_jax():
+    """The JAX package's ``parse_cli`` is plain Python: held live."""
     from diffsdfsim_torch.experiments import common as tcommon
     from diffsdfsim_torch.experiments.optim_shapespace import DEFAULTS
     from diffsdfsim_tpu.experiments import common as jcommon
@@ -136,22 +146,33 @@ def test_parse_cli_matches_jax():
 def test_trajectory_loss_matches_jax():
     from diffsdfsim_torch.experiments.losses import final_velocity_loss, trajectory_loss
     from diffsdfsim_torch.physics.world import Trajectory
-    from diffsdfsim_tpu.experiments import losses as jlosses
-    from diffsdfsim_tpu.physics.world import Trajectory as JTrajectory
 
     rng = np.random.default_rng(2)
 
     def trajs(T):
-        d = dict(t=np.sort(rng.uniform(0, 1, (T, 4)).reshape(-1)).reshape(T, 4), quat=rng.normal(size=(T, 4, 2, 4)),
-                 pos=rng.normal(size=(T, 4, 2, 3)), v=rng.normal(size=(T, 4, 2, 6)), valid=rng.random((T, 4)) < 0.7,
-                 bisect_failed=np.zeros((T, 4), bool), truncated=np.zeros(T, bool), n_halvings=np.zeros((T, 4), int))
-        return Trajectory(**{k: torch.tensor(v) for k, v in d.items()}), JTrajectory(**{k: jnp.asarray(v) for k, v in d.items()})
+        return dict(t=np.sort(rng.uniform(0, 1, (T, 4)).reshape(-1)).reshape(T, 4), quat=rng.normal(size=(T, 4, 2, 4)),
+                    pos=rng.normal(size=(T, 4, 2, 3)), v=rng.normal(size=(T, 4, 2, 6)), valid=rng.random((T, 4)) < 0.7,
+                    bisect_failed=np.zeros((T, 4), bool), truncated=np.zeros(T, bool),
+                    n_halvings=np.zeros((T, 4), int))
 
-    (a, ja), (b, jb) = trajs(6), trajs(5)
-    for kw in ({}, {"with_vel": True, "vel_weight": 0.3}):
-        jl = jax.jit(lambda x, y: jlosses.trajectory_loss(x, y, body=1, **kw))(ja, jb)
+    da, db = trajs(6), trajs(5)
+    kws = ({}, {"with_vel": True, "vel_weight": 0.3})
+
+    def jax_side():
+        import jax
+        import jax.numpy as jnp
+        from diffsdfsim_tpu.experiments import losses as jlosses
+        from diffsdfsim_tpu.physics.world import Trajectory as JTrajectory
+
+        ja, jb = (JTrajectory(**{k: jnp.asarray(v) for k, v in d.items()}) for d in (da, db))
+        return tuple(jax.jit(lambda x, y: jlosses.trajectory_loss(x, y, body=1, **kw))(ja, jb) for kw in kws) + (
+            jlosses.final_velocity_loss(ja.v[0, 0], jb.v[0, 0], 1),)
+
+    j = _from_jax(jax_side)
+    a, b = (Trajectory(**{k: torch.tensor(v) for k, v in d.items()}) for d in (da, db))
+    for kw, jl in zip(kws, j):
         _close(trajectory_loss(a, b, body=1, **kw), jl, atol=1e-14)
-    _close(final_velocity_loss(a.v[0, 0], b.v[0, 0], 1), jlosses.final_velocity_loss(ja.v[0, 0], jb.v[0, 0], 1), atol=1e-14)
+    _close(final_velocity_loss(a.v[0, 0], b.v[0, 0], 1), j[-1], atol=1e-14)
 
 
 def _scene(golden):

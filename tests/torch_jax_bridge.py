@@ -59,8 +59,10 @@ def jax_body_from_torch(tb):
     from diffsdfsim_tpu.physics import shapes as jshapes
     from diffsdfsim_tpu.physics.bodies import BodyDef
 
+    from diffsdfsim_tpu.physics2d import facade as jfacade
+
     d = interop.body_to_numpy(tb)
-    cls = getattr(jshapes, d["shape"])
+    cls = getattr(jshapes, d["shape"], None) or getattr(jfacade, d["shape"])
     kw = {name: jnp.asarray(d[name]) for name in cls.__dataclass_fields__ if name != "decoder"}
     if d["shape"] == "LatentShape":
         kw["decoder"] = jax_decoder(d)

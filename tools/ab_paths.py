@@ -153,10 +153,10 @@ class k1_rule:
             return self
         rule = self
 
-        def probe_grouped(bodies, joints, forces, state, dts, cfg, any_contact):
+        def probe_grouped(bodies, joints, forces, state, dts, cfg, any_contact, **kw):
             rule.group = dts.shape[1]
             try:
-                return rule.probe(bodies, joints, forces, state, dts, cfg, any_contact)
+                return rule.probe(bodies, joints, forces, state, dts, cfg, any_contact, **kw)
             finally:
                 rule.group = None
 
