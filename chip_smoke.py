@@ -13,7 +13,9 @@ sysid floor and cube both lane bodies at 48 and 96; K1 and K2 also at
 optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4; K2 also
 on a case whose contacts' friction cones are all tight, against the exact
 solution in float64 and float32; K4 also refusing weights that require
-grad), then drives thirteen paths of the port on CUDA (float64):
+grad; K5's lane entry also at 16 lanes of their own 64^3 grid against its
+plain version and against one single launch per lane), then drives fifteen
+paths of the port on CUDA (float64):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
   (PDIPM) and K3 (Frank-Wolfe search), held against the plain CPU rollout
@@ -67,7 +69,16 @@ grad), then drives thirteen paths of the port on CUDA (float64):
 - the solver fallback (K1 relaunched on the whole batch) on under-solved
   LCPs and the under-iterated bench, single and at B = 16, and
   post-stabilization on a 16-lane sweep, lane by lane against the single
-  path.
+  path;
+- seed sweeps of lane bodies of every shape class (tests/scenes_lanes.py):
+  16 voxel-grid balls on 64^3 grids with d / d scale (one K5 lane launch
+  per grid query of the batch, counted), 8 bowls, 4 scaled hull stacks
+  under the analytic narrowphase and 4 65 x 65 2D grid circles with d
+  height / d grid values, against the JAX goldens and every lane against
+  the single path on the card;
+- the MeshSDF demo (diffsdfsim_torch.demos.meshsdf) at the reference
+  decoder's full width with the JAX demo's weights: 2 SGD iterations
+  against the JAX golden (K4, K1, K2).
 
 The kernel checks run first, with the card to themselves. The paths then
 run in four groups, each a process of this script (``--group``), all on the
@@ -1332,7 +1343,130 @@ def phase_k5():
                       f"ms ({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
                 rows[(dtype, res, n)] = dict(err=abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                                              library_ms=library_ms, bytes_ms=bytes_ms, ops_ms=ops_ms)
+        rows[(dtype, "lanes")] = k5_lanes(dtype)
     return rows
+
+
+# the K5 lane entry's case: a seed sweep of K5_LANES grid bodies on 64^3
+# grids (phase_lanes_3d's grid sweep), a probe stage of K5_LANE_POSES rungs of
+# the ball's 320 faces per lane (the single grid drop's most frequent query
+# size, 960 points, in every lane)
+K5_LANES, K5_LANE_POSES, K5_LANE_N = 16, 3, 320
+
+
+def k5_lanes(dtype, res=64):
+    """K5's lane entry (grid_query_lanes) at K5_LANES lanes of their own
+    grid and scale, against its plain version (torch.func.vmap of
+    sdf.grid_query, every output as k5_query_errors holds the single query)
+    and bitwise against one single launch per lane, also with one grid every
+    lane shares (lane stride 0); the public lane query and a GridShape lane
+    body's query (torch.func.vmap, the Function's vmap rule) are one launch
+    each with no synchronizing host copy, and make_body_lanes builds a grid
+    lane body through lane launches alone. Its time: kernel, the public
+    query's wrapper, the plain version, and grid_sample on the lanes'
+    4-channel volumes as one batched call; the bound counts each lane's
+    min(32 M, X Y Z) grid values, the points, scales and outputs."""
+    import torch
+    from diffsdfsim_torch.ops import sdf
+    from diffsdfsim_torch.ops.grid_cuda import grid_query_kernel, grid_query_lanes, grid_query_lanes_kernel
+    from diffsdfsim_torch.physics import GridShape, make_body
+    from diffsdfsim_torch.physics.bodies import make_body_lanes, stack_lanes
+
+    L, d, n = K5_LANES, K5_LANE_POSES, K5_LANE_N
+    M = d * n
+    rads = np.linspace(0.4, 0.6, L)
+    grids = torch.tensor(np.stack([sphere_grid(res) + (0.5 - r) / 0.75 for r in rads]), dtype=dtype, device="cuda")
+    scales = torch.tensor(np.linspace(0.7, 0.8, L), dtype=dtype, device="cuda")
+    pts = torch.tensor(np.stack([k5_query_points(res, float(scales[i // d]), n, seed=100 + i) for i in range(L * d)]),
+                       dtype=dtype, device="cuda")  # (R, N, 3), lane-major
+    x = pts.reshape(L, M, 3)
+    tag = f"K5 lane entry {str(dtype).split('.')[1]} {res}^3 L={L} d={d} N={n}"
+    worst, errs_all, bitwise, abs_err = True, {}, True, 0.0
+    for shared in (False, True):
+        g = grids[0] if shared else grids
+        outs = grid_query_lanes_kernel.run(x, g, scales, True, True, True)
+        for lane in range(L):
+            gl = g if shared else grids[lane]
+            ref = k5_query_plain(x[lane], gl, scales[lane])
+            mine = [o[lane] for o in outs]
+            errs, ok = k5_query_errors(mine, ref)
+            worst = worst and ok
+            errs_all = {k: max(v, errs_all.get(k, 0.0)) for k, v in errs.items()}
+            abs_err = max(abs_err, max(float((o - r).abs().max()) for o, r in zip(mine, ref)))
+            one = grid_query_kernel.run(x[lane], gl, scales[lane], True, True, True)
+            bitwise = bitwise and all(torch.equal(a, b) for a, b in zip(mine, one))
+    torch.cuda.synchronize()
+    line = (f"{tag}: against the plain version max abs err {abs_err:.3e}, ulps "
+            + ", ".join(f"{k} {v:g}" for k, v in errs_all.items())
+            + f" (tol {K5_ULPS}); bitwise one single launch per lane {bitwise} (per-lane and shared grids)")
+    check(worst and bitwise, f"{tag}: the lane entry differs: {line}")
+    # the public lane query and a GridShape lane body's query: one launch, no sync
+    bodies = [make_body(GridShape(grids[i], scales[i]), template="ico", subdiv=2, project_iters=16, device="cuda",
+                        dtype=dtype) for i in range(2)]
+    lane_body = stack_lanes(bodies)
+    bpts = pts[:2 * d].reshape(2, M, 3)
+    for what, fn in (("grid_query_lanes", lambda: grid_query_lanes(pts, grids, scales)),
+                     ("a GridShape lane body's query", lambda: lane_body.query_sdfs(bpts))):
+        b0, s0 = grid_query_lanes_kernel.launches, grid_query_kernel.launches
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(grid_query_lanes_kernel.launches == b0 + 1 and grid_query_kernel.launches == s0,
+              f"{tag}: {what} made {grid_query_lanes_kernel.launches - b0} lane and "
+              f"{grid_query_kernel.launches - s0} single launches")
+    ref_body = [query_sdfs_plain(bodies[i].shape, bpts[i]) for i in range(2)]
+    check(all(torch.equal(out[k][i], ref_body[i][k]) for i in range(2) for k in range(2)),
+          f"{tag}: a lane body's query differs from each lane's single query")
+    # a grid lane body built by one vmapped construction: every projection
+    # query one lane launch, the body each lane's make_body
+    b0, s0 = grid_query_lanes_kernel.launches, grid_query_kernel.launches
+    built = make_body_lanes(lambda p: GridShape(p[0], p[1]), (grids[:2], scales[:2]), template="ico", subdiv=2,
+                            project_iters=16, device="cuda", dtype=dtype)
+    torch.cuda.synchronize()
+    n_lane, n_single = grid_query_lanes_kernel.launches - b0, grid_query_kernel.launches - s0
+    e_body = max(float((built.tensors()[k] - v).abs().max()) for k, v in lane_body.tensors().items())
+    print(f"{tag}: make_body_lanes of 2 grid bodies: {n_lane} lane launches, {n_single} single launches, "
+          f"{e_body:.2e} from stack_lanes of each lane's make_body")
+    # the vmapped construction's reductions (the inertia's sums) may round
+    # otherwise than one lane's: 1.6e-19 in float64, 9.2e-11 in float32 on an H100
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    check(n_lane > 0 and n_single == 0 and e_body <= tol, f"{tag}: make_body_lanes: {n_lane} lane and {n_single} "
+          f"single launches, {e_body:.2e} from each lane's make_body (tol {tol:g})")
+    ms, how = device_ms(lambda: grid_query_lanes_kernel.run(x, grids, scales, grad=True), "grid_query_kernel")
+    wrapper_ms = cuda_ms(lambda: grid_query_lanes(pts, grids, scales))
+    plain = torch.func.vmap(lambda p, g, s: sdf.grid_query(p, g, s))
+    plain_ms = cuda_ms(lambda: plain(x, grids, scales))
+    vols = torch.stack([torch.cat([grids[i][None], sdf.grid_grad_volume(grids[i])]) for i in range(L)])
+    pin = x / scales[:, None, None]
+    inds, valid = sdf._grid_inds(pin, grids.shape[1:])
+    inds = torch.where(valid[..., None], inds, torch.zeros_like(inds))
+    size = torch.tensor(grids.shape[1:], dtype=dtype, device="cuda")
+    coords = (inds / (size - 1.0) * 2.0 - 1.0).flip(-1).reshape(L, 1, 1, M, 3)
+    library_ms = cuda_ms(lambda: torch.nn.functional.grid_sample(vols, coords, mode="bilinear",
+                                                                 padding_mode="border", align_corners=True))
+    del vols
+    esize = grids.element_size()
+    N = L * M
+    nbytes = (L * min(32 * M, grids[0].numel()) + 3 * N + L + 4 * N) * esize
+    flops = 240 * N
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / PEAK_FLOPS[str(dtype).split(".")[1]] * 1e3
+    print(f"{line}; one public query and one lane body's query: 1 launch each, no sync; kernel {ms:.4f} ms ({how}) "
+          f"(wrapper {wrapper_ms:.4f} ms), plain (vmap) {plain_ms:.4f} ms, grid_sample (L={L}, C=4) "
+          f"{library_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
+          f"({'bytes' if bytes_ms > ops_ms else 'operations'}: {nbytes} B, {flops} FLOP)")
+    return dict(err=abs_err, ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms, library_ms=library_ms,
+                bytes_ms=bytes_ms, ops_ms=ops_ms)
+
+
+def query_sdfs_plain(shape, pts):
+    """A GridShape's query by the plain version (ops/sdf.grid_query)."""
+    from diffsdfsim_torch.ops import sdf
+
+    return sdf.grid_query(pts, shape.grid, shape.scale_)
 
 
 # ---------------------------------------------------------------- phase 4
@@ -1860,23 +1994,24 @@ def batched_regions(fn):
 
 def reset_counts():
     from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
-    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel, grid_query_lanes_kernel
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
 
-    for k in (pdipm_fric, fw_search_pair, kkt_grad_fric, igr_mlp, grid_interp, grid_query_kernel):
+    for k in (pdipm_fric, fw_search_pair, kkt_grad_fric, igr_mlp, grid_interp, grid_query_kernel,
+              grid_query_lanes_kernel):
         k.launches = 0
 
 
 def read_counts():
     from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
-    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel
+    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel, grid_query_lanes_kernel
     from diffsdfsim_torch.ops.igr_cuda import igr_mlp
     from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
 
     return {"pdipm_fwd": pdipm_fric.launches, "fw_search": fw_search_pair.launches,
             "kkt_bwd": kkt_grad_fric.launches, "igr_mlp": igr_mlp.launches, "grid_query": grid_query_kernel.launches,
-            "grid_interp": grid_interp.launches}
+            "grid_query_lanes": grid_query_lanes_kernel.launches, "grid_interp": grid_interp.launches}
 
 
 def synced(fn):
@@ -3766,6 +3901,274 @@ def phase_fallback():
         check(dy <= ATOL_Y and d <= ATOL_ALL, f"post_stab lane {i}: height {dy:.2e} / {d:.2e} from the single path")
 
 
+LANES_GOLDEN = os.path.join(ROOT, "tests", "golden", "lanes_card_f64.npz")
+DEMO_GOLDEN = os.path.join(ROOT, "tests", "golden", "demo_card_f64.npz")
+# How the sweeps of grid, bowl, hull and 2D-grid bodies are held against
+# the JAX goldens: the same discrete decisions, poses within the single
+# scene's tolerance (the grid drop 1e-7, the marble 1e-7, the 2D scenes
+# 1e-8; the 2D grid up to a witnessed tie), d / d scale and d height / d
+# grid values within RTOL_LANE_GRAD relative; and each lane against the
+# port's single path on the card over all frames: decisions equal, poses
+# within ATOL_LANE_SINGLE, values and gradients within RTOL_LANE_SINGLE
+# relative. A 2D grid lane is held at the 2D scenes' 1e-8: on an H100 the
+# batched ops round a lane 1.8e-16 from its single run before its
+# touchdown, which moves it 8.0e-10 there (the same under K1's per-lane
+# stopping rule; the CPU lanes are bitwise their single runs). Where such
+# a lane parts from its single run with no tie of the kept contacts, it is
+# accepted only where the single world itself, restarted a frame before
+# and moved by 1e-12 m, parts from itself there (scenes_lanes.hold_single:
+# rounding decides those frames).
+ATOL_LANE_JAX = {"grid": 1e-7, "bowl": 1e-7, "hull": 1e-8, "grid2d": 1e-8}
+ATOL_LANE_SINGLE = {"grid": 1e-10, "bowl": 1e-10, "hull": 1e-10, "grid2d": 1e-8}
+RTOL_LANE_GRAD, RTOL_LANE_SINGLE = 1e-6, 1e-8
+# the demo's losses and latents against the JAX golden, relative
+RTOL_DEMO = 1e-6
+LANES_SIZE = "card"  # tests/scenes_lanes.py's size of the sweeps (the golden's)
+
+
+def lanes_module():
+    """tests/scenes_lanes.py (numpy only at import; the port's namespace)."""
+    scenes2d_module()
+    import scenes_lanes
+
+    return scenes_lanes
+
+
+def lane_sweeps(sweeps):
+    """Seed sweeps of lane bodies of every shape class on CUDA
+    (tests/scenes_lanes.py, card size), each against the JAX golden
+    (lanes_card_f64.npz) and every lane against the port's single path on
+    the card over all frames (a 2D grid lane up to a witnessed tie or to
+    frames that rounding decides; its gradient, where the poses hold,
+    reported where the kept contacts part at a witnessed tie). Returns the
+    grid sweep's forward launches (None without it)."""
+    import torch
+    from diffsdfsim_torch.ops import grid_cuda, sdf
+    from diffsdfsim_torch.physics import make_world_batched, rollout, rollout_batched, trajectory_lanes_first
+
+    SL, S = lanes_module(), scenes2d_module()
+    golden = dict(np.load(LANES_GOLDEN))
+    P = SL.namespace("torch", DEVICE)
+    failed, grid_counts = [], None
+    queries, volumes = [0], [0]
+    query, volume = grid_cuda.grid_query, sdf.grid_grad_volume
+
+    def counted_query(*args, **kwargs):
+        queries[0] += 1
+        return query(*args, **kwargs)
+
+    def counted_volume(grid):
+        volumes[0] += 1
+        return volume(grid)
+
+    for sweep in sweeps:
+        n, body = SL.frames(sweep, LANES_SIZE), 2 if sweep == "hull" else 1
+        diff = {"grid": 1, "grid2d": 0}.get(sweep)
+        build = SL.world_fn(P, sweep, LANES_SIZE)
+
+        def inputs(grad):
+            ins = [torch.tensor(x, device=DEVICE) for x in SL.inputs(sweep, LANES_SIZE)]
+            if grad:
+                ins[diff].requires_grad_(True)
+            return ins
+
+        # forward, counted
+        spec, bodies_b, state_b = make_world_batched(build, *inputs(False))
+        B = state_b.pos.shape[0]
+        grid_cuda.grid_query, sdf.grid_grad_volume = counted_query, counted_volume
+        try:
+            queries[0] = volumes[0] = 0
+            reset_counts()
+            with torch.no_grad():
+                (_, traj), wall, reads = synced(lambda: rollout_batched(spec, bodies_b, state_b, n))
+            counts, nq, nv = read_counts(), queries[0], volumes[0]
+        finally:
+            grid_cuda.grid_query, sdf.grid_grad_volume = query, volume
+        tr = {k: v.detach().cpu().numpy() for k, v in trajectory_lanes_first(traj)._asdict().items()}
+        print(f"lanes {sweep} (B = {B}, {n} frames) forward: {wall:.2f} s, {int(tr['valid'].sum())} lane substeps, "
+              f"stages {dict(spec.stages)}, host reads {sum(spec.host_reads.values())}, device reads {reads}; "
+              f"launches {counts}; {nq} grid queries, {nv} gradient volumes")
+        check(counts["fw_search"] == 0 and counts["pdipm_fwd"] == spec.stages["lcp"] > 0,
+              f"lanes {sweep}: launches {counts} for {spec.stages['lcp']} probe stages that solve the LCP (no K3)")
+        if sweep == "grid":
+            check(counts["grid_query_lanes"] == nq > 0 and counts["grid_query"] == 0 and nv == 0,
+                  f"lanes grid: {counts['grid_query_lanes']} lane launches, {counts['grid_query']} single launches "
+                  f"for {nq} grid queries of the batch; {nv} gradient volumes built")
+            grid_counts = counts
+        # fwd+bwd where the sweep differentiates
+        value = grad = None
+        if diff is not None:
+            ins = inputs(True)
+            spec_g, bodies_g, state_g = make_world_batched(build, *ins)
+            reset_counts()
+            t0 = time.perf_counter()
+            final, traj_g = rollout_batched(spec_g, bodies_g, state_g, n)
+            heights = final.pos[:, body, 1]
+            # a lane's height depends on its own input alone: the gradient
+            # of their sum holds each lane's in its slice
+            (grad,) = torch.autograd.grad(heights.sum(), ins[diff])
+            sync()
+            wall_g, counts_g = time.perf_counter() - t0, read_counts()
+            value, grad = heights.detach().cpu().numpy(), grad.cpu().numpy()
+            check(counts_g["kkt_bwd"] == spec_g.stages["replay_lcp"] > 0 and counts_g["fw_search"] == 0,
+                  f"lanes {sweep} fwd+bwd: launches {counts_g} for {spec_g.stages['replay_lcp']} taped replays")
+            print(f"lanes {sweep} fwd+bwd: {wall_g:.2f} s, launches {counts_g}")
+        # against JAX
+        for i in range(B):
+            a = {k: v[i] for k, v in tr.items()}
+            tag = f"lanes {sweep} lane {i} vs JAX"
+            if sweep == "grid2d":
+                single_spec, _ = build(torch.tensor(SL.inputs(sweep, LANES_SIZE)[0][i], device=DEVICE))
+                ok, held, line = SL.hold_lane(a, golden, sweep, i, ATOL_LANE_JAX[sweep], tag,
+                                              S.port_contacts_at(single_spec, a))
+                if held:
+                    e_v = abs(float(value[i]) - float(golden["grid2d/value"][i]))
+                    e_g = rel_err(grad[i], golden["grid2d/grad"][i])
+                    line += f"; height {e_v:.2e} from JAX's, d height / d grid {e_g:.2e} (relative)"
+                    ok = ok and e_v <= ATOL_LANE_JAX[sweep]
+                    if e_g > RTOL_LANE_GRAD:
+                        # the poses hold; a gradient may still part at a tie of the kept points
+                        tie = SL.kept_contacts_tie(a, {k: golden[f"grid2d/{k}"][i] for k in S.TRAJ_KEYS},
+                                                   S.port_contacts_at(single_spec, a),
+                                                   SL.golden_contacts(golden, "grid2d", i))
+                        ok = ok and tie is not None
+                        line += ("; no tie of the kept contacts witnessed" if tie is None else
+                                 f" (reported, not held: the kept contacts part at frame {tie[0]} substep {tie[1]}, "
+                                 f"points {tie[2]:.3e} m apart, deepest penetrations {tie[3]:.1e} apart: a tie)")
+            else:
+                b = {k: golden[f"{sweep}/{k}"][i] for k in S.TRAJ_KEYS}
+                ok, _, line = S.hold(a, b, ATOL_LANE_JAX[sweep], tag)
+            print(line)
+            if not ok:
+                failed.append(tag)
+        if sweep == "grid":
+            e_v = abs(float(value.sum()) - float(golden["grid/value"]))
+            e_g = rel_err(grad, golden["grid/grad"])
+            print(f"lanes grid: summed final height {float(value.sum()):.12f} ({e_v:.2e} from JAX's), d / d scales "
+                  f"{e_g:.2e} (relative) from JAX's")
+            if not (e_v <= ATOL_LANE_JAX["grid"] and e_g <= RTOL_LANE_GRAD):
+                failed.append("lanes grid value / gradient vs JAX")
+        # every lane against the single path on the card, over all frames
+        worst = {}
+        for i in range(B):
+            ins = [torch.tensor(x[i], device=DEVICE) for x in SL.inputs(sweep, LANES_SIZE)]
+            if diff is not None:
+                ins[diff].requires_grad_(True)
+            s_spec, s_state = build(*ins)
+            with torch.set_grad_enabled(diff is not None):
+                final, s_traj = rollout(s_spec, s_state, n)
+                if diff is not None:
+                    (g1,) = torch.autograd.grad(final.pos[body, 1], ins[diff])
+                    e_g, e_v = rel_err(grad[i], g1.cpu().numpy()), rel_err(value[i], float(final.pos[body, 1].detach()))
+            single = S.traj_numpy(s_traj)
+            a = {k: v[i] for k, v in tr.items()}
+            tag = f"lanes {sweep} lane {i} vs single"
+            if sweep == "grid2d":
+                ok, held, line = SL.hold_single(
+                    a, single, ATOL_LANE_SINGLE[sweep], tag, S.port_contacts_at(s_spec, a),
+                    S.port_contacts_at(s_spec, single),
+                    lambda fp: SL.rounding_parting(P, s_spec, s_state, single, fp, body, ATOL_LANE_SINGLE[sweep]))
+            else:
+                ok, held, line = S.hold(a, single, ATOL_LANE_SINGLE[sweep], tag)
+            if not held:  # parted: at a witnessed tie, or where rounding decides, where ok
+                per_frame = [max(float(np.abs(a[k][f] - single[k][f]).max()) for k in ("pos", "quat", "v"))
+                             for f in range(a["pos"].shape[0])]
+                print(line + "; per frame " + ", ".join(f"{d:.1e}" for d in per_frame))
+                if not ok:
+                    failed.append(tag)
+                continue
+            worst["poses"] = max(worst.get("poses", 0.0), S.compare(a, single)[1])
+            if diff is not None and max(e_g, e_v) > RTOL_LANE_SINGLE:
+                tie = SL.kept_contacts_tie(a, single, S.port_contacts_at(s_spec, a), S.port_contacts_at(s_spec, single))
+                print(f"{tag}: value {e_v:.2e}, gradient {e_g:.2e} (relative) "
+                      + ("with no tie of the kept contacts witnessed" if tie is None else
+                         f"(reported, not held: the kept contacts part at frame {tie[0]} substep {tie[1]}, points "
+                         f"{tie[2]:.3e} m apart, deepest penetrations {tie[3]:.1e} apart: a tie)"))
+                ok = ok and tie is not None
+            elif diff is not None:
+                worst["grad"], worst["value"] = max(worst.get("grad", 0.0), e_g), max(worst.get("value", 0.0), e_v)
+            if not ok:
+                failed.append(tag)
+        print(f"lanes {sweep}: the lanes held throughout against the single path on the card: "
+              + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+        if sweep in ("grid", "bowl"):
+            pwall, busy, _ = busy_share(lambda: rollout_batched(spec, bodies_b, state_b, n))
+            print(f"lanes {sweep}, profiled forward: wall {pwall:.1f} ms, device busy {busy:.1f} ms "
+                  f"(idle {100 - 100 * busy / pwall:.1f}%)")
+    check(not failed, f"lanes: {failed}")
+    return grid_counts
+
+
+def phase_lanes_3d():
+    """The 3D sweeps of lane bodies that differ between lanes (lane_sweeps):
+
+    - the grid sweep: 16 voxelized spheres of their own radius on 64^3
+      float64 grids, each with its own scale requiring grad, dropped for 16
+      frames (the grid path's scene); forward, then fwd+bwd of the summed
+      final heights with respect to the scales. The forward makes exactly
+      one K5 lane launch per grid query of the batch (queries counted as
+      phase_grid_path counts them), no single launch, no gradient volume,
+      no K3 launch;
+    - the bowl sweep: the marble into 8 bowls of their own (r, d), 30
+      frames, no gradient.
+
+    Returns the grid sweep's forward launches (the kernels line's)."""
+    return lane_sweeps(("grid", "bowl"))
+
+
+def phase_lanes_2d():
+    """The 2D sweeps (lane_sweeps): the hull stack under the analytic
+    narrowphase at B = 4, the hulls scaled per lane, 8 frames; the 65 x 65
+    grid-circle drop at B = 4, a circle of its own radius in each lane, 8
+    frames, with each lane's d height / d grid values, held up to a
+    witnessed tie (scenes_lanes.hold_lane)."""
+    lane_sweeps(("hull", "grid2d"))
+
+
+def phase_demo():
+    """The MeshSDF demo (diffsdfsim_torch.demos.meshsdf) on CUDA at the JAX
+    demo's defaults (30 frames, the body at mesh subdiv 2 with 16
+    projection steps, fric_dirs 4), the decoder at the reference's full
+    width (latent 2, (128,)*8, skip at 4) with the JAX demo's PRNGKey(7)
+    weights (demo_card_f64.npz): 2 SGD iterations, each loss and latent
+    within RTOL_DEMO of the JAX golden; the wall and K1-K4 launches of each
+    iteration (the latent body's pairs take the plain search: no K3)."""
+    import torch
+    from diffsdfsim_torch.demos import meshsdf as D
+    from diffsdfsim_torch.models.igr import ImplicitNet
+
+    g = dict(np.load(DEMO_GOLDEN))
+    dev = DEVICE
+    nl = sum(1 for k in g if k.startswith("w"))
+    decoder = ImplicitNet.from_arrays([g[f"w{i}"] for i in range(nl)], [g[f"b{i}"] for i in range(nl)],
+                                      skip_in=tuple(int(i) for i in g["skip_in"]), device=DEVICE)
+    c = dict(D.DEFAULTS, iters=int(g["iters"]), run_time=float(g["run_time"]))
+    fixed = D.fixed_bodies(dev)
+    walls, counts, last = [], [], [0.0]
+
+    def log(msg):
+        sync()
+        now = time.perf_counter()
+        walls.append(now - last[0])
+        counts.append(read_counts())
+        print(f"demo {msg}: {walls[-1]:.2f} s, launches {counts[-1]}")
+        reset_counts()
+        last[0] = time.perf_counter()
+
+    reset_counts()
+    last[0] = time.perf_counter()
+    hist = D.optimize(decoder, torch.zeros(2, dtype=torch.float64, device=DEVICE), c, D.build_cfg(), fixed, log=log)
+    for i, cnt in enumerate(counts):
+        check(cnt["pdipm_fwd"] > 0 and cnt["kkt_bwd"] > 0 and cnt["igr_mlp"] > 0 and cnt["fw_search"] == 0,
+              f"demo iteration {i}: launches {cnt}")
+    e_loss = rel_err(hist["loss"], g["loss"])
+    e_z = rel_err(np.stack(hist["latent"]), g["latent"])
+    print(f"demo: {len(walls)} SGD iterations, wall per iteration {', '.join(f'{w:.2f}' for w in walls)} s; losses "
+          f"{hist['loss']} ({e_loss:.2e} from JAX's, relative), latents {np.stack(hist['latent']).tolist()} "
+          f"({e_z:.2e}), d loss / d latent {np.stack(hist['grad']).tolist()}")
+    check(e_loss <= RTOL_DEMO and e_z <= RTOL_DEMO, f"demo: loss {e_loss:.2e} / latent {e_z:.2e} from JAX's")
+
+
 # The paths after the kernel checks, in groups that run as concurrent
 # processes on the one card: every path is host-bound (the device is idle
 # 93-96 % of each path's wall), so four processes share the card with
@@ -3773,13 +4176,13 @@ def phase_fallback():
 # group takes about the same wall; the kernel checks, whose times the
 # ``kernels`` line reports, run before them with the card to themselves.
 PATH_GROUPS = (
-    ("phase_batched", "phase_grid_path", "phase_meshes"),
-    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path", "phase_shapespace_sweep"),
-    ("phase_sysid_sweep", "phase_inertia", "phase_main_path"),
+    ("phase_batched", "phase_grid_path", "phase_meshes", "phase_lanes_3d"),
+    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path", "phase_shapespace_sweep", "phase_demo"),
+    ("phase_sysid_sweep", "phase_inertia", "phase_main_path", "phase_lanes_2d"),
     ("phase_gradient", "phase_2d", "phase_fallback"),
 )
 # the paths whose results the kernels line reads (the others return None)
-PATH_RESULTS = ("phase_main_path", "phase_gradient", "phase_grid_path", "phase_latent_path")
+PATH_RESULTS = ("phase_main_path", "phase_gradient", "phase_grid_path", "phase_latent_path", "phase_lanes_3d")
 # the parent stops every group that is still running at this many seconds
 # of script time, and fails
 PATH_DEADLINE_S = 1120
@@ -3915,6 +4318,8 @@ def main():
     k2r = k2[(f64, 4, 1)]  # one problem per contacting substep on the main path
     k4r = k4[(f64, 2304)]  # a 3-rung Frank-Wolfe step over the floor's 768 faces
     k5r = k5[(f64, 64, 960)]  # the grid path's grid at its most frequent query size
+    k5l = k5[(f64, "lanes")]  # the grid sweep's 16 lanes at that size each
+    lane_launches = paths["phase_lanes_3d"]
     kernels = [
         dict(name="pdipm_fwd", route="cuda", source="diffsdfsim_torch/ops/csrc/pdipm_fwd.cu",
              replaces="diffsdfsim_tpu/ops/qp_pallas.py:247", launches=launches["pdipm_fwd"],
@@ -3941,6 +4346,10 @@ def main():
              max_abs_err=max(r["err"] for (dt, *_), r in k5.items() if dt == f64), ms=k5r["ms"],
              plain_ms=k5r["plain_ms"], bound_ms=max(k5r["bytes_ms"], k5r["ops_ms"]),
              bound_by="bytes" if k5r["bytes_ms"] > k5r["ops_ms"] else "operations", library_ms=k5r["library_ms"]),
+        dict(name="grid_query_lanes", route="cuda", source="diffsdfsim_torch/ops/csrc/grid_interp.cu",
+             replaces="diffsdfsim_tpu/ops/pallas_kernels.py:106", launches=lane_launches["grid_query_lanes"],
+             max_abs_err=k5l["err"], ms=k5l["ms"], plain_ms=k5l["plain_ms"], bound_ms=max(k5l["bytes_ms"], k5l["ops_ms"]),
+             bound_by="bytes" if k5l["bytes_ms"] > k5l["ops_ms"] else "operations", library_ms=k5l["library_ms"]),
     ]
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -1,16 +1,20 @@
 // K5: the voxel-grid SDF on the card. Two entry points:
 //
-// - grid_query: one whole SDF query of a voxel-grid body per launch. Per
-//   point: the bounding-scale overlap mask, the normalized point, its voxel
-//   index and in-bounds mask, the trilinear value (1 outside), the metric
-//   value, and the gradient: the central differences of the grid at the 8
-//   corners, interpolated, normalized and masked, once (what grid_sdf_grad
-//   returns, the value's vector-Jacobian product needs it) and twice (what
+// - grid_query_lanes: whole SDF queries of voxel-grid bodies, one launch per
+//   query of a body or of a seed sweep's lane bodies. Per point: the
+//   bounding-scale overlap mask, the normalized point, its voxel index and
+//   in-bounds mask, the trilinear value (1 outside), the metric value, and
+//   the gradient: the central differences of the grid at the 8 corners,
+//   interpolated, normalized and masked, once (what grid_sdf_grad returns,
+//   the value's vector-Jacobian product needs it) and twice (what
 //   query_sdfs returns). This is physics/shapes.py's query_sdfs on a
 //   GridShape, composed of ops/sdf.py's _grid_inds, grid_sdf_raw,
 //   grid_grad_volume, grid_sdf_grad and utils/spherical.normalize, in their
 //   order and rounding; ops/sdf.grid_query is that composition, the plain
-//   version.
+//   version. Lanes: grids (L, X, Y, Z) (or one grid every lane shares: lane
+//   stride 0), scales (L,) (or one), points (R, N, 3) with R = L d,
+//   lane-major: pose r reads lane r / d's grid and scale, so a probe stage's
+//   d rungs per lane need no copy of the grid. One body's query is one lane.
 // - grid_interp: trilinear sampling of a C-channel grid (C, X, Y, Z) at N
 //   fractional voxel coordinates -> (C, N), base corner floor(ind) clamped to
 //   [0, dim - 2] (ops/sdf.grid_interp).
@@ -18,14 +22,14 @@
 // Replaces the Pallas TPU kernel diffsdfsim_tpu/ops/pallas_kernels.py
 // `grid_interp_pallas` (the trilinear sampler; the JAX package serves its
 // GridShape through an XLA gather instead, ops/sdf.py grid_sdf_raw /
-// grid_sdf_grad / grid_grad_volume, which grid_query fuses).
+// grid_sdf_grad / grid_grad_volume, which grid_query_lanes fuses).
 //
 // What bounds it on an H100: at the grid path's ~10^3 points per query,
 // latency (one launch of a few microseconds); the query's cost used to be
 // around the sampler's launch: a second launch for the gradient, the
 // (3, X, Y, Z) gradient volume rebuilt by ~15 tensor ops on every gradient
-// query, host-built index tensors and ~25 small tensor ops. grid_query does
-// all of it in one thread per point: the grid (2 MB at 64^3 float64) stays
+// query, host-built index tensors and ~25 small tensor ops. grid_query_lanes
+// does all of it in one thread per point: the grid (2 MB at 64^3 float64) stays
 // in the 50 MB L2, and a point reads the 32 grid values its 8 corners and
 // their central-difference stencils touch (the 2 x 2 x 2 corner block and
 // its 24 face neighbours). Beyond that its bound is bytes: the points, the
@@ -117,20 +121,31 @@ struct QueryOut {
   T* grad_raw;  // (N, 3) the interpolated central differences before normalize and masks, or null
 };
 
+// where a point's lane finds its grid and scale: point n is lane n /
+// per_lane's, whose grid starts grid_stride values and whose scale
+// scale_stride values after lane 0's (a stride of 0: one every lane shares)
+struct Lanes {
+  long long per_lane;
+  long long grid_stride;
+  long long scale_stride;
+};
+
 // one point per thread. SCALED: pts are metric (query_sdfs with scale =
-// *scale_p); else they are already in the grid's normalized frame (grid_sdf /
-// grid_sdf_grad). GRADS: any gradient output is asked for.
+// scale_p[lane]); else they are already in the grid's normalized frame
+// (grid_sdf / grid_sdf_grad). GRADS: any gradient output is asked for.
 template <typename T, bool SCALED, bool GRADS>
-__global__ void grid_query_kernel(int X, int Y, int Z, int N, const T* __restrict__ grid,
+__global__ void grid_query_kernel(int X, int Y, int Z, long long N, Lanes lanes, const T* __restrict__ grid,
                                   const T* __restrict__ pts, const T* __restrict__ scale_p, QueryOut<T> o) {
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const long long n = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= N) return;
+  const long long lane = n / lanes.per_lane;
+  grid += lane * lanes.grid_stride;
   const int dims[3] = {X, Y, Z};
   T p[3] = {pts[3 * (size_t)n], pts[3 * (size_t)n + 1], pts[3 * (size_t)n + 2]};
   bool overlap = true;
   T scale = 1;
   if (SCALED) {
-    scale = *scale_p;
+    scale = scale_p[lane * lanes.scale_stride];
     overlap = fabs(p[0]) <= scale && fabs(p[1]) <= scale && fabs(p[2]) <= scale;
     for (int c = 0; c < 3; ++c) p[c] = quo(p[c], scale);
   }
@@ -199,24 +214,25 @@ int launch_interp(int C, int X, int Y, int Z, int N, const void* grid, const voi
 }
 
 template <typename T, bool SCALED, bool GRADS>
-int launch_query(int X, int Y, int Z, int N, const void* grid, const void* pts, const void* scale,
-                 const QueryOut<T>& o, void* stream) {
-  const unsigned blocks = (unsigned)((N + THREADS - 1) / THREADS);
-  grid_query_kernel<T, SCALED, GRADS><<<blocks, THREADS, 0, (cudaStream_t)stream>>>(
-      X, Y, Z, N, (const T*)grid, (const T*)pts, (const T*)scale, o);
+int launch_query(int X, int Y, int Z, long long N, const Lanes& lanes, const void* grid, const void* pts,
+                 const void* scale, const QueryOut<T>& o, void* stream) {
+  const long long blocks = (N + THREADS - 1) / THREADS;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  grid_query_kernel<T, SCALED, GRADS><<<(unsigned)blocks, THREADS, 0, (cudaStream_t)stream>>>(
+      X, Y, Z, N, lanes, (const T*)grid, (const T*)pts, (const T*)scale, o);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int query(int X, int Y, int Z, int N, const void* grid, const void* pts, const void* scale, void* sdf, void* grad,
-          void* grad_in, void* grad_raw, void* stream) {
+int query(int X, int Y, int Z, long long N, const Lanes& lanes, const void* grid, const void* pts, const void* scale,
+          void* sdf, void* grad, void* grad_in, void* grad_raw, void* stream) {
   const QueryOut<T> o{(T*)sdf, (T*)grad, (T*)grad_in, (T*)grad_raw};
   const bool grads = grad || grad_in || grad_raw;
   if (scale)
-    return grads ? launch_query<T, true, true>(X, Y, Z, N, grid, pts, scale, o, stream)
-                 : launch_query<T, true, false>(X, Y, Z, N, grid, pts, scale, o, stream);
-  return grads ? launch_query<T, false, true>(X, Y, Z, N, grid, pts, scale, o, stream)
-               : launch_query<T, false, false>(X, Y, Z, N, grid, pts, scale, o, stream);
+    return grads ? launch_query<T, true, true>(X, Y, Z, N, lanes, grid, pts, scale, o, stream)
+                 : launch_query<T, true, false>(X, Y, Z, N, lanes, grid, pts, scale, o, stream);
+  return grads ? launch_query<T, false, true>(X, Y, Z, N, lanes, grid, pts, scale, o, stream)
+               : launch_query<T, false, false>(X, Y, Z, N, lanes, grid, pts, scale, o, stream);
 }
 
 }  // namespace
@@ -233,20 +249,28 @@ int grid_interp(int dtype, int C, int X, int Y, int Z, int N, const void* grid, 
   return launch_interp<float>(C, X, Y, Z, N, grid, inds, out, stream);
 }
 
-// One grid-SDF query of N points pts (N, 3) on grid (X, Y, Z), all
-// contiguous, in one launch. scale: a device scalar (query_sdfs: metric
-// points, overlap mask, metric value), or null (points in the normalized
-// frame: grid_sdf's value, grad_in is grid_sdf_grad). sdf (N,) is always
-// written; grad, grad_in and grad_raw (N, 3) where not null (grad needs a
-// scale); with none of them only the value is computed. Returns the launch's
-// CUDA error, or -1 on a grid with an axis shorter than 2 or a grad without
-// a scale.
-int grid_query(int dtype, int X, int Y, int Z, int N, const void* grid, const void* pts, const void* scale,
-               void* sdf, void* grad, void* grad_in, void* grad_raw, void* stream) {
-  if (X < 2 || Y < 2 || Z < 2 || (grad && !scale)) return -1;
-  if (N <= 0) return 0;
-  if (dtype == 1) return query<double>(X, Y, Z, N, grid, pts, scale, sdf, grad, grad_in, grad_raw, stream);
-  return query<float>(X, Y, Z, N, grid, pts, scale, sdf, grad, grad_in, grad_raw, stream);
+// The grid-SDF queries of L lanes in one launch (one body's query: L = 1,
+// both strides 0): pts (L, per_lane, 3) contiguous (a probe stage's R = L d
+// poses of N points each, lane-major: per_lane = d N), lane l's grid at
+// grid + l grid_stride (X, Y, Z values, contiguous; grid_stride 0: one grid
+// every lane shares) and its scale at scale[l scale_stride]: a device value
+// (query_sdfs: metric points, overlap mask, metric value), or null (points
+// in the normalized frame: grid_sdf's value, grad_in is grid_sdf_grad).
+// sdf (L per_lane,) is always written; grad, grad_in and grad_raw (L
+// per_lane, 3) where not null (grad needs a scale); with none of them only
+// the value is computed. Returns the launch's CUDA error, or -1 on a grid
+// with an axis shorter than 2, a grad without a scale, L < 1 or a negative
+// per_lane or stride.
+int grid_query_lanes(int dtype, int L, int X, int Y, int Z, long long per_lane, const void* grid,
+                     long long grid_stride, const void* pts, const void* scale, long long scale_stride, void* sdf,
+                     void* grad, void* grad_in, void* grad_raw, void* stream) {
+  if (X < 2 || Y < 2 || Z < 2 || (grad && !scale) || L < 1 || per_lane < 0 || grid_stride < 0 || scale_stride < 0)
+    return -1;
+  if (per_lane == 0) return 0;
+  const long long N = (long long)L * per_lane;
+  const Lanes lanes{per_lane, grid_stride, scale_stride};
+  if (dtype == 1) return query<double>(X, Y, Z, N, lanes, grid, pts, scale, sdf, grad, grad_in, grad_raw, stream);
+  return query<float>(X, Y, Z, N, lanes, grid, pts, scale, sdf, grad, grad_in, grad_raw, stream);
 }
 
 }  // extern "C"

@@ -220,12 +220,18 @@ class GridSdf(torch.autograd.Function):
     vector-Jacobian product with respect to the points is the sampled
     normalized gradient volume times the cotangent, and zero for the grid,
     as the reference's ``DiffGridSDF`` (bodies.py:246-257) and the JAX
-    package's ``grid_sdf`` custom_vjp."""
+    package's ``grid_sdf`` custom_vjp. Its vmap rule is generated (plain
+    tensor ops), so a seed sweep maps it over lane grids."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, pts, grid):
-        ctx.save_for_backward(pts, grid)
+    def forward(pts, grid):
         return grid_sdf_raw(pts, grid)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(*inputs)
 
     @staticmethod
     def backward(ctx, d_sdf):

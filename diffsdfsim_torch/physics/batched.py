@@ -29,6 +29,12 @@ mass, inertia and SDF parameter), stepped together.
   solve of every lane's LCP (the plain solver, as the JAX package's) and
   one search of every lane's corrected pose (``_post_stab``); the eager
   ops of a substep do not grow with B.
+- a body may differ between lanes whatever its shape class
+  (``bodies.stack_lanes``): a grid lane body's SDF query is one K5
+  lane-entry launch for the whole batch (``ops/grid_cuda.py``), a latent
+  one's one K4 launch; pairs with a grid, latent, bowl, hull or 2D-grid
+  body take the plain search (no K3), whose early stops read the host once
+  per step for the whole batch.
 
 K1 decides over its whole launch whether a problem's last step was checked
 for improvement (``ops/qp_cuda.py``), as the JAX solver's loop decides over

@@ -15,10 +15,15 @@ every tensor (``lanes`` > 0): ``verts`` (L, V, 3), ``mass`` (L,),
 ``ang_inertia`` (L, 3, 3), ``restitution``, ``fric_coeff`` and the shape's
 tensor parameters (L, ...), with one topology (``faces``) for all lanes and
 a shape's non-tensor field (a latent shape's decoder) shared by every lane.
-Its SDF queries and scale map the single-body code over the lanes
-(``torch.func.vmap``); the points of a query carry the lane axis first. A
-latent lane body's query is one decoder call for all lanes: on the card
-one K4 launch, through the launch's vmap rule (``ops/igr_cuda.py``).
+Any shape class may differ between lanes. Its SDF queries and scale map the
+single-body code over the lanes (``torch.func.vmap``); the points of a query
+carry the lane axis first. A latent lane body's query is one decoder call
+for all lanes, a grid lane body's one grid query: on the card one K4 or K5
+launch, through the launch's vmap rule (``ops/igr_cuda.py``,
+``ops/grid_cuda.py``). A probe stage's body of d poses per lane
+(``repeat_lanes``) repeats the small per-lane tensors but keeps the shape's
+L lanes (``shape_div`` = d: pose r reads shape lane r // d), so a 64^3 grid
+is never copied per rung.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ from ..config import Defaults3D, default_dtype, resolve_device
 from ..ops.inertia import ang_inertia_from_mesh
 from ..ops.surface import surface_mesh
 from ..utils import meshes
-from .shapes import (KIND_NONE, BowlShape, BoxShape, CylinderShape, GridShape, LatentShape, ShapeBase, SphereShape,
+from .shapes import (KIND_NONE, BowlShape, BoxShape, CylinderShape, GridShape, ShapeBase, SphereShape,
                      query_sdfs)
 
 
@@ -49,6 +54,7 @@ class BodyDef:
     is_sdf: bool = True
     faces_t: torch.Tensor = None  # (F,3) int64 copy of faces on the body's device
     lanes: int = 0  # leading lane axis of every tensor above (0: one body)
+    shape_div: int = 1  # poses per shape lane: the shape's tensors hold lanes / shape_div lanes
 
     def __post_init__(self):
         if self.faces_t is None:
@@ -63,16 +69,26 @@ class BodyDef:
 
     def scale(self):
         if self.lanes:
-            return torch.func.vmap(lambda p: self._lane_shape(p).scale())(self.shape_params())
+            return self.per_pose(torch.func.vmap(lambda p: self._lane_shape(p).scale())(self.shape_params()))
         return self.shape.scale()
 
     def query_sdfs(self, pts_loc, return_grads=True):
         """Metric local-frame SDF query; a lane body's points carry its lane
-        axis first."""
+        axis first (one pose per lane; the poses of a shape lane are queried
+        together)."""
         if self.lanes:
-            return torch.func.vmap(lambda p, x: query_sdfs(self._lane_shape(p), x, return_grads=return_grads))(
-                self.shape_params(), pts_loc)
+            x = pts_loc.reshape((self.lanes // self.shape_div, self.shape_div) + pts_loc.shape[1:])
+            out = torch.func.vmap(lambda p, x: query_sdfs(self._lane_shape(p), x, return_grads=return_grads))(
+                self.shape_params(), x)
+            return tuple(o.flatten(0, 1) for o in out) if return_grads else out.flatten(0, 1)
         return query_sdfs(self.shape, pts_loc, return_grads=return_grads)
+
+    def per_pose(self, x):
+        """A lane body's value with one entry per shape lane (leading axis),
+        as one entry per pose: pose r reads shape lane r // shape_div (a
+        probe stage's body, ``repeat_lanes``; the same mapping
+        ``query_sdfs`` makes). Any other value as it is."""
+        return x.repeat_interleave(self.shape_div, dim=0) if self.lanes else x
 
     def shape_params(self) -> dict:
         """The shape's tensor parameters by field name (a non-tensor field,
@@ -85,7 +101,11 @@ class BodyDef:
 
     def tensors(self) -> dict:
         """The body's parameters by name: every tensor that may carry a lane
-        axis, the shape's tensor fields under ``shape.<field>``."""
+        axis, the shape's tensor fields under ``shape.<field>``. A probe
+        stage's body (``shape_div`` > 1), whose shape keeps fewer lanes than
+        its poses, has no such view."""
+        if self.shape_div > 1:
+            raise ValueError("a probe stage's body keeps one shape lane per shape_div poses: it has no lane tensors")
         out = {name: getattr(self, name) for name in LANE_FIELDS}
         out.update({f"shape.{k}": v for k, v in self.shape_params().items()})
         return out
@@ -110,9 +130,10 @@ class BodyDef:
 
     def repeat_lanes(self, d: int) -> "BodyDef":
         """The lane body with each lane repeated d times (lane-major), one
-        lane per pose of a probe stage of d rungs."""
-        return self.with_tensors({k: v.repeat_interleave(d, dim=0) for k, v in self.tensors().items()},
-                                 self.lanes * d)
+        lane per pose of a probe stage of d rungs. The shape's tensors are
+        not copied: pose r reads shape lane r // (d shape_div)."""
+        small = {k: getattr(self, k).repeat_interleave(d, dim=0) for k in LANE_FIELDS}
+        return dataclasses.replace(self, lanes=self.lanes * d, shape_div=self.shape_div * d, **small)
 
 
 LANE_FIELDS = ("verts", "mass", "ang_inertia", "restitution", "fric_coeff")
@@ -122,9 +143,9 @@ def stack_lanes(bodies: Sequence[BodyDef]) -> BodyDef:
     """One body per lane -> a lane body. The lanes must share their shape
     class, SDF flag, topology and the shape's non-tensor fields (a latent
     shape's decoder, by identity). A body whose tensors are equal in every
-    lane, none requiring grad, stays one body that every lane shares. A
-    body that differs between lanes may be analytic or latent (its latent
-    code and scale per lane); a grid body may not."""
+    lane, none requiring grad, stays one body that every lane shares; any
+    other becomes a lane body, whatever its shape class (a grid body with a
+    grid and scale per lane, a bowl, a 2D hull or grid)."""
     b0 = bodies[0]
     statics = [{f.name: getattr(bd.shape, f.name) for f in dataclasses.fields(bd.shape)
                 if not isinstance(getattr(bd.shape, f.name), torch.Tensor)} for bd in bodies]
@@ -140,9 +161,6 @@ def stack_lanes(bodies: Sequence[BodyDef]) -> BodyDef:
 
     if all(shared(tt[k], ts[0][k]) for tt in ts[1:] for k in tt):
         return b0
-    if b0.shape.kind is None and not isinstance(b0.shape, LatentShape):
-        raise NotImplementedError(
-            f"a {type(b0.shape).__name__} body that differs between lanes: lanes take the analytic and latent shapes")
     return b0.with_tensors({k: torch.stack([tt[k] for tt in ts]) for k in ts[0]}, len(bodies))
 
 
@@ -232,9 +250,11 @@ def make_body(
 
 def make_body_lanes(shape_fn, params, **kw) -> BodyDef:
     """The lane body of ``make_body(shape_fn(p), **kw)`` for each p of
-    ``params`` (lane axis first), built by ``torch.func.vmap`` of the
-    single-body construction: each SDF query of the mesh projection is one
-    call for all lanes (one K4 launch for a latent shape on the card)."""
+    ``params`` (a tensor or a tuple of tensors, lane axis first), built by
+    ``torch.func.vmap`` of the single-body construction: each SDF query of
+    the mesh projection is one call for all lanes (one K4 launch for a
+    latent shape, one K5 launch for a grid shape on the card); an analytic
+    mesh (a bowl's) maps over the lanes with one topology."""
     single = {}
 
     def one(p):
@@ -243,7 +263,8 @@ def make_body_lanes(shape_fn, params, **kw) -> BodyDef:
         return bd.tensors()
 
     tensors = torch.func.vmap(one)(params)
-    return single["body"].with_tensors(tensors, params.shape[0])
+    n = (params[0] if isinstance(params, tuple) else params).shape[0]
+    return single["body"].with_tensors(tensors, n)
 
 
 def _analytic_mesh(shape: ShapeBase, subdiv: int):

@@ -22,7 +22,10 @@ PyTorch counterpart of ``diffsdfsim_tpu/physics/contacts.py`` (reference
 Searches carry a leading rung axis R: the probe ladder searches all its
 trial poses in one call (one kernel launch per directed pair). A seed
 sweep's bodies carry a lane axis (``physics/bodies.py``); its probe stage
-searches L D poses, lane-major, D per lane, in the same one call.
+searches L D poses, lane-major, D per lane, in the same one call: the plain
+search's early stops stay one host read for the whole batch, and a grid lane
+body's SDF query is one K5 lane launch for all L D poses (pose r reads lane
+r // D's grid, no copy per rung).
 """
 
 from __future__ import annotations
@@ -255,8 +258,9 @@ def search_pair_raw_plain(bd1: BodyDef, q1, pos1, bd2: BodyDef, q2, pos2, cfg: S
 
 
 def per_pose(bd: BodyDef, R: int) -> BodyDef:
-    """A lane body with a lane for each of R poses (lane-major); a body
-    every lane shares as it is."""
+    """A lane body with a lane for each of R poses (lane-major; its shape's
+    tensors, a grid's included, are not copied: ``BodyDef.shape_div``); a
+    body every lane shares as it is."""
     if not bd.lanes or bd.lanes == R:
         return bd
     if R % bd.lanes:

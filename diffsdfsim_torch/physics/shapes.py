@@ -226,7 +226,9 @@ class GridShape(ShapeBase):
     ``scale_`` is the metric half-extent. The grid takes no gradient. Its
     queries (``sdf``, ``sdf_grad`` and ``query_sdfs``) go through
     ``grid_cuda.grid_query``: one K5 launch each on CUDA, the plain
-    ``ops/sdf.grid_query`` on the CPU."""
+    ``ops/sdf.grid_query`` on the CPU. A seed sweep's lane body maps them
+    over its lanes (``torch.func.vmap``): one K5 lane-entry launch for all
+    lanes on CUDA."""
 
     grid: torch.Tensor  # (X, Y, Z)
     scale_: torch.Tensor  # ()

@@ -165,21 +165,24 @@ def hull_hull(vertsA, vertsB):
 def _shape2d(bd):
     """A body's planar cross-section: ("circle", radius (...)), ("hull",
     body-frame CCW verts (..., V, 2)) or None. A lane body's parameters
-    keep their lane axis. A Rect's half extents are dims[0] and dims[1]
-    (dims[2] is the extrusion depth)."""
+    keep their lane axis, one lane per pose (``BodyDef.per_pose``). A
+    Rect's half extents are dims[0] and dims[1] (dims[2] is the extrusion
+    depth)."""
     from .facade import HullShape
 
     s = bd.shape
     if isinstance(s, CylinderShape):
-        return "circle", s.rad
-    if isinstance(s, BoxShape):
+        out = "circle", s.rad
+    elif isinstance(s, BoxShape):
         w, h = s.dims[..., 0] / 2.0, s.dims[..., 1] / 2.0
         verts = torch.stack([torch.stack([w, h], -1), torch.stack([-w, h], -1), torch.stack([-w, -h], -1),
                              torch.stack([w, -h], -1)], dim=-2)
-        return "hull", verts
-    if isinstance(s, HullShape):
-        return "hull", s.verts2d * s.scale_[..., None, None]
-    return None
+        out = "hull", verts
+    elif isinstance(s, HullShape):
+        out = "hull", s.verts2d * s.scale_[..., None, None]
+    else:
+        return None
+    return out[0], bd.per_pose(out[1])
 
 
 def supported_pair(bd1, bd2) -> bool:

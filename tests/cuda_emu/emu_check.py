@@ -31,7 +31,10 @@ clusters of 12 CTAs), and a 3072-face floor whose poses spread over
 clusters of 16 CTAs, and both bench pairs with a sphere of a different
 radius in each of 3 lanes at 2 poses a lane (the seed sweep's per-lane
 bodies), held against ``search_pair_raw_plain`` as ``chip_smoke.py`` holds
-them. Takes about 40 s.
+them. K5 (``K5_CASES``): the fused query and the sampler against their
+plain versions, and the lane entry (``grid_query_lanes``, 3 lanes of 2
+poses, lane grids or one shared grid) bitwise against one single launch
+per lane. Takes about 40 s.
 """
 
 import ctypes
@@ -302,7 +305,59 @@ def check_k3_case(libs, dtype, label):
 # on a 3-channel stack
 K5_CASES = [("K5 query 33^3", (33, 33, 33), True, True), ("K5 query 33^3 value only", (33, 33, 33), True, False),
             ("K5 query 33^3 normalized frame", (33, 33, 33), False, True), ("K5 query 9x7x8", (9, 7, 8), True, True),
-            ("K5 sampler C=3 9x7x8", (9, 7, 8), None, None)]
+            ("K5 sampler C=3 9x7x8", (9, 7, 8), None, None), ("K5 query lanes 17^3", (17, 17, 17), True, True),
+            ("K5 query lanes 17^3 shared grid", (17, 17, 17), True, True)]
+
+
+def k5_query_fn(lib):
+    """grid_query_lanes, the K5 query entry (one body's query: one lane)."""
+    fn = lib.grid_query_lanes
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p, ctypes.c_longlong]
+                   + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 5)
+    return fn
+
+
+def check_k5_lanes(lib, dtype, label, res):
+    """The lane entry (grid_query_lanes) on L = 3 lanes of d = 2 poses of 60
+    points each, a grid (or one shared grid) and a scale per lane: every
+    output bitwise equal to one launch of one lane per lane, and held
+    against the plain version of each lane as check_k5_case holds the
+    single query."""
+    import chip_smoke
+
+    L, d, n = 3, 2, 60
+    rng = np.random.default_rng(7)
+    shared = "shared" in label
+    grids = torch.tensor(np.stack([chip_smoke.sphere_grid(res[0]) * (1.0 + 0.1 * i) for i in range(L)]), dtype=dtype)
+    if shared:
+        grids = grids[0]
+    scales = torch.tensor([0.7, 0.75, 0.8], dtype=dtype)
+    pts = torch.tensor(np.stack([chip_smoke.k5_query_points(res[0], float(scales[i // d]), n, seed=i)
+                                 for i in range(L * d)]), dtype=dtype)
+    f64 = 1 if dtype == torch.float64 else 0
+    M = d * n
+    outs = [torch.full((L * M,), float("nan"), dtype=dtype)] + [torch.full((L * M, 3), float("nan"), dtype=dtype)
+                                                              for _ in range(3)]
+    fn = k5_query_fn(lib)
+    err = fn(f64, L, *res, M, grids.data_ptr(), 0 if shared else grids[0].numel(), pts.data_ptr(), scales.data_ptr(),
+             1, *[o.data_ptr() for o in outs], None)
+    assert err == 0, f"grid_query_lanes: error {err}"
+    same, errs_all, ok_all = True, {}, True
+    for lane in range(L):
+        g = grids if shared else grids[lane]
+        p = pts[lane * d:(lane + 1) * d].reshape(-1, 3).contiguous()
+        ref = [torch.full((M,), float("nan"), dtype=dtype)] + [torch.full((M, 3), float("nan"), dtype=dtype)
+                                                               for _ in range(3)]
+        assert fn(f64, 1, *res, M, g.data_ptr(), 0, p.data_ptr(), scales[lane].data_ptr(), 0,
+                  *[o.data_ptr() for o in ref], None) == 0
+        mine = [o[lane * M:(lane + 1) * M] for o in outs]
+        same = same and all(torch.equal(a, b) for a, b in zip(mine, ref))
+        errs, ok = chip_smoke.k5_query_errors(mine, chip_smoke.k5_query_plain(p, g, scales[lane]), max_ulps=2)
+        ok_all = ok_all and ok
+        errs_all = {k: max(v, errs_all.get(k, 0.0)) for k, v in errs.items()}
+    return [(f"{label} {str(dtype)[6:]}: bitwise one launch per lane {same}; ulps "
+             + ", ".join(f"{k} {v:g}" for k, v in errs_all.items()), same and ok_all)]
 
 
 def check_k5_case(libs, dtype, case):
@@ -314,6 +369,8 @@ def check_k5_case(libs, dtype, case):
     from diffsdfsim_torch.ops import sdf
 
     label, res, scaled, grads = case
+    if "lanes" in label:
+        return check_k5_lanes(libs["grid_interp"], dtype, label, res)
     rng = np.random.default_rng(sum(res))
     grid = chip_smoke.sphere_grid(res[0]) if res[0] == res[1] == res[2] else rng.normal(size=res)
     lib = libs["grid_interp"]
@@ -337,12 +394,10 @@ def check_k5_case(libs, dtype, case):
     outs = [torch.full((n,), float("nan"), dtype=dtype)] + [torch.full((n, 3), float("nan"), dtype=dtype)
                                                            for _ in range(3)]
     asked = [True, bool(grads and scaled), bool(grads), bool(grads)]
-    fn = lib.grid_query
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
-    err = fn(f64, *res, n, grid.data_ptr(), pts.data_ptr(), scale.data_ptr() if scaled else None,
-             *[o.data_ptr() if a else None for o, a in zip(outs, asked)], None)
-    assert err == 0, f"grid_query: error {err}"
+    err = k5_query_fn(lib)(f64, 1, *res, n, grid.data_ptr(), 0, pts.data_ptr(),
+                           scale.data_ptr() if scaled else None, 0,
+                           *[o.data_ptr() if a else None for o, a in zip(outs, asked)], None)
+    assert err == 0, f"grid_query_lanes: error {err}"
     untouched = all(bool(torch.isnan(o).all()) for o, a in zip(outs, asked) if not a)
     # the normalized gradients within 2 units in the last place: the plain
     # version on the CPU sums normalize's three squares in another order

@@ -613,6 +613,67 @@ def test_grid_query_kernel_vjp(cuda, output):
         assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1.0)
 
 
+@pytest.mark.parametrize("shared", [False, True], ids=["lane grids", "shared grid"])
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_grid_query_lanes_kernel_matches_plain_and_singles(cuda, dtype, shared):
+    """K5's lane entry at 4 lanes of 2 poses each, a grid (or one shared
+    grid) and a scale per lane: every output as k5_query_errors holds the
+    single query against the plain version of each lane, and bitwise equal
+    to one single launch per lane; a GridShape lane body's query under
+    torch.func.vmap is one lane launch."""
+    from diffsdfsim_torch.ops.grid_cuda import grid_query_kernel, grid_query_lanes_kernel
+    from diffsdfsim_torch.physics import GridShape, make_body
+    from diffsdfsim_torch.physics.bodies import stack_lanes
+    from diffsdfsim_torch.physics.shapes import query_sdfs
+
+    cs, grid, scale, _ = _grid_query_inputs(cuda, 33, dtype)
+    L, M = 4, 600
+    grids = torch.stack([grid * (1.0 + 0.05 * i) for i in range(L)])
+    scales = scale * torch.linspace(0.9, 1.1, L, dtype=dtype, device=cuda)
+    pts = torch.stack([torch.tensor(cs.k5_query_points(33, float(scales[i]), M, seed=i), dtype=dtype, device=cuda)
+                       for i in range(L)])
+    g = grids[0] if shared else grids
+    outs = grid_query_lanes_kernel.run(pts, g, scales, True, True, True)
+    for i in range(L):
+        gi = g if shared else grids[i]
+        errs, ok = cs.k5_query_errors([o[i] for o in outs], cs.k5_query_plain(pts[i], gi, scales[i]))
+        assert ok, errs
+        one = grid_query_kernel.run(pts[i], gi, scales[i], True, True, True)
+        assert all(torch.equal(a[i], b) for a, b in zip(outs, one))
+    bodies = [make_body(GridShape(grids[i], scales[i]), template="ico", subdiv=1, device=cuda, dtype=dtype)
+              for i in range(2)]
+    lane = stack_lanes(bodies)
+    before, single = grid_query_lanes_kernel.launches, grid_query_kernel.launches
+    sdfs, _ = lane.query_sdfs(pts[:2])
+    torch.cuda.synchronize()
+    assert (grid_query_lanes_kernel.launches, grid_query_kernel.launches) == (before + 1, single)
+    assert all(torch.equal(sdfs[i], query_sdfs(bodies[i].shape, pts[i])[0]) for i in range(2))
+
+
+def test_grid_query_lanes_vjp(cuda):
+    """A lane body's query's vector-Jacobian products with respect to the
+    points and each lane's scale against autograd of the plain composition
+    mapped over the lanes, float64: a lane's d scale reaches that lane
+    only."""
+    from diffsdfsim_torch.ops import grid_cuda, sdf
+
+    cs, grid, scale, pts = _grid_query_inputs(cuda, 64, torch.float64, n=300)
+    grids = torch.stack([grid, grid * 1.1, grid * 0.9])
+    pts = torch.stack([pts, pts * 0.9, pts * 1.1])
+    g = torch.Generator(device=cuda).manual_seed(6)
+    cot_s = torch.randn(pts.shape[:2], generator=g, device=cuda, dtype=torch.float64)
+    cot_g = torch.randn(pts.shape, generator=g, device=cuda, dtype=torch.float64)
+    grads = []
+    for fn in (grid_cuda.grid_query, sdf.grid_query):
+        p = pts.clone().requires_grad_(True)
+        s = (scale * torch.tensor([1.0, 0.95, 1.05], dtype=torch.float64, device=cuda)).requires_grad_(True)
+        sdfs, gr = torch.func.vmap(fn)(p, grids, s)
+        loss = (sdfs * cot_s).sum() + (gr * cot_g).sum()
+        grads.append(torch.autograd.grad(loss, [p, s]))
+    for a, b in zip(*grads):
+        assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1.0)
+
+
 def test_igr_kernel_refuses_weights_that_require_grad(cuda):
     """K4 differentiates with respect to x only: in grad mode a decoder
     whose weights require grad raises (no launch, rather than a result with

@@ -209,11 +209,12 @@ def test_cpu_grid_queries_take_the_plain_version(query_data, monkeypatch):
 
 @pytest.mark.parametrize("output", ["value", "gradient", "both", "scale", "normalized_frame"])
 def test_query_function_backward_matches_plain(query_data, monkeypatch, output):
-    """The CUDA path's autograd Function (grid_cuda._GridQuery), with its
-    launch replaced by the plain version's outputs, gives the plain
-    composition's vector-Jacobian products with respect to the points and
-    the scale: its own product for the value, the plain recompute for the
-    gradient output and the scale. 1e-12 absolute, float64."""
+    """The CUDA path's autograd Function (grid_cuda._GridQuery, applied by
+    grid_cuda._query), with its launch replaced by the plain version's
+    outputs, gives the plain composition's vector-Jacobian products with
+    respect to the points and the scale: its own product for the value,
+    the plain recompute for the gradient output and the scale. 1e-12
+    absolute, float64."""
     def plain_run(pts, grid, scale=None, grad=False, grad_in=False, grad_raw=False):
         sdfs = tsdf.grid_query(pts, grid, scale, return_grads=False) if scale is not None else tsdf.grid_sdf_raw(pts, grid)
         pts_in = pts if scale is None else pts / scale
@@ -228,7 +229,7 @@ def test_query_function_backward_matches_plain(query_data, monkeypatch, output):
     if not scaled:
         pts0 = pts0 / query_data["scale"]
     got = []
-    for fn in (lambda p, s: grid_cuda._GridQuery.apply(p, s, grid, True), lambda p, s: tsdf.grid_query(p, grid, s)):
+    for fn in (lambda p, s: grid_cuda._query(p, grid, s, True), lambda p, s: tsdf.grid_query(p, grid, s)):
         p = pts0.clone().requires_grad_(True)
         s = torch.tensor(query_data["scale"], dtype=torch.float64, requires_grad=output == "scale") if scaled else None
         sdfs, grads = fn(p, s)

@@ -30,7 +30,7 @@ def test_port_imports_no_jax():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert len(res["modules"]) > 40 and "diffsdfsim_torch.experiments.optim_shapespace_inertia" in res["modules"]
     new = ("physics2d.facade", "physics2d.narrowphase", "physics2d.recorder", "ops.marching2d", "utils.checkpoint",
-           "utils.profiling", "utils.viz")
+           "utils.profiling", "utils.viz", "demos.meshsdf")
     assert all(f"diffsdfsim_torch.{m}" in res["modules"] for m in new)
     assert res["bad"] == [], res["bad"]
     assert res["lazy"] == [], res["lazy"]

@@ -32,7 +32,13 @@ twice, with K1's committed rule (whether a problem's last step was checked
 for improvement is decided over the whole launch) and with that decision
 taken per lane's group of rungs (as a single rollout's launch takes it),
 and prints how far lanes 0, 21, 42 and 63 are from the single path each
-time. A root given
+time; ``lanes_2d_k1_rule`` runs chip_smoke.py's card 2D grid sweep forward
+with each rule and holds each lane against its single run over all frames
+(``scenes_lanes.hold_single``, printing the restart witness), and where a
+lane's contacts part from its single run's it prints the deepest
+penetration along the segment between the two runs' poses and whether the
+lane body's search (one pose per lane, two rungs per lane) is bitwise the
+single world's at the lane's pose. A root given
 twice runs twice, so ``parent change change parent`` alternates the two.
 The processes' output goes to FILE (default ``chiprun_out/ab_paths.log``);
 the last line is one JSON object with each path's wall times in seconds,
@@ -241,6 +247,58 @@ def k1_lane_rule():
             print(f"k1 lane rule: K1 decided {rule}: B=64 lane {i} vs the single path: decisions identical {same}, "
                   f"pos max diff {d.max():.3e}, first frame that differs {first}, d loss / d rad over {n} frames "
                   f"{float(g[i])!r} vs {gref[n]!r} (rel {abs(float(g[i]) - gref[n]) / abs(gref[n]):.2e})")
+
+
+def lanes_2d_k1_rule():
+    import numpy as np
+    from diffsdfsim_torch.physics import make_world_batched, rollout, rollout_batched, trajectory_lanes_first
+    from diffsdfsim_torch.physics.contacts import find_contacts, search_contacts_raw
+
+    SL, S = cs.lanes_module(), cs.scenes2d_module()
+    P = SL.namespace("torch", "cuda")
+    build, n = SL.world_fn(P, "grid2d", "card"), SL.frames("grid2d", "card")
+    grids = torch.tensor(SL.inputs("grid2d", "card")[0], device="cuda")
+    worlds = [build(g) for g in grids]
+    with torch.no_grad():
+        singles = [S.traj_numpy(rollout(sp, st, n)[1]) for sp, st in worlds]
+    for rule in ("whole launch", "per lane"):
+        with k1_rule(rule == "per lane"):
+            spec, bodies_b, state_b = make_world_batched(build, grids)
+            with torch.no_grad():
+                _, traj = rollout_batched(spec, bodies_b, state_b, n)
+        tr = {k: v.cpu().numpy() for k, v in trajectory_lanes_first(traj)._asdict().items()}
+        for i, ((sp, st), single) in enumerate(zip(worlds, singles)):
+            a = {k: v[i] for k, v in tr.items()}
+            ca, cb = S.port_contacts_at(sp, a), S.port_contacts_at(sp, single)
+            _, _, line = SL.hold_single(a, single, 1e-8, f"lanes 2d k1 rule: K1 decided {rule}: lane {i} vs single",
+                                        ca, cb, lambda fp: SL.rounding_parting(P, sp, st, single, fp, 1, 1e-8,
+                                                                             (1e-12, -1e-12, 1e-11, 1e-10)))
+            per = [max(float(np.abs(a[k][f] - single[k][f]).max()) for k in ("pos", "quat", "v")) for f in range(n)]
+            print(line + "; per frame " + ", ".join(f"{d:.1e}" for d in per))
+            cp = S.contact_parting(a, single, ca, cb, n - 1)
+            if cp is None or rule != "whole launch":
+                continue
+            f, s = cp[:2]
+            pens = []
+            for t in np.linspace(0.0, 1.0, 9):  # between the two runs' poses at the parting
+                q = torch.tensor(a["quat"][f, s] + t * (single["quat"][f, s] - a["quat"][f, s]), device="cuda")
+                x = torch.tensor(a["pos"][f, s] + t * (single["pos"][f, s] - a["pos"][f, s]), device="cuda")
+                with torch.no_grad():
+                    pens.append(float(find_contacts(sp.bodies, q, x, sp.directed_pairs, sp.n_unordered,
+                                                    sp.cfg).max_pen_all))
+            print(f"lanes 2d k1 rule: lane {i} at frame {f} substep {s}, the deepest penetration from its pose to the "
+                  f"single run's: " + ", ".join(f"{p:.4e}" for p in pens))
+            q, x = torch.tensor(tr["quat"][:, f, s], device="cuda"), torch.tensor(tr["pos"][:, f, s], device="cuda")
+            with torch.no_grad():
+                raws = [search_contacts_raw(bodies_b, q, x, spec.directed_pairs, spec.cfg),
+                        search_contacts_raw(bodies_b, q.repeat_interleave(2, 0), x.repeat_interleave(2, 0),
+                                            spec.directed_pairs, spec.cfg),
+                        search_contacts_raw(sp.bodies, q[i:i + 1], x[i:i + 1], sp.directed_pairs, sp.cfg)]
+            rows = (i, 2 * i, 0)
+            same = all(torch.equal(getattr(r.raws[j], k)[row], getattr(raws[2].raws[j], k)[0])
+                       for r, row in zip(raws, rows) for j in range(len(r.raws)) for k in ("pen", "cmask", "p1_ng"))
+            print(f"lanes 2d k1 rule: lane {i} at frame {f} substep {s}: the lane body's search (one pose per lane, "
+                  f"and two rungs per lane) bitwise the single world's at the lane's pose: {same}")
 
 
 # looked up by name: an older checkout's chip_smoke.py lacks the newer phases
