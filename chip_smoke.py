@@ -14,7 +14,7 @@ optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4; K2 also
 on a case whose contacts' friction cones are all tight, against the exact
 solution in float64 and float32; K4 also refusing weights that require
 grad; K5's lane entry also at 16 lanes of their own 64^3 grid against its
-plain version and against one single launch per lane), then drives fifteen
+plain version and against one single launch per lane), then drives sixteen
 paths of the port on CUDA (float64):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
@@ -78,7 +78,12 @@ paths of the port on CUDA (float64):
   the single path on the card;
 - the MeshSDF demo (diffsdfsim_torch.demos.meshsdf) at the reference
   decoder's full width with the JAX demo's weights: 2 SGD iterations
-  against the JAX golden (K4, K1, K2).
+  against the JAX golden (K4, K1, K2);
+- the seed sweep split over worker processes (diffsdfsim_torch.parallel):
+  dryrun_multichip's seed_step at the bench's scale, 16 lanes, 20 frames
+  fwd+bwd, unsharded, over a worker per visible card and over four
+  workers on card 0, each chunk's K1, K3 and K2 launches counted in its
+  worker, every run's lanes against the JAX golden and the unsharded run.
 
 The kernel checks run first, with the card to themselves. The paths then
 run in four groups, each a process of this script (``--group``), all on the
@@ -243,7 +248,7 @@ def phase_device_and_build():
     ).stdout.strip().splitlines()[0]
     print(f"device: {name}  count: {torch.cuda.device_count()}  nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    logs = _build.build_all(["pdipm_fwd", "fw_search", "kkt_bwd", "igr_mlp", "grid_interp"])
+    logs = _build.build_all(_build.KERNELS)
     print(f"build: five kernels in {time.perf_counter() - t0:.1f} s (nvcc in parallel)")
     for kname, log in logs.items():
         lines = [ln.strip() for ln in log.splitlines() if "Used" in ln or "spill" in ln]
@@ -2004,14 +2009,9 @@ def reset_counts():
 
 
 def read_counts():
-    from diffsdfsim_torch.ops.fw_cuda import fw_search_pair
-    from diffsdfsim_torch.ops.grid_cuda import grid_interp, grid_query_kernel, grid_query_lanes_kernel
-    from diffsdfsim_torch.ops.igr_cuda import igr_mlp
-    from diffsdfsim_torch.ops.qp_cuda import kkt_grad_fric, pdipm_fric
+    from diffsdfsim_torch.parallel import launch_counts
 
-    return {"pdipm_fwd": pdipm_fric.launches, "fw_search": fw_search_pair.launches,
-            "kkt_bwd": kkt_grad_fric.launches, "igr_mlp": igr_mlp.launches, "grid_query": grid_query_kernel.launches,
-            "grid_query_lanes": grid_query_lanes_kernel.launches, "grid_interp": grid_interp.launches}
+    return launch_counts()
 
 
 def synced(fn):
@@ -4169,6 +4169,103 @@ def phase_demo():
     check(e_loss <= RTOL_DEMO and e_z <= RTOL_DEMO, f"demo: loss {e_loss:.2e} / latent {e_z:.2e} from JAX's")
 
 
+# ---------------------------------------------------------------- the sharded sweep
+
+SHARDING_GOLDEN = os.path.join(ROOT, "tests", "golden", "sharding_card_f64.npz")
+# each lane's loss and updated radius between the runs and against the JAX
+# golden: the 20-frame gradient gate (the decisions identical)
+RTOL_SHARDING = RTOL_GRAD_SHORT[20]
+SHARDING_WORKERS_ON_ONE_CARD = 4
+
+
+def sharding_module():
+    """tests/scenes_sharding.py (numpy only at import)."""
+    scenes2d_module()
+    import scenes_sharding
+
+    return scenes_sharding
+
+
+def lane_rel(a, b):
+    """The largest per-lane relative difference of a from b."""
+    a, b = np.asarray(a, dtype=np.float64), np.asarray(b, dtype=np.float64)
+    return float(np.max(np.abs(a - b) / np.abs(b)))
+
+
+def phase_sharding():
+    """The seed sweep split over worker processes (``diffsdfsim_torch.parallel``):
+    ``dryrun_multichip``'s ``seed_step`` at the bench's scale
+    (``tests/scenes_sharding.py``, ``card``: 16 lanes, 20 frames, fwd+bwd
+    and the simulated update), unsharded in this process, over
+    ``make_mesh()`` (a worker per visible card) and over four workers on
+    card 0, two calls each (the second on the warm pool). Each call's lanes
+    are held against the JAX golden (sharding_card_f64.npz) and against the
+    unsharded run's first call: identical decisions, each lane's loss and
+    updated radius within RTOL_SHARDING relative. Each chunk's K1, K3 and
+    K2 launches, counted in its worker, must match its stages
+    (``check_sweep``); the caller launches none while a mesh runs."""
+    import functools
+
+    import torch
+    from diffsdfsim_torch.parallel import batched_rollout, make_mesh
+
+    ss = sharding_module()
+    g = dict(np.load(SHARDING_GOLDEN))
+    B, T = ss.SIZES["card"]["lanes"], ss.SIZES["card"]["frames"]
+    rads, drops = ss.seeds("card")
+    check(np.array_equal(rads, g["rads"]) and np.array_equal(drops, g["drops"]), "sharding: the golden's seeds differ")
+    batch = tuple(torch.tensor(x, device="cuda") for x in (rads, drops))
+    fn = functools.partial(ss.seed_step, "card")
+    ref = {}
+
+    def run(tag, mesh):
+        step = batched_rollout(fn, mesh, device="cuda", has_aux=True)
+        for call in range(2):
+            reset_counts()
+            t0 = time.perf_counter()
+            out, aux = step(batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            caller = read_counts()
+            out = {k: v.cpu().numpy() for k, v in out.items()}
+            label = f"sharding {tag}, call {call}"
+            for i, (st, a) in enumerate(zip(step.stats, aux)):
+                check_sweep(f"{label}, chunk {i}", st["launches"], a, len(st["lanes"]), taped=True)
+            if mesh is None:
+                check(caller == step.stats[0]["launches"], f"{label}: launches {caller} vs {step.stats[0]['launches']}")
+            else:
+                check(not any(caller.values()), f"{label}: the caller launched {caller} while the mesh ran")
+            check(bool(out["bounced"].all()), f"{label}: lanes {np.nonzero(~out['bounced'])[0].tolist()} never "
+                  "touched the floor")
+            if not ref:
+                ref.update(out)
+            errs = {}
+            for name, other in (("JAX golden", g), ("unsharded run", ref)):
+                for key in ss.DECISIONS:
+                    check(np.array_equal(out[key], other[key]), f"{label}: {key} differs from the {name}'s")
+                for key in ("loss", "rad"):
+                    errs[f"{key} vs {name}"] = e = lane_rel(out[key], other[key])
+                    check(e <= RTOL_SHARDING, f"{label}: a lane's {key} is {e:.2e} from the {name}'s (relative; tol "
+                          f"{RTOL_SHARDING:g})")
+            errs["d_rad vs JAX golden"] = lane_rel(out["d_rad"], g["d_rad"])
+            print(f"{label}: {wall:.3f} s wall = {B * T / wall:.2f} lane-steps/s ({B} lanes x {T} frames, fwd+bwd); "
+                  + "; ".join(f"{st['device']} lanes {st['lanes'].start}-{st['lanes'].stop - 1} {st['seconds']:.3f} s, "
+                              f"K1 {st['launches']['pdipm_fwd']} K3 {st['launches']['fw_search']} K2 "
+                              f"{st['launches']['kkt_bwd']}, {a.host_syncs} host reads, {a.stages['substep']} substeps"
+                              for st, a in zip(step.stats, aux)))
+            print(f"{label}: decisions identical to the JAX golden's and the unsharded run's; max per-lane relative "
+                  + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+
+    run("unsharded (this process)", None)
+    for tag, devices in (("every visible card", None), (f"{SHARDING_WORKERS_ON_ONE_CARD} workers on card 0",
+                                                       ["cuda:0"] * SHARDING_WORKERS_ON_ONE_CARD)):
+        t0 = time.perf_counter()
+        with make_mesh(devices=devices) as mesh:
+            print(f"sharding {tag}: {len(mesh)} workers on {[str(d) for d in mesh.devices]} started in "
+                  f"{mesh.start_seconds:.2f} s ({time.perf_counter() - t0:.2f} s with make_mesh's kernel build check)")
+            run(tag, mesh)
+
+
 # The paths after the kernel checks, in groups that run as concurrent
 # processes on the one card: every path is host-bound (the device is idle
 # 93-96 % of each path's wall), so four processes share the card with
@@ -4177,7 +4274,8 @@ def phase_demo():
 # ``kernels`` line reports, run before them with the card to themselves.
 PATH_GROUPS = (
     ("phase_batched", "phase_grid_path", "phase_meshes", "phase_lanes_3d"),
-    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path", "phase_shapespace_sweep", "phase_demo"),
+    ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path", "phase_shapespace_sweep", "phase_demo",
+     "phase_sharding"),
     ("phase_sysid_sweep", "phase_inertia", "phase_main_path", "phase_lanes_2d"),
     ("phase_gradient", "phase_2d", "phase_fallback"),
 )

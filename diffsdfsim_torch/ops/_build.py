@@ -25,6 +25,9 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+# every kernel source in csrc/ (K1, K3, K2, K4, K5)
+KERNELS = ("pdipm_fwd", "fw_search", "kkt_bwd", "igr_mlp", "grid_interp")
+
 _loaded: dict[str, ctypes.CDLL] = {}
 
 
