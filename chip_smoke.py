@@ -14,8 +14,8 @@ optim_sphere's room LCPs and optim_pointcloud's, k = 4 at fd = 4; K2 also
 on a case whose contacts' friction cones are all tight, against the exact
 solution in float64 and float32; K4 also refusing weights that require
 grad; K5's lane entry also at 16 lanes of their own 64^3 grid against its
-plain version and against one single launch per lane), then drives sixteen
-paths of the port on CUDA (float64):
+plain version and against one single launch per lane), then drives
+seventeen paths of the port on CUDA (float64, and one in float32):
 
 - the forward path: the bench scene's 100-frame bounce rollout through K1
   (PDIPM) and K3 (Frank-Wolfe search), held against the plain CPU rollout
@@ -83,7 +83,14 @@ paths of the port on CUDA (float64):
   dryrun_multichip's seed_step at the bench's scale, 16 lanes, 20 frames
   fwd+bwd, unsharded, over a worker per visible card and over four
   workers on card 0, each chunk's K1, K3 and K2 launches counted in its
-  worker, every run's lanes against the JAX golden and the unsharded run.
+  worker, every run's lanes against the JAX golden and the unsharded run;
+- float32, the JAX package's accelerator dtype, at bench.py's float32
+  tolerance: the bench's 100-frame rollout (K1, K3) and d loss / d rad at
+  12, 20 and 27 frames (K1, K3, K2) against the JAX package's float32
+  kernels (its ``pallas`` golden) and, up to where the JAX package's two
+  float32 paths part, against its plain path and the CPU port; the seed
+  sweep at B = 16 (30 frames fwd+bwd), the 64^3 grid drop (K5) and the
+  full-width latent drop and first Adam step (K4, K1, K2).
 
 The kernel checks run first, with the card to themselves. The paths then
 run in four groups, each a process of this script (``--group``), all on the
@@ -117,6 +124,9 @@ BENCH_CFG = dict(
     max_substeps=4, max_bisect=8, tol=1e-8,
 )
 N_FRAMES = 100
+# bench.py's float32 tolerance (the reference's float64 tol 1e-8 is below
+# float32's resolution)
+F32_TOL = 1e-5
 # the seed sweep's batch sizes (bench.py's batch16 / batch64)
 SWEEP_B = (16, 64)
 # How the rollout is held against a reference. The discrete decisions
@@ -944,6 +954,12 @@ def phase_k2():
                          f"torch.linalg.solve_ex of the "
                          f"{n}x{n} KKT system {library_ms:.4f} ms ({lib_how}, all its kernels; its solution "
                          f"{err_lib:.1e} from the plain version's)")
+            else:
+                # the library yardstick in float32 (timed, not held: a
+                # float32 LU of these systems is not accurate)
+                kkt, rhs = kkt_system(Q, G, A, F, d, rx)
+                library_ms, lib_how = device_ms(lambda: torch.linalg.solve_ex(kkt, rhs), None)
+                extra = f"; torch.linalg.solve_ex of the KKT system in float32 {library_ms:.4f} ms ({lib_how})"
             print(f"{tag}: max abs err {abs_err:.3e}, max rel err {err:.3e} vs the plain version{'' if f64 else ' in float64'} (tol {tol:g})"
                   f"{'' if f64 else f'; the plain float32 path is off by {err_plain:.3e}'}; kernel {ms:.4f} ms ({how}) "
                   f"(wrapper {wrapper_ms:.4f} ms), plain {plain_ms:.4f} ms, bound {max(bytes_ms, ops_ms):.6f} ms "
@@ -1484,7 +1500,7 @@ def run_rollout(device, dtype=None):
     from diffsdfsim_torch.physics import Gravity3D, TotalConstraint3D, make_world, rollout
 
     dtype = dtype or torch.float64
-    cfg = dict(BENCH_CFG, tol=1e-5) if dtype == torch.float32 else BENCH_CFG
+    cfg = dict(BENCH_CFG, tol=F32_TOL) if dtype == torch.float32 else BENCH_CFG
     floor, sphere = bench_bodies(device, dtype)
     poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]]
     spec, state = make_world([floor, sphere], poses, np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
@@ -1601,19 +1617,37 @@ def phase_main_path():
 def bench_loss(device, n_frames):
     """bench.py's loss over the bench world built from a radius that
     requires grad: (loss, rad, spec), the rollout taped."""
+    traj, rad, spec = bench_traj(device, n_frames)
+    return prefix_loss(traj, n_frames), rad, spec
+
+
+def bench_traj(device, n_frames, dtype=None):
+    """The bench rollout from a radius that requires grad, taped, in
+    ``dtype`` (float64; float32 with bench.py's float32 tol 1e-5):
+    (trajectory, rad, spec)."""
     import torch
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.physics import (BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body,
                                           make_world, rollout)
 
-    rad = torch.tensor(0.5, dtype=torch.float64, device=device, requires_grad=True)
-    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25, device=device)
-    sphere = make_body(SphereShape(rad), subdiv=2, fric_coeff=0.25, device=device)
+    dtype = dtype or torch.float64
+    cfg = dict(BENCH_CFG, tol=F32_TOL) if dtype == torch.float32 else BENCH_CFG
+    rad = torch.tensor(0.5, dtype=dtype, device=device, requires_grad=True)
+    floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25, device=device,
+                      dtype=dtype)
+    sphere = make_body(SphereShape(rad), subdiv=2, fric_coeff=0.25, device=device, dtype=dtype)
     poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]]
     spec, state = make_world([floor, sphere], poses, np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
-                             forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**BENCH_CFG), device=device)
+                             forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**cfg), device=device)
     _, traj = rollout(spec, state, n_frames)
-    return torch.sum(traj.pos[:, :, 1, :] ** 2 * traj.valid[:, :, None]), rad, spec
+    return traj, rad, spec
+
+
+def prefix_loss(traj, n):
+    """bench.py's loss over the first n frames of a single trajectory."""
+    import torch
+
+    return torch.sum(traj.pos[:n, :, 1, :] ** 2 * traj.valid[:n, :, None])
 
 
 def phase_gradient():
@@ -1711,20 +1745,23 @@ _FLOORS = {}
 
 def sweep_world(rad, device="cuda"):
     """bench.py's world of one sweep lane: the bench scene at radius ``rad``
-    (a tensor), built on ``device``; the floor, the same in every lane and
-    requiring no grad, is built once per device."""
+    (a tensor, whose dtype the world takes: float32 with bench.py's float32
+    tol 1e-5), built on ``device``; the floor, the same in every lane and
+    requiring no grad, is built once per device and dtype."""
     import torch
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.physics import BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body, make_world
 
-    if device not in _FLOORS:
-        _FLOORS[device] = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25,
-                                    device=device)
-    floor = _FLOORS[device]
-    sphere = make_body(SphereShape(rad), subdiv=2, fric_coeff=0.25, device=device)
+    dtype = rad.dtype
+    if (device, dtype) not in _FLOORS:
+        _FLOORS[device, dtype] = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25,
+                                           device=device, dtype=dtype)
+    floor = _FLOORS[device, dtype]
+    sphere = make_body(SphereShape(rad), subdiv=2, fric_coeff=0.25, device=device, dtype=dtype)
     poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, 1.2, 0.0]]
+    cfg = dict(BENCH_CFG, tol=F32_TOL) if dtype == torch.float32 else BENCH_CFG
     return make_world([floor, sphere], poses, np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
-                      forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**BENCH_CFG), device=device)
+                      forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**cfg), device=device)
 
 
 def lane_losses(traj, n):
@@ -2071,6 +2108,33 @@ def compare_shape_traj(traj, ref, label, atol):
     return tr, errs
 
 
+def counted_grid_run(fn):
+    """(fn(), launches, grid queries, gradient volumes built, seconds,
+    device reads) of fn() run with the launch counts set to 0 and every
+    ``GridShape`` query and gradient volume counted."""
+    from diffsdfsim_torch.ops import grid_cuda, sdf
+
+    queries, volumes = [0], [0]
+    query, volume = grid_cuda.grid_query, sdf.grid_grad_volume
+
+    def counted_query(*args, **kwargs):
+        queries[0] += 1
+        return query(*args, **kwargs)
+
+    def counted_volume(grid):
+        volumes[0] += 1
+        return volume(grid)
+
+    grid_cuda.grid_query, sdf.grid_grad_volume = counted_query, counted_volume
+    try:
+        reset_counts()
+        out, wall, syncs = synced(fn)
+        launches = read_counts()
+    finally:
+        grid_cuda.grid_query, sdf.grid_grad_volume = query, volume
+    return out, launches, queries[0], volumes[0], wall, syncs
+
+
 def phase_grid_path():
     """The voxel-grid body on CUDA: the 16-frame drop of a voxelized sphere
     on a 64^3 float64 grid (tests/test_world_extra.py:53-67 at a voxel-SDF
@@ -2081,7 +2145,6 @@ def phase_grid_path():
     analytic kinds)."""
     import torch
     from diffsdfsim_torch.config import SimConfig
-    from diffsdfsim_torch.ops import grid_cuda, sdf
     from diffsdfsim_torch.physics import (BoxShape, Gravity3D, GridShape, TotalConstraint3D, make_body,
                                           make_world, rollout)
 
@@ -2100,36 +2163,19 @@ def phase_grid_path():
         return ball, rollout(spec, state, n_frames)[1]
 
     run(2)  # warm-up
-    queries, volumes = [0], [0]
-    query, volume = grid_cuda.grid_query, sdf.grid_grad_volume
-
-    def counted_query(*args, **kwargs):
-        queries[0] += 1
-        return query(*args, **kwargs)
-
-    def counted_volume(grid):
-        volumes[0] += 1
-        return volume(grid)
-
-    grid_cuda.grid_query, sdf.grid_grad_volume = counted_query, counted_volume
-    try:
-        reset_counts()
-        (ball, traj), wall, syncs = synced(lambda: run(int(golden["frames"])))
-        launches = read_counts()
-    finally:
-        grid_cuda.grid_query, sdf.grid_grad_volume = query, volume
+    (ball, traj), launches, queries, volumes, wall, syncs = counted_grid_run(lambda: run(int(golden["frames"])))
     check(launches["grid_query"] > 0 and launches["fw_search"] == 0 and launches["grid_interp"] == 0,
           f"the grid path must launch K5's query and not K3 or the sampler: {launches}")
-    check(launches["grid_query"] == queries[0] and volumes[0] == 0,
-          f"the grid path made {launches['grid_query']} K5 launches for {queries[0]} grid queries and built "
-          f"{volumes[0]} gradient volumes")
+    check(launches["grid_query"] == queries and volumes == 0,
+          f"the grid path made {launches['grid_query']} K5 launches for {queries} grid queries and built "
+          f"{volumes} gradient volumes")
     check(float((ball.verts.cpu() - torch.tensor(golden["verts"])).abs().max()) <= 1e-12, "grid body verts differ")
     _, errs = compare_shape_traj(traj, golden, "grid path vs JAX golden", ATOL_SHAPE_PATH)
     n_sub = int(traj.valid.sum())
     pwall, busy, kern = busy_share(lambda: run(int(golden["frames"])))
     print(f"grid path: {int(golden['frames'])} frames on a {int(golden['res'])}^3 grid in {wall:.3f} s wall "
-          f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads; {queries[0]} grid queries, "
-          f"{volumes[0]} gradient volumes; launches {launches}; "
+          f"(make_body and make_world included), {n_sub} substeps, {syncs} device reads; {queries} grid queries, "
+          f"{volumes} gradient volumes; launches {launches}; "
           f"vs JAX golden " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f"; profiled: wall {pwall:.1f} ms, device busy {busy:.1f} ms (idle {100 - 100 * busy / pwall:.1f}%)")
     return launches
@@ -2214,6 +2260,369 @@ def phase_latent_path():
           f"(idle {100 - 100 * busy / pwall:.1f}%); top kernels (ms): "
           + "; ".join(f"{k[:40]} {v:.2f}" for k, v in top) + f"; {len(kern)} distinct kernels")
     return launches, fit_launches
+
+
+# ---------------------------------------------------------------- phase float32
+
+
+# float32, the dtype the JAX package runs on its accelerator, held against
+# the JAX package's own float32 runs (tests/golden/gen_torch_f32_golden.py,
+# ``<case>_<mode>_f32.npz``): "pallas", its PDIPM, KKT and Frank-Wolfe
+# kernels (interpret mode; what it computes on its accelerator), and "xla",
+# its plain path (off it). The card runs K1 and K3 as the Pallas kernels
+# do (K1 without the XLA path's float32 d-clip and ridge; K2 in float64
+# for float32 inputs), so its runs are held to "pallas"; the CPU port's
+# plain float32 path copies "xla" (tests/test_torch_f32.py).
+F32_GOLDEN = os.path.join(ROOT, "tests", "golden", "{}_{}_f32.npz")
+F32_GRAD_FRAMES = (12, 20, 27)
+F32_SWEEP_B, F32_SWEEP_FRAMES, F32_SWEEP_LANES = 16, 30, (0, 15)
+# How a float32 run is held against a reference over its frames: identical
+# discrete decisions, the sphere's height within ATOL32_Y (~170 ulps of 1
+# m) and its vertical velocity within ATOL32_VY (~210 ulps of 4 m/s), every
+# component within ATOL_ALL (the touchdown tie of ROADMAP queue 3 item 1
+# decides the tangential state, in float32 from the first touchdown: the
+# JAX package's two float32 paths part by 1e-3 there, its 64^3 grid ball by
+# 1.9e-2 between float32 and float64). Against the CPU port and the "xla"
+# golden only up to the frame where the two JAX references part by more
+# than these bounds: the resting sphere's contact is decided there by the
+# XLA path's float32 d-clip and ridge, which the card's K1 does not have.
+ATOL32_Y, ATOL32_VY = 2e-5, 1e-4
+# d loss / d rad against the "pallas" golden, relative: float32's epsilon
+# is 1.19e-7 (an H100 read <= 2.3e-7 at 12, 20 and 27 frames; the "xla"
+# path is 5.9e-3, 4.7e-2 and 2.7e-3 from it)
+RTOL32_GRAD = 1e-5
+# The full-width latent drop: its float32 rounding spread, witnessed by the
+# CPU port against its op-for-op "xla" golden (height 2.1e-5, vertical
+# velocity 3.0e-4, the decoder's sums in another order), bounds it against
+# "pallas": height ATOL32_LATENT_Y, vertical velocity ATOL32_LATENT_VY
+ATOL32_LATENT_Y, ATOL32_LATENT_VY = 1e-4, 1e-3
+# The latent fit's first Adam step against "pallas": the loss within
+# RTOL32_FIT_LOSS relative (an H100 read 3.5e-5; the "xla" golden is 9e-4
+# from "pallas"), d loss / d latent within RTOL32_FIT_GRAD relative to its
+# largest component: the float32 gradient of this fit is decided by
+# rounding to a few per cent (the JAX package's two float32 paths are 3.6e-2
+# apart, and 4.2e-2 and 5.9e-2 from the float64 gradient at the same
+# inputs; an H100 read 3.9e-2 from "pallas", 1.7e-2 from float64), so it is
+# also held no farther from the float64 gradient at the same inputs than
+# the JAX package's float32 gradients are; the latent after the step
+# (lr times the gradient's sign) within ATOL32_FIT_Z
+RTOL32_FIT_LOSS, RTOL32_FIT_GRAD, ATOL32_FIT_Z = 1e-4, 5e-2, 1e-7
+
+
+def f32_golden(case, mode):
+    return dict(np.load(F32_GOLDEN.format(case, mode)))
+
+
+def decision_parting(tr, ref, n):
+    """The first of n frames where two trajectories' discrete decisions
+    differ (n: none)."""
+    bad = np.zeros(n, dtype=bool)
+    for key in DECISIONS:
+        bad |= (np.asarray(tr[key])[:n] != np.asarray(ref[key])[:n]).reshape(n, -1).any(axis=1)
+    over = np.nonzero(bad)[0]
+    return int(over[0]) if len(over) else n
+
+
+def f32_errors(tr, ref, n):
+    """The largest differences of a trajectory from a reference over the
+    first n frames: every pose and velocity component, and the dropped body's
+    (body 1's) height and vertical velocity (numpy dicts, any lane layout
+    with bodies second to last)."""
+    d = lambda key: np.abs(np.asarray(tr[key])[:n].astype(np.float64) - np.asarray(ref[key])[:n])  # noqa: E731
+    errs = {key: float(d(key).max()) if n else 0.0 for key in ("pos", "quat", "v")}
+    errs["pos_y"] = float(d("pos")[..., 1, 1].max()) if n else 0.0
+    errs["v_y"] = float(d("v")[..., 1, 4].max()) if n else 0.0
+    return errs
+
+
+def reference_parting(a, b):
+    """The first frame where two float32 references part beyond the bounds
+    a run is held to (decisions, height, vertical velocity)."""
+    n = len(a["pos"])
+    for i in range(decision_parting(a, b, n)):
+        e = f32_errors({k: v[i:] for k, v in a.items()}, {k: v[i:] for k, v in b.items()}, 1)
+        if e["pos_y"] > ATOL32_Y or e["v_y"] > ATOL32_VY:
+            return i
+    return decision_parting(a, b, n)
+
+
+def hold_f32(tr, ref, label, upto=None, atol_y=ATOL32_Y, atol_vy=ATOL32_VY):
+    """Hold a float32 trajectory against a reference over its first
+    ``upto`` frames (None: all); returns (the first decision parting, the
+    errors held, the errors over the whole run)."""
+    n = len(tr["pos"])
+    upto = n if upto is None else min(upto, n)
+    part = decision_parting(tr, ref, n)
+    check(part >= upto, f"{label}: the decisions part at frame {part}, within the {upto} frames held")
+    held, whole = f32_errors(tr, ref, upto), f32_errors(tr, ref, n)
+    check(held["pos_y"] <= atol_y and held["v_y"] <= atol_vy,
+          f"{label}: over {upto} frames the height differs by {held['pos_y']} (atol {atol_y}), the vertical "
+          f"velocity by {held['v_y']} (atol {atol_vy})")
+    check(max(held[k] for k in ("pos", "quat", "v")) <= ATOL_ALL, f"{label}: over {upto} frames: {held}")
+    return part, held, whole
+
+
+def fmt_errs(e):
+    return ", ".join(f"{k} {v:.2e}" for k, v in e.items())
+
+
+def f32_bench_forward():
+    """The bench's 100-frame rollout in float32 through K1 and K3 against
+    the "pallas" golden, the "xla" golden and the CPU port's plain float32
+    rollout; its wall beside the float64 rollout's."""
+    import torch
+
+    spec, state, rollout = run_rollout("cuda", torch.float32)
+    rollout(spec, state, 5)  # warm-up of the float32 path
+    walls = {}
+    for dtype in (torch.float64, torch.float32):
+        spec, state, _ = run_rollout("cuda", dtype)
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        _, traj = rollout(spec, state, N_FRAMES)
+        torch.cuda.synchronize()
+        walls[dtype] = time.perf_counter() - t0
+    launches = read_counts()
+    check(launches["pdipm_fwd"] > 0 and launches["fw_search"] > 0 and launches["kkt_bwd"] == 0,
+          f"the float32 forward must launch K1 and K3 and not K2: {launches}")
+    check(traj.pos.dtype == torch.float32 and traj.v.dtype == torch.float32, f"float32 rollout in {traj.pos.dtype}")
+    tr = {k: v.cpu().numpy() for k, v in traj._asdict().items()}
+    check(all(np.isfinite(tr[k]).all() for k in ("pos", "quat", "v")), "float32 rollout: non-finite state")
+    pallas, xla = f32_golden("bench", "pallas"), f32_golden("bench", "xla")
+    witness = reference_parting(pallas, xla)
+    spec_c, state_c, _ = run_rollout("cpu", torch.float32)
+    t0 = time.perf_counter()
+    _, traj_c = rollout(spec_c, state_c, N_FRAMES)
+    cpu_wall = time.perf_counter() - t0
+    trc = {k: v.numpy() for k, v in traj_c._asdict().items()}
+    res = {"the pallas golden": hold_f32(tr, pallas, "float32 bench vs the pallas golden"),
+           "the CPU port": hold_f32(tr, trc, "float32 bench vs the CPU port", witness),
+           "the xla golden": hold_f32(tr, xla, "float32 bench vs the xla golden", witness)}
+    n_sub = int(tr["valid"].sum())
+    print(f"float32 bench: {N_FRAMES} frames in {walls[torch.float32]:.3f} s wall (float64 in this process "
+          f"{walls[torch.float64]:.3f} s), {n_sub} substeps (pallas golden {int(pallas['valid'].sum())}, xla golden "
+          f"{int(xla['valid'].sum())}, float64 golden {int(np.load(GOLDEN)['valid'].sum())}), host syncs "
+          f"{spec.host_syncs}; launches {launches}; the JAX package's pallas and xla paths part at frame "
+          f"{witness} (decisions at frame {decision_parting(pallas, xla, N_FRAMES)}); the CPU rollout "
+          f"{cpu_wall:.2f} s on the host")
+    for name, (part, held, whole) in res.items():
+        print(f"float32 bench vs {name}: held over {N_FRAMES if name.endswith('pallas golden') else witness} "
+              f"frames: {fmt_errs(held)}; decisions part at frame {part}; whole run {fmt_errs(whole)}")
+    return launches
+
+
+def f32_bench_gradients():
+    """d loss / d rad of the bench loss over 12, 20 and 27 frames in
+    float32 through K1, K3 and K2 (one taped 27-frame rollout) against the
+    "pallas" golden; its distance from the "xla" golden and from the
+    float64 gradient of the card."""
+    import torch
+
+    grads, walls, launches = {}, {}, None
+    for dtype in (torch.float64, torch.float32):  # warm-up of both taped paths
+        traj, rad, _ = bench_traj("cuda", 2, dtype)
+        torch.autograd.grad(prefix_loss(traj, 2), rad)
+    for dtype in (torch.float64, torch.float32):
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        traj, rad, _ = bench_traj("cuda", max(F32_GRAD_FRAMES), dtype)
+        grads[dtype] = {n: float(torch.autograd.grad(prefix_loss(traj, n), rad, retain_graph=True)[0])
+                        for n in F32_GRAD_FRAMES}
+        torch.cuda.synchronize()
+        walls[dtype] = time.perf_counter() - t0
+        launches = read_counts()
+    check(all(launches[k] > 0 for k in ("pdipm_fwd", "fw_search", "kkt_bwd")),
+          f"the float32 gradient must launch K1, K3 and K2: {launches}")
+    rel = lambda a, b: abs(a - b) / abs(b)  # noqa: E731
+    for n in F32_GRAD_FRAMES:
+        g = grads[torch.float32][n]
+        gp, gx = (float(f32_golden(f"grad_{n}", m)["grad"]) for m in ("pallas", "xla"))
+        e_p, e_x, e_64 = rel(g, gp), rel(g, gx), rel(g, grads[torch.float64][n])
+        print(f"float32 gradient, {n} frames: d loss / d rad {g!r}; pallas golden {gp!r} (rel {e_p:.2e}, tol "
+              f"{RTOL32_GRAD:g}); xla golden {gx!r} (rel {e_x:.2e}); float64 on the card "
+              f"{grads[torch.float64][n]!r} (rel {e_64:.2e})")
+        check(np.isfinite(g) and e_p <= RTOL32_GRAD, f"float32 {n}-frame gradient {g} vs pallas {gp}: rel {e_p}")
+        check(e_p < rel(gx, gp), f"float32 {n}-frame gradient {g} is no closer to the pallas golden {gp} than the "
+              f"xla golden {gx} is")
+    print(f"float32 gradient: {max(F32_GRAD_FRAMES)} frames fwd+bwd with three prefix losses in "
+          f"{walls[torch.float32]:.3f} s wall (float64 {walls[torch.float64]:.3f} s); launches {launches}")
+    return launches
+
+
+def f32_sweep():
+    """The seed sweep in float32: B = 16 radii, 30 frames, fwd+bwd through
+    K1, K3 and K2, against the "pallas" golden of the JAX package's
+    ``rollout_batched`` lane by lane, and lanes 0 and 15 against the single
+    float32 path on the card."""
+    import torch
+    from diffsdfsim_torch.physics import make_world_batched, rollout, rollout_batched
+
+    B, n = F32_SWEEP_B, F32_SWEEP_FRAMES
+    golden = f32_golden(f"batched_{B}", "pallas")
+    rads = golden["rads"]
+    r = torch.tensor(rads, device="cuda", requires_grad=True)
+    spec, bodies_b, state_b = make_world_batched(sweep_world, r)
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    _, traj = rollout_batched(spec, bodies_b, state_b, n)
+    losses = lane_losses(traj, n)
+    (grad,) = torch.autograd.grad(losses.sum(), r)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    st = spec.stages
+    check(launches["pdipm_fwd"] == st["lcp"] > 0 and launches["kkt_bwd"] == st["replay_lcp"] > 0
+          and launches["fw_search"] == len(spec.directed_pairs) * (st["shallow"] + st["deep"]),
+          f"float32 sweep: launches {launches} for stages {dict(st)}")
+    tr = {k: v.detach().cpu().numpy() for k, v in traj._asdict().items()}
+    gtr = {k: golden[k] for k in tr}
+    losses, grad = losses.detach().cpu().numpy(), grad.cpu().numpy()
+    e_loss, e_grad = rel_err(losses, golden["loss"]), np.abs(grad / golden["grad"] - 1)
+    held = [hold_f32(lane_traj(tr, i), lane_traj(gtr, i), f"float32 sweep lane {i} vs the pallas golden")[1]
+            for i in range(B)]
+    print(f"float32 sweep B={B}: {n} frames fwd+bwd in {wall:.3f} s wall ({B * n / wall:.2f} lane-steps/s), "
+          f"{st['substep']} whole-batch substeps, launches {launches}; vs the pallas golden: decisions identical "
+          f"in every lane, height {max(e['pos_y'] for e in held):.2e}, losses rel {e_loss:.2e}, d loss / d rad rel "
+          f"max {e_grad.max():.2e} (lanes {np.round(e_grad, 6).tolist()})")
+    check(e_loss <= RTOL32_GRAD and e_grad.max() <= RTOL32_GRAD,
+          f"float32 sweep: losses rel {e_loss}, d loss / d rad rel {e_grad.max()} from the pallas golden")
+    errs, gerr = {}, 0.0
+    for i in F32_SWEEP_LANES:
+        rs = torch.tensor(rads[i], device="cuda", requires_grad=True)
+        s1, st1 = sweep_world(rs)
+        _, t1 = rollout(s1, st1, n)
+        (g1,) = torch.autograd.grad(prefix_loss(t1, n), rs)
+        ref = {k: v.detach().cpu().numpy() for k, v in t1._asdict().items()}
+        _, held, _ = hold_f32(lane_traj(tr, i), ref, f"float32 sweep lane {i} vs the single path")
+        for k, v in held.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        gerr = max(gerr, rel_err(grad[i], float(g1)))
+    print(f"float32 sweep B={B}: lanes {list(F32_SWEEP_LANES)} vs the single float32 path: decisions identical; "
+          f"{fmt_errs(errs)}; d loss / d rad rel {gerr:.2e}")
+    check(gerr <= RTOL32_GRAD, f"float32 sweep lanes: d loss / d rad {gerr} from the single path")
+    return launches
+
+
+def f32_grid():
+    """The 64^3 grid drop in float32 through K5 (one launch per grid query,
+    counted) and K1, against the "xla" and "pallas" goldens."""
+    import torch
+    from diffsdfsim_torch.config import SimConfig
+    from diffsdfsim_torch.physics import (BoxShape, Gravity3D, GridShape, TotalConstraint3D, make_body,
+                                          make_world, rollout)
+
+    xla, pallas = f32_golden("grid64", "xla"), f32_golden("grid64", "pallas")
+    cfg = SimConfig(fric_dirs=4, max_contacts_per_pair=4, max_contacts_total=8, mesh_subdiv=2, max_substeps=4,
+                    max_bisect=6, tol=F32_TOL)
+    f32 = torch.float32
+    grid = torch.tensor(sphere_grid(int(xla["res"])), dtype=f32, device="cuda")
+
+    def run(n_frames):
+        floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), fric_coeff=0.25, subdiv=3, device="cuda",
+                          dtype=f32)
+        ball = make_body(GridShape(grid=grid, scale_=torch.tensor(0.75)), fric_coeff=0.25, template="ico",
+                         subdiv=2, project_iters=16, device="cuda", dtype=f32)
+        spec, state = make_world([floor, ball], [[1.0, 0, 0, 0, 0, -0.5, 0], [1.0, 0, 0, 0, 0, 1.0, 0]],
+                                 np.zeros((2, 6)), joints=(TotalConstraint3D(body1=0),),
+                                 forces=((), (Gravity3D(10.0),)), cfg=cfg, device="cuda")
+        return ball, rollout(spec, state, n_frames)[1]
+
+    run(2)  # warm-up
+    (ball, traj), launches, queries, volumes, wall, _ = counted_grid_run(lambda: run(int(xla["frames"])))
+    check(launches["grid_query"] > 0 and launches["grid_query"] == queries and volumes == 0
+          and launches["fw_search"] == 0 and launches["pdipm_fwd"] > 0,
+          f"float32 grid drop: launches {launches} for {queries} grid queries, {volumes} gradient volumes")
+    tr = {k: v.cpu().numpy() for k, v in traj._asdict().items()}
+    e_verts = float(np.abs(ball.verts.cpu().numpy() - xla["verts"]).max())
+    res = {name: hold_f32(tr, ref, f"float32 grid drop vs the {name} golden")
+           for name, ref in (("xla", xla), ("pallas", pallas))}
+    # the witness of the touchdown tie: the JAX package's float32 and
+    # float64 balls part at the touchdown
+    g64 = {k[len("traj_"):]: v for k, v in np.load(GRID_GOLDEN).items() if k.startswith("traj_")}
+    tie = f32_errors(xla, g64, len(tr["pos"]))
+    print(f"float32 grid drop: {int(xla['frames'])} frames on a 64^3 grid in {wall:.3f} s wall, "
+          f"{int(tr['valid'].sum())} substeps, {queries} grid queries, launches {launches}; verts vs JAX "
+          f"{e_verts:.2e}; " + "; ".join(f"vs the {k} golden: {fmt_errs(held)}" for k, (_, held, _) in res.items())
+          + f"; the JAX package's own float32 vs float64 runs: {fmt_errs(tie)}")
+    check(e_verts <= ATOL32_Y, f"float32 grid drop: verts differ from JAX's by {e_verts}")
+    return launches
+
+
+def f32_latent():
+    """optim_shapespace at the decoder's full width in float32: the
+    36-frame drop at the target latent through K4 and K1, then the fit's
+    first Adam step through K4, K1 and K2, against the "xla" and "pallas"
+    goldens."""
+    import torch
+    from diffsdfsim_torch.experiments import optim_shapespace as oss
+
+    xla, pallas = f32_golden("latent128", "xla"), f32_golden("latent128", "pallas")
+    # the golden's float64 draws of the weights, rounded to float32
+    net = igr_net(torch.float64, tuple(xla["dims"].tolist()), tuple(xla["skip_in"].tolist())).to(torch.float32)
+    c = dict(oss.DEFAULTS, run_time=int(xla["frames"]) / 30.0)
+    cfg = oss.build_cfg(c, torch.float32)
+    target, start, quat0 = (torch.tensor(xla[k], device="cuda") for k in ("target_latent", "start_latent", "quat0"))
+    reset_counts()
+    (_, traj), wall, syncs = synced(lambda: oss.simulate(target, quat0, net, c, cfg, device="cuda"))
+    launches = read_counts()
+    check(launches["igr_mlp"] > 0 and launches["pdipm_fwd"] > 0 and launches["fw_search"] == 0,
+          f"the float32 latent drop must launch K4 and K1 and not K3: {launches}")
+    tr = {k: v.cpu().numpy() for k, v in traj._asdict().items()}
+    traj_ref = lambda g: {k: g[f"traj_{k}"] for k in DECISIONS + ("pos", "quat", "v")}  # noqa: E731
+    part, held, _ = hold_f32(tr, traj_ref(pallas), "float32 latent drop vs the pallas golden",
+                             atol_y=ATOL32_LATENT_Y, atol_vy=ATOL32_LATENT_VY)
+    e_xla = f32_errors(tr, traj_ref(xla), len(tr["pos"]))
+    reset_counts()
+    out, fit_wall, _ = synced(lambda: oss.fit(net, target, start, quat0, c, cfg, device="cuda", max_iter=1))
+    fit_launches = read_counts()
+    check(all(fit_launches[k] > 0 for k in ("igr_mlp", "pdipm_fwd", "kkt_bwd")) and fit_launches["fw_search"] == 0,
+          f"the float32 latent fit must launch K4, K1 and K2 and not K3: {fit_launches}")
+    loss, grad = float(out["loss_hist"][0]), out["grad_hist"][0].cpu().numpy()
+    lat = out["final_latent"].cpu().numpy()
+    fit = {name: (rel_err(loss, ref["loss_0"]), rel_err(grad, ref["grad_0"]),
+                  float(np.abs(lat - ref["latent_1"]).max())) for name, ref in (("xla", xla), ("pallas", pallas))}
+    print(f"float32 latent drop: {len(tr['pos'])} frames in {wall:.3f} s wall, {int(tr['valid'].sum())} substeps, "
+          f"{syncs} device reads, launches {launches}; vs the pallas golden: {fmt_errs(held)} (decisions part at "
+          f"frame {part} of {len(tr['pos'])}); vs the xla golden: {fmt_errs(e_xla)}")
+    print(f"float32 latent fit, first Adam step in {fit_wall:.3f} s wall, launches {fit_launches}: loss {loss!r}, "
+          f"d loss / d latent {grad.tolist()}, latent {lat.tolist()}; " + "; ".join(
+              f"vs the {k} golden: loss rel {a:.2e}, gradient rel {b:.2e}, latent {z:.2e}"
+              for k, (a, b, z) in fit.items()))
+    # the witness of the gradient's float32 spread: the float64 gradient at
+    # the same inputs (the float32 weights and draws, tol 1e-5)
+    net64 = igr_net(torch.float64, tuple(xla["dims"].tolist()), tuple(xla["skip_in"].tolist())).to(
+        torch.float32).to(torch.float64)
+    out64 = oss.fit(net64, target.double(), start.double(), quat0.double(), c, cfg, device="cuda", max_iter=1)
+    g64 = out64["grad_hist"][0].cpu().numpy()
+    spread = {name: rel_err(g, g64) for name, g in (("card", grad), ("pallas", pallas["grad_0"]), ("xla", xla["grad_0"]))}
+    print(f"float32 latent fit: the float64 gradient at the same inputs {g64.tolist()}; float32 gradients rel to it: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in spread.items()))
+    check(fit["pallas"][0] <= RTOL32_FIT_LOSS and fit["pallas"][1] <= RTOL32_FIT_GRAD
+          and fit["pallas"][2] <= ATOL32_FIT_Z,
+          f"float32 latent fit vs the pallas golden: loss rel {fit['pallas'][0]}, gradient rel {fit['pallas'][1]}, "
+          f"latent {fit['pallas'][2]}")
+    check(spread["card"] <= max(spread["pallas"], spread["xla"]),
+          f"float32 latent fit: the gradient is farther from the float64 one at the same inputs ({spread['card']}) "
+          f"than the JAX package's float32 gradients are ({spread['pallas']}, {spread['xla']})")
+    return launches, fit_launches
+
+
+def phase_float32():
+    """float32, the JAX package's accelerator dtype, through the entry
+    points on the card against the JAX package's own float32 runs: the
+    bench forward (K1, K3) and its gradient at 12, 20 and 27 frames (K1,
+    K3, K2) against the "pallas" golden, the seed sweep at B = 16 (K1, K3,
+    K2), the 64^3 grid drop (K5, K1) and the full-width latent drop and
+    first Adam step (K4, K1, K2). Returns each kernel's launches."""
+    fwd = f32_bench_forward()
+    grad = f32_bench_gradients()
+    sweep = f32_sweep()
+    grid = f32_grid()
+    latent, fit = f32_latent()
+    return dict(bench=fwd, gradient=grad, sweep=sweep, grid=grid, latent=latent, fit=fit)
 
 
 # ---------------------------------------------------------------- phases 8-10
@@ -4276,11 +4685,12 @@ PATH_GROUPS = (
     ("phase_batched", "phase_grid_path", "phase_meshes", "phase_lanes_3d"),
     ("phase_sphere_sweep", "phase_pointcloud", "phase_latent_path", "phase_shapespace_sweep", "phase_demo",
      "phase_sharding"),
-    ("phase_sysid_sweep", "phase_inertia", "phase_main_path", "phase_lanes_2d"),
+    ("phase_sysid_sweep", "phase_inertia", "phase_main_path", "phase_lanes_2d", "phase_float32"),
     ("phase_gradient", "phase_2d", "phase_fallback"),
 )
 # the paths whose results the kernels line reads (the others return None)
-PATH_RESULTS = ("phase_main_path", "phase_gradient", "phase_grid_path", "phase_latent_path", "phase_lanes_3d")
+PATH_RESULTS = ("phase_main_path", "phase_gradient", "phase_grid_path", "phase_latent_path", "phase_lanes_3d",
+                "phase_float32")
 # the parent stops every group that is still running at this many seconds
 # of script time, and fails
 PATH_DEADLINE_S = 1120
@@ -4418,6 +4828,20 @@ def main():
     k5r = k5[(f64, 64, 960)]  # the grid path's grid at its most frequent query size
     k5l = k5[(f64, "lanes")]  # the grid sweep's 16 lanes at that size each
     lane_launches = paths["phase_lanes_3d"]
+    f32_runs = paths["phase_float32"]
+    f32 = torch.float32
+    # each kernel's float32 row at the same shapes, and its launches on the
+    # float32 paths (phase_float32)
+    f32_rows = {"pdipm_fwd": (k1[(f32, 4, 3)], f32_runs["bench"]), "fw_search": (
+        k3[(f32, "sphere->floor touch R=3")], f32_runs["bench"]), "kkt_bwd": (k2[(f32, 4, 1)], f32_runs["gradient"]),
+        "igr_mlp": (k4[(f32, 2304)], f32_runs["latent"]), "grid_query": (k5[(f32, 64, 960)], f32_runs["grid"]),
+        "grid_query_lanes": (k5[(f32, "lanes")], f32_runs["grid"])}
+    f32_err = {"pdipm_fwd": max(r["err"] for (dt, _, _), r in k1.items() if dt == f32),
+               "fw_search": max(r["err"] for (dt, _), r in k3.items() if dt == f32),
+               "kkt_bwd": max(r["err"] for (dt, _, _), r in k2.items() if dt == f32),
+               "igr_mlp": max(r["err"] for (dt, *_), r in k4.items() if dt == f32),
+               "grid_query": max(r["err"] for (dt, *_), r in k5.items() if dt == f32),
+               "grid_query_lanes": k5[(f32, "lanes")]["err"]}
     kernels = [
         dict(name="pdipm_fwd", route="cuda", source="diffsdfsim_torch/ops/csrc/pdipm_fwd.cu",
              replaces="diffsdfsim_tpu/ops/qp_pallas.py:247", launches=launches["pdipm_fwd"],
@@ -4449,6 +4873,12 @@ def main():
              max_abs_err=k5l["err"], ms=k5l["ms"], plain_ms=k5l["plain_ms"], bound_ms=max(k5l["bytes_ms"], k5l["ops_ms"]),
              bound_by="bytes" if k5l["bytes_ms"] > k5l["ops_ms"] else "operations", library_ms=k5l["library_ms"]),
     ]
+    for row in kernels:
+        r, runs = f32_rows[row["name"]]
+        row.update(launches_f32=runs[row["name"]], max_abs_err_f32=f32_err[row["name"]], ms_f32=r["ms"],
+                   plain_ms_f32=r["plain_ms"], bound_ms_f32=max(r["bytes_ms"], r["ops_ms"]),
+                   bound_by_f32="bytes" if r["bytes_ms"] > r["ops_ms"] else "operations",
+                   library_ms_f32=r.get("library_ms"))
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

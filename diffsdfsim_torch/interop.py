@@ -26,6 +26,11 @@ Layouts:
   ``had_toc`` and ``contacts`` (a contacts dict); a seed sweep's state has
   the lane axis first on every array (the dicts carry any shape).
 
+The ``*_from_numpy`` entry points keep the arrays' float dtype: a JAX
+body, contact buffer or state in float32 (the JAX package's accelerator
+dtype) comes across in float32, one in float64 in float64, unless the
+caller names a dtype.
+
 The trained shape space's cache file (``read_space`` / ``write_space``) is
 the JAX package's ``models/igr_train.load_or_train`` pickle: a dict of
 ``weights`` and ``biases`` (lists of numpy arrays), ``skip_in`` (list),
@@ -65,10 +70,21 @@ def _t(x, device, dtype):
     return torch.as_tensor(np.array(x), dtype=dtype, device=device)
 
 
-def body_from_numpy(d: dict, device=None, dtype=torch.float64) -> BodyDef:
+def _float_dtype(x, dtype):
+    """``dtype``, or where it is None the dtype of the numpy array ``x``:
+    float32 for float32 arrays (the JAX package's accelerator dtype),
+    float64 otherwise."""
+    if dtype is not None:
+        return dtype
+    return torch.float32 if np.asarray(x).dtype == np.float32 else torch.float64
+
+
+def body_from_numpy(d: dict, device=None, dtype=None) -> BodyDef:
     """A body from its numpy dict, on ``device`` (None: CUDA, raising
-    without it; pass "cpu" for the plain path)."""
+    without it; pass "cpu" for the plain path), in ``dtype`` (None: the
+    dtype of its verts)."""
     device = resolve_device(device)
+    dtype = _float_dtype(d["verts"], dtype)
     cls = _SHAPES[d["shape"]]
     kw = {f.name: _t(d[f.name], device, dtype) for f in dataclasses.fields(cls) if f.name != "decoder"}
     if cls is shapes_mod.LatentShape:
@@ -106,9 +122,11 @@ def body_to_numpy(bd: BodyDef) -> dict:
     return out
 
 
-def contacts_from_numpy(d: dict, device=None, dtype=torch.float64) -> Contacts:
-    """A contact buffer from its numpy dict, on ``device`` (as body_from_numpy)."""
+def contacts_from_numpy(d: dict, device=None, dtype=None) -> Contacts:
+    """A contact buffer from its numpy dict, on ``device`` (as
+    body_from_numpy), in ``dtype`` (None: the dtype of its ``pen``)."""
     device = resolve_device(device)
+    dtype = _float_dtype(d["pen"], dtype)
     kw = {}
     for f in dataclasses.fields(Contacts):
         if f.name in _CONTACT_INT:
@@ -124,9 +142,11 @@ def contacts_to_numpy(c: Contacts) -> dict:
     return {f.name: getattr(c, f.name).detach().cpu().numpy() for f in dataclasses.fields(Contacts)}
 
 
-def state_from_numpy(d: dict, device=None, dtype=torch.float64) -> WorldState:
-    """A world state from its numpy dict, on ``device`` (as body_from_numpy)."""
+def state_from_numpy(d: dict, device=None, dtype=None) -> WorldState:
+    """A world state from its numpy dict, on ``device`` (as
+    body_from_numpy), in ``dtype`` (None: the dtype of its ``pos``)."""
     device = resolve_device(device)
+    dtype = _float_dtype(d["pos"], dtype)
     return WorldState(
         quat=_t(d["quat"], device, dtype), pos=_t(d["pos"], device, dtype), v=_t(d["v"], device, dtype),
         t=_t(d["t"], device, dtype), contacts=contacts_from_numpy(d["contacts"], device, dtype),
