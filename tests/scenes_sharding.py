@@ -20,7 +20,9 @@ sweep pickles them into its worker processes.
 - ``card``: ``__graft_entry__._bounce_loss(bench_scale=True)``, the bench's
   configuration (``fric_dirs=8``, 4 contacts, subdivisions 3 and 2,
   ``max_substeps=4``, ``max_bisect=8``), at 16 seeds and 20 frames, past
-  every lane's touchdown.
+  every lane's touchdown;
+- ``jax_test`` and ``bench_2``: the small and the bench configuration at the
+  JAX tests' own 8 seeds and 2 frames (``tests/test_sharding.py``).
 
 The seeds are ``rads = linspace(0.4, 0.7, n)``, ``drops = linspace(1.0,
 1.5, n)`` (numpy's, fed to both packages).
@@ -39,6 +41,8 @@ SIZES = {
                           max_bisect=8, substep_unroll=4),
                  subdiv=(3, 2), lanes=16, frames=20),
 }
+SIZES["jax_test"] = dict(SIZES["cpu"], frames=2)
+SIZES["bench_2"] = dict(SIZES["card"], lanes=8, frames=2)
 LR = 1e-3  # dryrun_multichip's simulated update: rad - LR * d loss / d rad
 DECISIONS = ("valid", "n_halvings", "bisect_failed", "truncated")
 FLOOR_POSE = [1.0, 0, 0, 0, 0.0, -0.5, 0.0]

@@ -89,25 +89,45 @@ def jax_state_from_torch(state):
                       **{k: jnp.asarray(v) for k, v in d.items()})
 
 
-def torch_bench_world(drop=1.2, rad=0.5, cfg_kw=None, v_sphere=None, bodies=None):
-    """The port's bench world (CPU, float64); ``bodies`` replaces the
-    (floor, sphere) pair."""
+def torch_bench_world(drop=1.2, rad=0.5, cfg_kw=None, v_sphere=None, bodies=None, x=0.0, subdiv=(3, 2)):
+    """The port's bench world (CPU, float64): a sphere of radius ``rad``
+    (a number or a tensor) at (``x``, ``drop``, 0) over the floor box,
+    friction 0.25, the floor's and the sphere's template subdivisions
+    ``subdiv``; ``bodies`` replaces the (floor, sphere) pair."""
     from diffsdfsim_torch.config import SimConfig
     from diffsdfsim_torch.physics import (
         BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body, make_world,
     )
 
     if bodies is None:
-        floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=3, fric_coeff=0.25, device="cpu")
-        sphere = make_body(SphereShape(torch.tensor(rad, dtype=torch.float64)), subdiv=2, fric_coeff=0.25,
-                           device="cpu")
+        floor = make_body(BoxShape(torch.tensor([20.0, 1.0, 20.0])), subdiv=subdiv[0], fric_coeff=0.25, device="cpu")
+        sphere = make_body(SphereShape(torch.as_tensor(rad, dtype=torch.float64)), subdiv=subdiv[1],
+                           fric_coeff=0.25, device="cpu")
         bodies = [floor, sphere]
-    poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, 0.0, drop, 0.0]]
+    poses = [[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, x, drop, 0.0]]
     vels = np.zeros((2, 6))
     if v_sphere is not None:
         vels[1] = v_sphere
     return make_world(bodies, poses, vels, joints=(TotalConstraint3D(body1=0),),
                       forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**(cfg_kw or BENCH_CFG)), device="cpu")
+
+
+def jax_bench_world(drop=1.2, rad=0.5, cfg_kw=None, v_sphere=None, bodies=None, x=0.0, subdiv=(3, 2)):
+    """The JAX package's world of ``torch_bench_world`` (``rad`` and
+    ``drop`` may be traced)."""
+    from diffsdfsim_tpu.config import SimConfig
+    from diffsdfsim_tpu.physics import BoxShape, Gravity3D, SphereShape, TotalConstraint3D, make_body, make_world
+
+    if bodies is None:
+        floor = make_body(BoxShape(jnp.array([20.0, 1.0, 20.0])), subdiv=subdiv[0], fric_coeff=0.25)
+        sphere = make_body(SphereShape(jnp.asarray(rad)), subdiv=subdiv[1], fric_coeff=0.25)
+        bodies = [floor, sphere]
+    poses = jnp.array([[1.0, 0, 0, 0, 0.0, -0.5, 0.0], [1.0, 0, 0, 0, x, 0.0, 0.0]]).at[1, 5].set(drop)
+    vels = jnp.zeros((2, 6))
+    if v_sphere is not None:
+        vels = vels.at[1].set(jnp.asarray(v_sphere, dtype=jnp.float64))
+    return make_world(bodies, poses, vels, joints=(TotalConstraint3D(body1=0),),
+                      forces=((), (Gravity3D(10.0),)), cfg=SimConfig(**(cfg_kw or BENCH_CFG)))
 
 
 def jax_spec_like(tspec):
